@@ -1,0 +1,1 @@
+"""Execution backend of the PyTorch port (see the package docstring)."""

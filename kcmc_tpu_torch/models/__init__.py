@@ -1,0 +1,1 @@
+"""Transform models of the PyTorch port (see the package docstring)."""
