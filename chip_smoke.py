@@ -10,27 +10,44 @@ line is printed:
 
 1. device: requires a CUDA card; prints nvidia-smi's name and power
    limit;
-2. build: compiles every CUDA kernel of the translation path from
+2. build: compiles every CUDA kernel (K1-K5, K7) from
    kcmc_tpu_torch/csrc (one nvcc per source, in parallel);
 3. kernels: each kernel against its plain PyTorch version on the card
-   at the main path's shapes (B=32, 512x512, K=512), K2 also at
-   2048x2048 and K3 also at 1024x1024: K1 fields within 1e-5 of
-   max|response| with the identical -inf pattern inside the border, K2
-   bit-identical, K3 within 1e-5 relative with identical ok flags; then
-   CUDA-event times of kernel, plain version and (K3) the grid_sample
-   yardstick, and each kernel's bound;
-4. e2e: MotionCorrector(model="translation").correct() on a
-   1000-frame 512x512 synthetic drift stack (config 1 of BASELINE.json)
-   with the launch counters reset just before: transform RMSE <= 0.05
-   px, every frame warp_ok, and K1/K2/K3 launched 33/33/64 times.
+   at the main paths' shapes, then CUDA-event times of kernel, plain
+   version and one-call PyTorch yardstick where there is one, and each
+   kernel's bound (the larger of bytes over 3.35 TB/s and operations
+   over the peak rate of their type, which the phase line names):
+   - translation path (B=32, 512x512, K=512): K1 fields within 1e-5 of
+     max|response| with the identical -inf pattern inside the border,
+     K2 bit-identical (also at 2048x2048), K3 within 1e-5 relative with
+     identical ok flags (also at 1024x1024);
+   - affine path (config 2: 32 frames of 512x512, K=4096, inputs from
+     the bins-first route): K1 at nms 3 / window 1.2 as above, K4
+     bit-identical (also at 1024x1024), K2 at P=32 on the 4368 sorted
+     slots bit-identical, K5 bit-identical with the one-hot selection
+     stack and within one bf16 ulp with a dense one (a sentinel bin
+     included), K7 within 1e-5 relative with identical ok flags at
+     max_px=18 (also at 1024x1024 and 2048x2048; a rotation beyond the
+     bound, a shift beyond +-128 px and M[2,2]=0 are zeroed and
+     flagged);
+4. e2e: MotionCorrector(model="translation").correct() on a 1000-frame
+   512x512 drift stack (config 1 of BASELINE.json), launch counters
+   reset just before: transform RMSE <= 0.05 px, every frame warp_ok,
+   launches K1/K2/K3 = 33/33/64 and no affine kernel;
+5. e2e_affine: MotionCorrector(model="affine", max_keypoints=4096,
+   nms_size=3, harris_window_sigma=1.2, cand_tile=4).correct() on
+   config 2 (64 frames of 512x512, 12000 sharp blobs, tiled to 1000 as
+   the JAX package's bench.py tiles it): RMSE <= 0.05 px, launches
+   K1/K2/K4/K5 = 33 and K7 = 64, no K3; frames K7 flagged are rescued
+   through the gather warp and counted.
 
 The line before the last holds the kernels table; the last line is
 {"ok": true, "device": {...}}.
 
-    python3 chip_smoke.py --profile
+    python3 chip_smoke.py --profile [translation|affine]
 
 instead runs the device and build phases and then profiles six 32-frame
-batches of the translation batch program (host wall time, device busy
+batches of that config's batch program (host wall time, device busy
 time and idle share, the kcmc.* stage ranges, the top device
 operations), for PERF.md's breakdown.
 """
@@ -47,7 +64,13 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores
+BF16_TC_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 TOL = 1e-5
+# config 2 of BASELINE.json, as the JAX package's bench.py defines it
+# (CONFIG_ROWS["affine@2k"], _build_stack)
+CFG2 = dict(max_keypoints=4096, nms_size=3, harris_window_sigma=1.2, cand_tile=4)
+CFG2_SCENE = dict(model="affine", max_drift=10.0, seed=0, n_blobs=12000,
+                  sigma_range=(0.7, 1.4))
 
 
 def emit(obj) -> None:
@@ -69,10 +92,21 @@ def event_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float, rate: float = F32_FLOPS) -> tuple[float, str]:
     t_mem = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_ops / F32_FLOPS
+    t_ops = n_ops / rate
     return max(t_mem, t_ops) * 1e3, "bytes" if t_mem >= t_ops else "operations"
+
+
+def config2_stack(n_frames: int):
+    """Config 2's 64-frame drift stack tiled to n_frames (the JAX
+    package's bench.py tiling), with its tiled ground truth."""
+    from kcmc_tpu_torch.utils.synthetic import make_drift_stack
+
+    data = make_drift_stack(n_frames=min(n_frames, 64), shape=(512, 512), **CFG2_SCENE)
+    reps = -(-n_frames // len(data.stack))
+    stack = np.tile(data.stack, (reps, 1, 1))[:n_frames]
+    return stack, np.tile(data.transforms, (reps, 1, 1))[:n_frames]
 
 
 def phase_device() -> tuple[str, str]:
@@ -106,11 +140,11 @@ def _frames(n, shape, seed):
     return torch.as_tensor(s.stack, device="cuda").contiguous()
 
 
-def _check_k1(frames, border: int = 16):
+def _check_k1(frames, border: int = 16, **kw):
     from kcmc_tpu_torch.ops.cuda_detect import detect_response, detect_response_plain
 
-    got = detect_response(frames, smooth_sigma=2.0)
-    want = detect_response_plain(frames, smooth_sigma=2.0)
+    got = detect_response(frames, smooth_sigma=2.0, **kw)
+    want = detect_response_plain(frames, smooth_sigma=2.0, **kw)
     torch.cuda.synchronize()
     H, W = frames.shape[1:]
     inner = (slice(None), slice(border, H - border), slice(border, W - border))
@@ -236,48 +270,262 @@ def phase_kernels() -> list[dict]:
     return rows
 
 
-def phase_e2e(smi: str) -> dict[str, int]:
+def _check_k7(frames, M, max_px: int, what: str) -> float:
+    from kcmc_tpu_torch.ops import cuda_warp_matrix
+
+    out, ok = cuda_warp_matrix.warp_batch_matrix(frames, M, max_px=max_px)
+    ref, ref_ok = cuda_warp_matrix.warp_batch_matrix_plain(frames, M, max_px)
+    e = float((out - ref).abs().max())
+    if e > TOL * float(ref.abs().max()) or not torch.equal(ok, ref_ok):
+        raise AssertionError(f"K7: error {e} or ok flags differ at {what}")
+    return e
+
+
+def _affine_maps(n, shape, seed, rot=0.05, shear=0.02, shift=10.0):
+    """n random affine maps about the frame centre (config 2's range)."""
+    g = np.random.default_rng(seed)
+    H, W = shape
+    c = np.array([(W - 1) / 2.0, (H - 1) / 2.0])
+    M = np.tile(np.eye(3, dtype=np.float32), (n, 1, 1))
+    for i in range(n):
+        th = g.uniform(-rot, rot)
+        L = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+        L = L @ (np.eye(2) + g.uniform(-shear, shear, (2, 2)))
+        M[i, :2, :2] = L
+        M[i, :2, 2] = g.uniform(-shift, shift, 2) + c - L @ c
+    return torch.as_tensor(M, device="cuda").contiguous()
+
+
+def phase_kernels_affine() -> tuple[list[dict], dict]:
+    """K4, K5 and K7 at config 2's shapes, fed by the bins-first route
+    on 32 config-2 frames; K1 and K2 checked at the path's parameters."""
+    from kcmc_tpu_torch.backends.torch_backend import TorchBackend
+    from kcmc_tpu_torch.config import CorrectorConfig
+    from kcmc_tpu_torch.ops import cuda_moments, cuda_patch, cuda_select, cuda_warp_matrix
+    from kcmc_tpu_torch.ops import describe as D
+    from kcmc_tpu_torch.ops.cuda_moments import band_structure
+    from kcmc_tpu_torch.ops.detect import detect_keypoints_batch
+    from kcmc_tpu_torch.ops.patterns import MOMENTS, N_ORIENT_BINS, ROT_RADIUS
+
+    B, H, W = 32, 512, 512
+    stack, gt = config2_stack(B)
+    frames = torch.as_tensor(stack, device="cuda").contiguous()
+    extra = {}
+    extra["k1_affine_err"] = _check_k1(frames, nms_size=3, window_sigma=1.2)
+    kps, smooth = detect_keypoints_batch(
+        frames, max_keypoints=4096, threshold=1e-4, nms_size=3, smooth_sigma=2.0,
+        window_sigma=1.2, cand_tile=4,
+    )
+    r = ROT_RADIUS
+    P = 2 * r + 2
+    mu = smooth.mean(dim=(1, 2), keepdim=True)
+    padded = D.edge_pad((smooth - mu).to(torch.bfloat16), r + 1).contiguous()
+    rows = []
+
+    # K4 moment_maps: bit-identical at (32, 544, 544) and at 1024x1024
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    big = torch.randn((2, 1024 + 2 * (r + 1), 1024 + 2 * (r + 1)), device="cuda",
+                      generator=gen).to(torch.bfloat16)
+    for p_in, what in ((padded, "config 2"), (big, "1024x1024")):
+        got = cuda_moments.moment_maps(p_in)
+        want = cuda_moments.moment_maps_plain(p_in)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"K4: not bit-identical to its plain version at {what}")
+    del big
+    n_map = B * (padded.shape[1] - 14) * (padded.shape[2] - 14)
+    widths = sorted({w for w, _ in band_structure()})
+    ops_px = sum(6 * w for w in widths) + len(band_structure()) + 2 * 14
+    b4, by4 = bound_ms(padded.numel() * 2 + 2 * n_map * 4, n_map * ops_px)
+    torch.backends.cudnn.allow_tf32 = False
+    kern = torch.as_tensor(
+        np.stack([MOMENTS[..., 0] * MOMENTS[..., 2], MOMENTS[..., 1] * MOMENTS[..., 2]])[:, None],
+        device="cuda",
+    )
+    pf = padded.float()[:, None]
+    lib4 = event_ms(lambda: torch.nn.functional.conv2d(pf, kern), 10)
+    lib_maps = torch.nn.functional.conv2d(pf, kern)
+    m10, m01 = cuda_moments.moment_maps(padded)
+    extra["k4_vs_conv_max_abs"] = float(max((lib_maps[:, 0] - m10).abs().max(),
+                                            (lib_maps[:, 1] - m01).abs().max()))
+    rows.append({
+        "name": "moment_maps", "route": "cuda",
+        "source": "kcmc_tpu_torch/csrc/moments.cu",
+        "replaces": "kcmc_tpu/ops/pallas_patch.py:1276",
+        "max_abs_err": 0.0,
+        "ms": event_ms(lambda: cuda_moments.moment_maps(padded), 20),
+        "plain_ms": event_ms(lambda: cuda_moments.moment_maps_plain(padded), 3, 1),
+        "bound_ms": b4, "bound_by": by4, "library_ms": lib4,
+    })
+    del pf, lib_maps
+
+    # the route up to K5: bins, aligned runs, K2 at P=32 on sorted slots
+    m10, m01 = D._moments_at_keypoints(padded, kps.xy, r)
+    bins = D._quantize_bins(torch.atan2(m01, m10))
+    nb = N_ORIENT_BINS
+    keys = torch.where(kps.valid, bins, torch.full_like(bins, nb))
+    src, _, aends = D._aligned_runs(keys, nb + 1, D.RUN_ALIGN)
+    Kp = src.shape[1]
+    K = kps.xy.shape[1]
+    safe = torch.clamp(src, max=K - 1)
+    xy_s = torch.gather(kps.xy, 1, safe[..., None].expand(B, Kp, 2))
+    xy_s = torch.where((src < K)[..., None], xy_s, torch.zeros((), device="cuda")).contiguous()
+    pb = cuda_patch.extract_blended(padded, xy_s, P)
+    if not torch.equal(pb.view(torch.int16),
+                       cuda_patch.extract_blended_plain(padded, xy_s, P).view(torch.int16)):
+        raise AssertionError("K2: not bit-identical to its plain version at P=32, Kp=4368")
+    flat = pb.reshape(B, Kp, -1).contiguous()
+    s_blk = (torch.arange(Kp // D.RUN_ALIGN, device="cuda") * D.RUN_ALIGN).expand(B, -1)
+    ibin = torch.searchsorted(aends, s_blk.contiguous(), side="right").to(torch.int32)
+    ibin[0, -1] = nb  # a sentinel block, clamped to the last matrix
+    ibin = ibin.contiguous()
+    sel = D.sel_rot("cuda")
+    got = cuda_select.binned_select_rows(flat, ibin, sel, D.RUN_ALIGN)
+    want = cuda_select.binned_select_rows_plain(flat, ibin, sel, D.RUN_ALIGN)
+    if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+        raise AssertionError("K5: not bit-identical with the one-hot selection stack")
+    dense = torch.randn(sel.shape, device="cuda", generator=gen).to(torch.bfloat16)
+    gd = cuda_select.binned_select_rows(flat[:4], ibin[:4].contiguous(), dense, 16).float()
+    wd = cuda_select.binned_select_rows_plain(flat[:4], ibin[:4], dense, 16).float()
+    mag = torch.maximum(gd.abs(), wd.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp(min=1e-30))) - 7)
+    err5 = float((gd - wd).abs().max())
+    if not ((gd - wd).abs() <= ulp + 1e-5 * wd.abs().max()).all():
+        raise AssertionError(f"K5: dense selection beyond one bf16 ulp (max error {err5})")
+    extra["k5_dense_max_abs"] = err5
+    extra["k5_sorted_slots"] = Kp
+    extra["mean_valid_keypoints"] = float(kps.valid.sum(dim=1).float().mean())
+    L, V = flat.shape[2], sel.shape[2]
+    flops5 = 2.0 * B * Kp * L * V
+    b5, by5 = bound_ms(flat.numel() * 2 + sel.numel() * 2 + ibin.numel() * 4
+                       + B * Kp * V * 2, flops5, BF16_TC_FLOPS)
+    rows2d = flat.reshape(B * Kp, L)
+    lib5 = event_ms(lambda: torch.matmul(rows2d, sel[0]), 10)
+    rows.append({
+        "name": "binned_select_rows", "route": "cuda",
+        "source": "kcmc_tpu_torch/csrc/select.cu",
+        "replaces": "kcmc_tpu/ops/pallas_patch.py:1169",
+        "max_abs_err": 0.0,
+        "ms": event_ms(lambda: cuda_select.binned_select_rows(flat, ibin, sel, 16), 20),
+        "plain_ms": event_ms(
+            lambda: cuda_select.binned_select_rows_plain(flat, ibin, sel, 16), 3, 1),
+        "bound_ms": b5, "bound_by": by5, "library_ms": lib5,
+    })
+    del pb, flat, rows2d, dense, got, want, gd, wd
+
+    # K7 warp_batch_matrix at max_px = _matrix_resid_px(512^2) = 18 on
+    # config 2's ground-truth maps, three of them out of its envelope
+    backend = TorchBackend(CorrectorConfig(model="affine", **CFG2), device="cuda")
+    mpx = backend._matrix_resid_px((H, W))
+    gt_rel = gt @ np.linalg.inv(gt[0])
+    M = torch.as_tensor(gt_rel.astype(np.float32), device="cuda").contiguous()
+    err7 = _check_k7(frames, M, mpx, "512x512")
+    Mx = M.clone()
+    th = 0.1  # ~25 px at the corners: beyond the bound
+    c = (W - 1) / 2.0
+    Mx[1, :2, :2] = torch.tensor([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+    Mx[1, :2, 2] = torch.tensor([c - c * np.cos(th) + c * np.sin(th),
+                                 c - c * np.sin(th) - c * np.cos(th)])
+    Mx[2, 0, 2] = 140.5  # beyond +-PAD
+    Mx[3, 2, 2] = 0.0  # degenerate
+    out, ok = cuda_warp_matrix.warp_batch_matrix(frames, Mx.contiguous(), max_px=mpx)
+    err7 = max(err7, _check_k7(frames, Mx.contiguous(), mpx, "512x512, out of envelope"))
+    if ok[1:4].any() or float(out[1:4].abs().max()) != 0.0 or not bool(ok[0]):
+        raise AssertionError("K7: frames out of the envelope must be zeroed and flagged")
+    for side, n in ((1024, 8), (2048, 2)):
+        fr = _frames(n, (side, side), seed=side)
+        mp = backend._matrix_resid_px((side, side))
+        err7 = max(err7, _check_k7(fr, _affine_maps(n, (side, side), side, rot=0.005),
+                                   mp, f"{side}x{side}"))
+        del fr
+    px = B * H * W
+    b7, by7 = bound_ms(2 * px * 4 + M.numel() * 4 + B, px * 126)
+    ys = torch.arange(H, device="cuda", dtype=torch.float32)[:, None].expand(H, W)
+    xs = torch.arange(W, device="cuda", dtype=torch.float32)[None, :].expand(H, W)
+    sx = M[:, 0, 0, None, None] * xs + M[:, 0, 1, None, None] * ys + M[:, 0, 2, None, None]
+    sy = M[:, 1, 0, None, None] * xs + M[:, 1, 1, None, None] * ys + M[:, 1, 2, None, None]
+    grid = torch.stack([sx * (2.0 / (W - 1)) - 1.0, sy * (2.0 / (H - 1)) - 1.0], dim=-1)
+    lib7 = event_ms(lambda: torch.nn.functional.grid_sample(
+        frames[:, None], grid, mode="bilinear", padding_mode="zeros",
+        align_corners=True), 20)
+    rows.append({
+        "name": "warp_batch_matrix", "route": "cuda",
+        "source": "kcmc_tpu_torch/csrc/warp_matrix.cu",
+        "replaces": "kcmc_tpu/ops/pallas_warp_field.py:526",
+        "max_abs_err": err7,
+        "ms": event_ms(lambda: cuda_warp_matrix.warp_batch_matrix(frames, M, max_px=mpx), 20),
+        "plain_ms": event_ms(
+            lambda: cuda_warp_matrix.warp_batch_matrix_plain(frames, M, mpx), 3, 1),
+        "bound_ms": b7, "bound_by": by7, "library_ms": lib7,
+    })
+    extra["k7_max_px"] = mpx
+    extra["bound_rates"] = {"moment_maps": "float32 67 TFLOP/s",
+                            "binned_select_rows": "bf16 tensor 989 TFLOP/s",
+                            "warp_batch_matrix": "float32 67 TFLOP/s"}
+    return rows, extra
+
+
+ZERO = {"detect_response": 0, "extract_blended": 0, "warp_translation": 0,
+        "moment_maps": 0, "binned_select_rows": 0, "warp_batch_matrix": 0}
+WANT_LAUNCHES = {
+    "translation": {**ZERO, "detect_response": 33, "extract_blended": 33,
+                    "warp_translation": 64},
+    "affine": {**ZERO, "detect_response": 33, "extract_blended": 33, "moment_maps": 33,
+               "binned_select_rows": 33, "warp_batch_matrix": 64},
+}
+
+
+def phase_e2e(smi: str, model: str) -> dict[str, int]:
+    """One 1000-frame correct() of the model's cell, counters reset just
+    before it and read just after."""
     from kcmc_tpu_torch import MotionCorrector
     from kcmc_tpu_torch.utils.metrics import relative_transforms, transform_rmse
     from kcmc_tpu_torch.utils.synthetic import make_drift_stack
 
     t0 = time.perf_counter()
-    data = make_drift_stack(n_frames=1000, shape=(512, 512), model="translation", seed=0)
+    if model == "translation":
+        data = make_drift_stack(n_frames=1000, shape=(512, 512), model="translation", seed=0)
+        stack, gt = data.stack, data.transforms
+        mc = MotionCorrector(model="translation")
+    else:
+        stack, gt = config2_stack(1000)
+        mc = MotionCorrector(model="affine", **CFG2)
     t_data = time.perf_counter() - t0
-    mc = MotionCorrector(model="translation")
-    mc.correct(data.stack[:32])  # warm-up: cuBLAS handles, allocator
+    mc.correct(stack[:32])  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
 
     mc.backend.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = mc.correct(data.stack)
+    res = mc.correct(stack)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = mc.backend.launch_counts()
 
-    rmse = transform_rmse(res.transforms, relative_transforms(data.transforms), (512, 512))
+    rmse = transform_rmse(res.transforms, relative_transforms(gt), (512, 512))
     rescued = int(np.sum(res.diagnostics["warp_rescued"]))
     emit({
-        "phase": "e2e", "frames": len(data.stack), "seconds": seconds,
-        "frames_per_s": len(data.stack) / seconds, "rmse_px": rmse,
-        "warp_rescued": rescued, "launches": launches,
+        "phase": "e2e" if model == "translation" else "e2e_affine", "model": model,
+        "frames": len(stack), "seconds": seconds, "frames_per_s": len(stack) / seconds,
+        "rmse_px": rmse, "warp_rescued": rescued, "launches": launches,
+        "mean_keypoints": float(np.mean(res.diagnostics["n_keypoints"])),
+        "mean_matches": float(np.mean(res.diagnostics["n_matches"])),
         "mean_inliers": float(np.mean(res.diagnostics["n_inliers"])),
+        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
         "data_seconds": t_data, "card": smi,
     })
-    if res.corrected.shape != data.stack.shape or not np.isfinite(res.corrected).all():
-        raise AssertionError("e2e: corrected stack has the wrong shape or non-finite values")
+    if res.corrected.shape != stack.shape or not np.isfinite(res.corrected).all():
+        raise AssertionError(f"{model}: corrected stack has the wrong shape or non-finite values")
     if not np.isfinite(res.transforms).all() or rmse > 0.05:
-        raise AssertionError(f"e2e: transform RMSE {rmse} px exceeds 0.05 px")
-    if rescued:
+        raise AssertionError(f"{model}: transform RMSE {rmse} px exceeds 0.05 px")
+    if model == "translation" and rescued:
         raise AssertionError(f"e2e: {rescued} frames were not warp_ok")
-    want = {"detect_response": 33, "extract_blended": 33, "warp_translation": 64}
-    if launches != want:
-        raise AssertionError(f"e2e: launch counts {launches} != {want}")
+    if launches != WANT_LAUNCHES[model]:
+        raise AssertionError(f"{model}: launch counts {launches} != {WANT_LAUNCHES[model]}")
     return launches
 
 
-def phase_profile(smi: str, n_batches: int = 6) -> None:
-    """Where the time of the translation batch program goes on the card:
+def phase_profile(smi: str, model: str, n_batches: int = 6) -> None:
+    """Where the time of the model's batch program goes on the card:
     host wall time per 32-frame batch (no profiler), then one
     torch.profiler pass over the same batches for device busy time, the
     per-stage ranges (kcmc.*: host time and device span) and the
@@ -291,11 +539,16 @@ def phase_profile(smi: str, n_batches: int = 6) -> None:
     from kcmc_tpu_torch.utils.synthetic import make_drift_stack
 
     B = 32
-    data = make_drift_stack(n_frames=B * (n_batches + 1), shape=(512, 512), seed=0)
-    backend = MotionCorrector(model="translation").backend
-    ref = backend.prepare_reference(data.stack[0])
+    n = B * (n_batches + 1)
+    if model == "translation":
+        stack = make_drift_stack(n_frames=n, shape=(512, 512), seed=0).stack
+        backend = MotionCorrector(model="translation").backend
+    else:
+        stack = config2_stack(n)[0]
+        backend = MotionCorrector(model="affine", **CFG2).backend
+    ref = backend.prepare_reference(stack[0])
     batches = [
-        (data.stack[i * B:(i + 1) * B], np.arange(i * B, (i + 1) * B))
+        (stack[i * B:(i + 1) * B], np.arange(i * B, (i + 1) * B))
         for i in range(n_batches + 1)
     ]
     backend.process_batch(batches[0][0], ref, batches[0][1])  # warm-up
@@ -336,7 +589,8 @@ def phase_profile(smi: str, n_batches: int = 6) -> None:
     top = sorted(ops.items(), key=lambda kv: kv[1][0], reverse=True)[:15]
     busy_ms = busy / 1e3 / n_batches
     emit({
-        "phase": "profile", "batch": B, "batches": n_batches, "card": smi,
+        "phase": "profile", "model": model, "batch": B, "batches": n_batches,
+        "card": smi,
         "wall_ms_per_batch": wall_ms, "device_busy_ms_per_batch": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "stages": stages,
@@ -354,13 +608,23 @@ def main() -> int:
 
     name, smi = phase_device()
     phase_build()
-    if "--profile" in sys.argv[1:]:
-        phase_profile(smi)
+    args = sys.argv[1:]
+    if "--profile" in args:
+        rest = args[args.index("--profile") + 1:]
+        model = rest[0] if rest else "translation"
+        if model not in WANT_LAUNCHES:
+            raise SystemExit(f"chip_smoke: --profile takes one of {sorted(WANT_LAUNCHES)}")
+        phase_profile(smi, model)
         return 0
     rows = phase_kernels()
-    launches = phase_e2e(smi)
+    rows_affine, extra = phase_kernels_affine()
+    rows += rows_affine
+    emit({"phase": "kernels_affine", **extra,
+          "checked": [r["name"] for r in rows_affine],
+          "max_abs_err": {r["name"]: r["max_abs_err"] for r in rows_affine}})
+    by_path = {m: phase_e2e(smi, m) for m in ("translation", "affine")}
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = sum(c[r["name"]] for c in by_path.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi, flush=True)

@@ -1,23 +1,29 @@
-"""The PyTorch execution backend: the translation batch program.
+"""The PyTorch execution backend: the translation and affine batch
+programs.
 
-Counterpart of `kcmc_tpu/backends/jax_backend.py` for the slice the
-port covers — the translation `core` of `_build_local_2d` (no shape
-buckets, temporal seeds or mesh):
+Counterpart of `kcmc_tpu/backends/jax_backend.py` for the slices the
+port covers — the translation and affine `core` of `_build_local_2d`
+(no shape buckets, temporal seeds or mesh):
 
-    K1 fields + blur -> selection -> K2 describe -> match -> consensus
-    -> K3 warp -> photometric polish -> K3 re-warp
+    translation: K1 fields + blur -> selection -> K2 upright describe
+        -> match -> consensus -> K3 warp -> polish -> K3 re-warp
+    affine:      K1 -> selection -> K4 moments, bins, K2, K5 oriented
+        describe -> match -> consensus -> K7 warp -> polish -> K7 re-warp
 
 plus reference preparation (the same detect+describe on a batch of
-one, so the reference also runs K1 and K2), the exact gather rescue of
-frames K3 flags, and the kernels' launch counters. The stages of the
-batch program are named profiler ranges (`kcmc.detect_describe`, ...)
-that `chip_smoke.py --profile` reads. RANSAC keys fold the
+one, so the reference runs the same kernels), the exact gather rescue
+of frames the bounded warp flags, and the kernels' launch counters.
+The stages of the batch program are named profiler ranges
+(`kcmc.detect_describe`, ...) that `chip_smoke.py --profile` reads. RANSAC keys fold the
 global frame index into `key(seed)`, so results do not depend on batch
 boundaries. Tensors live on `device`; on the card every kernel runs as
 CUDA, on the CPU as its plain version.
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import numpy as np
 import torch
@@ -26,6 +32,7 @@ from kcmc_tpu_torch.config import CorrectorConfig
 from kcmc_tpu_torch.models.transforms import get_model
 from kcmc_tpu_torch.ops import cuda_build
 from kcmc_tpu_torch.ops.cuda_warp import warp_translation
+from kcmc_tpu_torch.ops.cuda_warp_matrix import warp_batch_matrix
 from kcmc_tpu_torch.ops.fused import fused_detect_describe, fused_match_consensus
 from kcmc_tpu_torch.ops.polish import polish_transforms
 from kcmc_tpu_torch.ops.warp import warp_batch
@@ -80,7 +87,37 @@ class TorchBackend:
             window_sigma=cfg.harris_window_sigma,
             blur_sigma=cfg.blur_sigma,
             cand_tile=cfg.cand_tile,
+            oriented=cfg.resolved_oriented(),
         )
+
+    # -- warp policy -------------------------------------------------------
+
+    def _shear_bound_px(self, shape) -> int:
+        """Rotation allowance in pixels: `max_rotation_deg` (per frame
+        shape) when set, else `max_shear_px` (jax_backend.py:1561)."""
+        cfg = self.config
+        if cfg.max_rotation_deg is None:
+            return cfg.max_shear_px
+        side = max(shape)
+        return int(math.ceil(math.tan(math.radians(cfg.max_rotation_deg)) * side / 2.0))
+
+    def _matrix_resid_px(self, shape) -> int:
+        """Residual bound of the matrix warp K7: the rotation, projective
+        and ~1.5% scale allowances, at least 12 (jax_backend.py:1575)."""
+        cfg = self.config
+        scale_margin = max(4, int(cfg.max_scale_dev * max(shape) / 2) + 1)
+        return max(
+            12, self._shear_bound_px(shape) + cfg.max_projective_px + scale_margin
+        )
+
+    def _resolve_batch_warp(self, shape):
+        """fn(frames (B, H, W), transforms (B, 3, 3)) -> (corrected, ok):
+        K3 for translation, K7 with max_px = _matrix_resid_px(shape) for
+        affine (the reference's accelerator choices; `unsupported()`
+        refuses every other policy)."""
+        if self.config.model == "translation":
+            return warp_translation
+        return functools.partial(warp_batch_matrix, max_px=self._matrix_resid_px(shape))
 
     def prepare_reference(self, ref_frame) -> dict:
         """Keypoints and descriptors of the (H, W) reference frame:
@@ -126,8 +163,9 @@ class TorchBackend:
                 budget_rungs=cfg.budget_rungs, early_exit_frac=cfg.early_exit_frac,
             )
         M = res.transform.contiguous()
+        batch_warp = self._resolve_batch_warp(frames.shape[1:])
         with stage("warp"):
-            corrected, ok = warp_translation(frames, M)
+            corrected, ok = batch_warp(frames, M)
         for _ in range(int(cfg.transform_polish)):
             # frames the bounded warp zeroed have nothing to correlate:
             # they keep their transform for the rescue path
@@ -137,7 +175,7 @@ class TorchBackend:
                 )
                 M = torch.where(ok[:, None, None], newM, M).contiguous()
             with stage("warp"):
-                corrected, ok = warp_translation(frames, M)
+                corrected, ok = batch_warp(frames, M)
         out = {
             "transform": M,
             "corrected": corrected,
@@ -152,8 +190,9 @@ class TorchBackend:
 
     def rescue_warp(self, frames, out: dict, ref: dict | None = None) -> np.ndarray:
         """Exact gather warp (plus the photometric polish, with `ref`)
-        for frames K3 flagged; updates out["transform"] in place so the
-        exported transforms match the rescued pixels."""
+        for frames the bounded warp (K3 or K7) flagged; updates
+        out["transform"] in place so the exported transforms match the
+        rescued pixels."""
         cfg = self.config
         fr = torch.as_tensor(np.asarray(frames, np.float32), device=self.device)
         M = torch.as_tensor(np.asarray(out["transform"], np.float32), device=self.device)

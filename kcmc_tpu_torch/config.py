@@ -1,8 +1,8 @@
 """Pipeline configuration of the PyTorch port.
 
-The fields the translation slice reads, under the names and defaults of
-`kcmc_tpu.config.CorrectorConfig`, so a JAX config carries across with
-`config_from_dict(dataclasses.asdict(cfg))`. Knobs the slice does not
+The fields the translation and affine slices read, under the names and
+defaults of `kcmc_tpu.config.CorrectorConfig`, so a JAX config carries
+across with `config_from_dict(dataclasses.asdict(cfg))`. Knobs the slice does not
 implement are still declared: `unsupported()` names each non-default one
 with the ROADMAP.md item that will port it, and the backend raises
 `NotImplementedError` with that list instead of ignoring them.
@@ -11,6 +11,11 @@ with the ROADMAP.md item that will port it, and the backend raises
 from __future__ import annotations
 
 import dataclasses
+
+# Oriented describe takes the bins-first route from this many keypoints
+# on (kcmc_tpu/ops/describe.py:_BINS_FIRST_MIN_K); the small-K route
+# below it is not ported yet.
+BINS_FIRST_MIN_K = 2048
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +56,10 @@ class CorrectorConfig:
     # warp + photometric polish
     warp: str = "auto"
     rescue_warp: bool = True
+    max_shear_px: int = 8
+    max_rotation_deg: float | None = None
+    max_projective_px: int = 4
+    max_scale_dev: float = 0.02
     transform_polish: int = 1
     polish_grid: tuple[int, int] = (4, 4)
 
@@ -71,6 +80,14 @@ class CorrectorConfig:
             )
         if self.cand_tile < 1:
             raise ValueError(f"cand_tile must be >= 1, got {self.cand_tile}")
+        if self.max_rotation_deg is not None and not (
+            0.0 < self.max_rotation_deg < 45.0
+        ):
+            raise ValueError(
+                "max_rotation_deg must be in (0, 45) — beyond that the "
+                "separable shear decomposition degrades; use warp='jnp' "
+                f"for extreme rotations (got {self.max_rotation_deg})"
+            )
         if self.batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {self.batch_size}")
         if self.match_precision not in ("auto", "float32", "bf16", "int8"):
@@ -106,17 +123,17 @@ class CorrectorConfig:
         return dataclasses.replace(self, **kw)
 
     def unsupported(self) -> list[str]:
-        """Non-default knobs this slice does not implement, each with
+        """Non-default knobs the port does not implement yet, each with
         the ROADMAP.md queue-1 item that will port it."""
         out = []
-        if self.model != "translation":
-            item = {
-                "rigid": 11, "similarity": 11, "affine": 11,
-                "homography": 11, "piecewise": 12, "rigid3d": 13,
-            }.get(self.model, 11)
+        if self.model not in ("translation", "affine"):
+            item = {"piecewise": 12, "rigid3d": 13}.get(self.model, 11)
             out.append(f"model={self.model!r} (ROADMAP queue 1 item {item})")
-        if self.resolved_oriented():
-            out.append("oriented descriptors (ROADMAP queue 1 item 11)")
+        if self.resolved_oriented() and self.max_keypoints < BINS_FIRST_MIN_K:
+            out.append(
+                f"oriented descriptors below max_keypoints={BINS_FIRST_MIN_K}: "
+                "the small-K route through K6 (ROADMAP queue 1 item 11)"
+            )
         if self.n_octaves > 1:
             out.append("n_octaves > 1 (ROADMAP queue 1 item 14)")
         if self.match_radius is not None:
@@ -136,9 +153,11 @@ class CorrectorConfig:
             out.append("plan_buckets (ROADMAP queue 1 item 16)")
         if self.mesh_devices:
             out.append("mesh_devices (ROADMAP queue 1 item 17)")
-        if self.warp not in ("auto", "pallas"):
+        warps = {"translation": ("auto", "pallas"), "affine": ("auto", "matrix")}
+        if self.warp not in warps.get(self.model, ("auto",)):
             out.append(
-                f"warp={self.warp!r}: the slice has the translation kernel "
+                f"warp={self.warp!r} for model={self.model!r}: the port has "
+                "the translation kernel (K3) and the matrix kernel (K7) "
                 "only (ROADMAP queue 1 item 11)"
             )
         return out

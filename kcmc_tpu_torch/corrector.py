@@ -1,4 +1,4 @@
-"""`MotionCorrector` of the PyTorch port (translation slice).
+"""`MotionCorrector` of the PyTorch port (translation and affine slices).
 
 Counterpart of the one-shot path of `kcmc_tpu/corrector.py`
 (`MotionCorrector.correct`): reference selection, fixed-size batches
@@ -110,8 +110,9 @@ class MotionCorrector:
         return n, batch, idx
 
     def _rescue_flagged(self, host: dict, batch: np.ndarray, n: int, ref: dict) -> None:
-        """Re-warp frames K3 zeroed (warp_ok False) through the exact
-        gather path, in place; `warp_rescued` records which."""
+        """Re-warp frames the bounded warp (K3 or K7) zeroed (warp_ok
+        False) through the exact gather path, in place; `warp_rescued`
+        records which."""
         ok = np.asarray(host["warp_ok"], bool)
         host["warp_rescued"] = ~ok
         if ok.all() or not self.config.rescue_warp:

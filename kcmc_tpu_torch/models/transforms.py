@@ -1,7 +1,8 @@
-"""Geometric transform models as weighted closed-form solves (translation).
+"""Geometric transform models as weighted closed-form solves
+(translation and affine).
 
-Counterpart of `kcmc_tpu/models/transforms.py` for the translation
-family, batched over any leading axes instead of vmapped:
+Counterpart of `kcmc_tpu/models/transforms.py` for the translation and
+affine families, batched over any leading axes instead of vmapped:
 
 * `solve(src, dst, w)`: (..., N, 2) points and (..., N) weights ->
   (..., 3, 3) homogeneous matrices (weighted mean displacement);
@@ -9,9 +10,12 @@ family, batched over any leading axes instead of vmapped:
 * `apply_transform(M, pts)`: homogeneous application with the
   projective divide clamped away from zero.
 
-Degenerate solves (zero weight mass, non-finite results) return the
-identity (`_guard`). The other models raise NotImplementedError naming
-the ROADMAP item that ports them.
+Degenerate solves (zero weight mass, non-finite results, collinear or
+coincident samples) return the identity (`_guard`). The affine solves
+run in float32 on Hartley-conditioned normal equations; on the card the
+backend turns TF32 off, so their small matmuls stay full float32 as the
+reference's Precision.HIGHEST does. The other models raise
+NotImplementedError naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -68,6 +72,103 @@ def solve_translation(src, dst, w) -> torch.Tensor:
     return _guard(M, w.sum(dim=-1) > _MIN_MASS)
 
 
+def _normalization(pts: torch.Tensor, w: torch.Tensor):
+    """Hartley conditioning: the similarity T mapping the weighted
+    (..., N, 2) cloud to zero mean and RMS radius sqrt(2). Returns
+    (T, T_inv), (..., 3, 3) each."""
+    c = _wmean(pts, w)
+    centered = pts - c[..., None, :]
+    sq = torch.sum(centered * centered, dim=-1, keepdim=True)
+    rms = torch.sqrt(_wmean(sq, w)[..., 0])
+    s = torch.sqrt(torch.tensor(2.0, dtype=pts.dtype)) / torch.clamp(rms, min=_EPS)
+    T = _eye(s.shape, pts.device)
+    T[..., 0, 0] = s
+    T[..., 1, 1] = s
+    T[..., :2, 2] = -s[..., None] * c
+    Tinv = _eye(s.shape, pts.device)
+    Tinv[..., 0, 0] = 1.0 / s
+    Tinv[..., 1, 1] = 1.0 / s
+    Tinv[..., :2, 2] = c
+    return T, Tinv
+
+
+def _solve_sym3(M: torch.Tensor, rhs: torch.Tensor):
+    """Closed-form (adjugate / Cramer) solve of symmetric (..., 3, 3)
+    systems with (..., 3, k) right-hand sides. Returns (x, ok); ok is
+    False where the determinant is below 1e-5 of the Hadamard bound
+    a*e*i (collinear or duplicated minimal samples)."""
+    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    e, f = M[..., 1, 1], M[..., 1, 2]
+    i = M[..., 2, 2]
+    A00 = e * i - f * f
+    A01 = c * f - b * i
+    A02 = b * f - c * e
+    A11 = a * i - c * c
+    A12 = b * c - a * f
+    A22 = a * e - b * b
+    det = a * A00 + b * A01 + c * A02
+    adj = torch.stack([
+        torch.stack([A00, A01, A02], dim=-1),
+        torch.stack([A01, A11, A12], dim=-1),
+        torch.stack([A02, A12, A22], dim=-1),
+    ], dim=-2)
+    ok = det.abs() > 1e-5 * (a * e * i).abs()
+    den = torch.where(ok, det, torch.ones_like(det))
+    return torch.matmul(adj, rhs) / den[..., None, None], ok
+
+
+def _normalized_spread_ok(sn, dn, w) -> torch.Tensor:
+    """False where the conditioned src or dst sample has ~zero spread
+    (coincident points), which the ridge would otherwise turn into a
+    finite collapse map."""
+    tot = torch.clamp(w.sum(dim=-1), min=_EPS)
+    ws = w[..., None]
+    return (torch.sum(ws * sn * sn, dim=(-2, -1)) > 1e-6 * tot) & (
+        torch.sum(ws * dn * dn, dim=(-2, -1)) > 1e-6 * tot
+    )
+
+
+def _affine_normal_system(src, dst, w):
+    Ts, _ = _normalization(src, w)
+    Td, Td_inv = _normalization(dst, w)
+    sn = apply_transform(Ts, src)
+    dn = apply_transform(Td, dst)
+    A = torch.cat([sn, torch.ones_like(sn[..., :1])], dim=-1)  # (..., N, 3)
+    Aw = A * w[..., None]
+    M33 = torch.matmul(A.transpose(-1, -2), Aw) + _EPS * torch.eye(
+        3, dtype=src.dtype, device=src.device
+    )
+    rhs = torch.matmul(Aw.transpose(-1, -2), dn)  # (..., 3, 2)
+    return M33, rhs, Ts, Td_inv, _normalized_spread_ok(sn, dn, w)
+
+
+def _affine_from_P(P, Ts, Td_inv, ok):
+    """(..., 2, 3) normalized affine rows -> the denormalized map."""
+    Mn = _eye(P.shape[:-2], P.device)
+    Mn[..., :2, :] = P
+    return _guard(torch.matmul(torch.matmul(Td_inv, Mn), Ts), ok)
+
+
+def solve_affine(src, dst, w) -> torch.Tensor:
+    """Weighted least-squares 6-DoF affine through the conditioned
+    normal equations, solved in closed form (the hypothesis solver)."""
+    M33, rhs, Ts, Td_inv, spread_ok = _affine_normal_system(src, dst, w)
+    P, det_ok = _solve_sym3(M33, rhs)
+    ok = det_ok & spread_ok & (w.sum(dim=-1) > _MIN_MASS)
+    return _affine_from_P(P.transpose(-1, -2), Ts, Td_inv, ok)
+
+
+def solve_affine_accurate(src, dst, w) -> torch.Tensor:
+    """The same system solved by LU: the refine solver of IRLS and the
+    photometric polish. An exactly singular system is degenerate (the
+    reference's LU returns non-finite values there, which `_guard`
+    replaces); `solve_ex` reports it without raising or syncing."""
+    M33, rhs, Ts, Td_inv, spread_ok = _affine_normal_system(src, dst, w)
+    P, info = torch.linalg.solve_ex(M33, rhs)
+    ok = spread_ok & (w.sum(dim=-1) > _MIN_MASS) & (info == 0)
+    return _affine_from_P(P.transpose(-1, -2), Ts, Td_inv, ok)
+
+
 @dataclasses.dataclass(frozen=True)
 class TransformModel:
     name: str
@@ -92,6 +193,10 @@ class TransformModel:
 MODELS: dict[str, TransformModel] = {
     "translation": TransformModel(
         "translation", ndim=2, dof=2, min_samples=1, solve=solve_translation
+    ),
+    "affine": TransformModel(
+        "affine", ndim=2, dof=6, min_samples=3,
+        solve=solve_affine, refine_solve=solve_affine_accurate,
     ),
 }
 

@@ -24,7 +24,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kcmc_tpu_torch"
-SOURCES = {"detect": "detect.cu", "patch": "patch.cu", "warp": "warp.cu"}
+SOURCES = {
+    "detect": "detect.cu", "patch": "patch.cu", "warp": "warp.cu",
+    "moments": "moments.cu", "select": "select.cu",
+    "warp_matrix": "warp_matrix.cu",
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -32,6 +36,7 @@ NVCC_FLAGS = (
 
 LAUNCHES: dict[str, int] = {
     "detect_response": 0, "extract_blended": 0, "warp_translation": 0,
+    "moment_maps": 0, "binned_select_rows": 0, "warp_batch_matrix": 0,
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

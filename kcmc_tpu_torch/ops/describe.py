@@ -1,31 +1,59 @@
-"""Binary keypoint descriptors, upright BRIEF route.
+"""Binary keypoint descriptors: upright BRIEF and the bins-first
+oriented (ORB-style) route.
 
-Counterpart of the unoriented route of
-`kcmc_tpu/ops/describe.py::describe_keypoints_batch` (describe.py:359-440),
-the one the translation model runs:
+Counterpart of `kcmc_tpu/ops/describe.py::describe_keypoints_batch`
+(describe.py:298-440). Both routes start alike: the blurred frames lose
+their finite-pixel mean, are quantized to bf16 and edge-padded by r + 1
+(r = PATCH_RADIUS upright, ROT_RADIUS oriented; P = 2r + 2).
 
-1. the blurred frames lose their finite-pixel mean, are quantized to
-   bf16 and edge-padded by PATCH_RADIUS + 1 (P = 28);
-2. kernel K2 cuts and blends each keypoint's (P-1, P-1) patch;
-3. the 512 pattern samples are read out of each patch. The reference
-   does this as a one-hot (729, 512) matmul, which selects exactly, so
-   an index gather of the same rows is the same function;
-4. bit i is `sample[2i] < sample[2i+1]`, packed into N_WORDS 32-bit
-   words (bit i at word i // 32, position i % 32); invalid slots are 0.
+Upright (the translation model): kernel K2 cuts and blends each
+keypoint's (P-1, P-1) patch and the 512 pattern samples are read out of
+it. The reference does this as a one-hot (729, 512) matmul, which
+selects exactly, so an index gather of the same rows is the same
+function.
 
+Oriented, bins-first (describe.py:401-420 and :531, taken from
+K >= BINS_FIRST_MIN_K keypoints; the small-K route through K6 is not
+ported): kernel K4 computes the ORB disc moments at every pixel, the
+moments at each keypoint's rounded position give its angle and its
+orientation bin, a packed stable sort lays the keypoints out in
+16-aligned runs of equal bin, K2 extracts the patches in that order, and
+kernel K5 multiplies each 16-row block by its bin's one-hot selection
+matrix of the rotated pattern. The words are packed in the sorted
+layout and mapped back to keypoint order.
+
+Bit i is `sample[2i] < sample[2i+1]`, packed into N_WORDS 32-bit words
+(bit i at word i // 32, position i % 32); invalid slots are 0.
 Descriptors are (..., N_WORDS) int64 tensors holding the uint32 bit
 patterns of the reference's descriptors.
 """
 
 from __future__ import annotations
 
+import functools
+import math
+
 import numpy as np
 import torch
 
+from kcmc_tpu_torch.config import BINS_FIRST_MIN_K
+from kcmc_tpu_torch.ops.cuda_moments import moment_maps
 from kcmc_tpu_torch.ops.cuda_patch import extract_blended
+from kcmc_tpu_torch.ops.cuda_select import binned_select_rows
 from kcmc_tpu_torch.ops.detect import Keypoints, gaussian_blur
-from kcmc_tpu_torch.ops.patterns import N_BITS, N_WORDS, PATCH_RADIUS, PATTERN
+from kcmc_tpu_torch.ops.dispatch import stable_argsort_small_keys
+from kcmc_tpu_torch.ops.patterns import (
+    MOMENT_RADIUS,
+    N_BITS,
+    N_ORIENT_BINS,
+    N_WORDS,
+    PATCH_RADIUS,
+    PATTERN,
+    ROT_PATTERNS,
+    ROT_RADIUS,
+)
 
+RUN_ALIGN = 16  # orientation-run alignment: K5's block of rows
 
 def _selection_index(pattern: np.ndarray, radius: int) -> np.ndarray:
     """Flat index into a (2r+1)^2 patch of each of the 2*N_BITS pattern
@@ -37,6 +65,24 @@ def _selection_index(pattern: np.ndarray, radius: int) -> np.ndarray:
 
 
 _SEL_UPRIGHT = _selection_index(PATTERN, PATCH_RADIUS)  # (512,)
+_SEL_ROT_INDEX = np.stack(
+    [_selection_index(ROT_PATTERNS[b], ROT_RADIUS) for b in range(N_ORIENT_BINS)]
+)  # (NB, 512)
+def sel_rot(device) -> torch.Tensor:
+    """The reference's `_SEL_ROT` as K5 consumes it: the dense
+    (N_ORIENT_BINS, 31^2, 512) bf16 stack of one-hot selection matrices
+    of the rotated patterns, built once per device."""
+    return _sel_rot(str(torch.device(device)))
+
+
+@functools.cache
+def _sel_rot(device: str) -> torch.Tensor:
+    side = 2 * ROT_RADIUS + 1
+    sel = torch.zeros((N_ORIENT_BINS, side * side, 2 * N_BITS), dtype=torch.bfloat16)
+    cols = torch.arange(2 * N_BITS)
+    for b in range(N_ORIENT_BINS):
+        sel[b, torch.as_tensor(_SEL_ROT_INDEX[b]), cols] = 1.0
+    return sel.to(device)
 
 
 def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -64,17 +110,132 @@ def edge_pad(x: torch.Tensor, r: int) -> torch.Tensor:
     return x[..., ry, :][..., rx]
 
 
+def _quantize_bins(angles: torch.Tensor) -> torch.Tensor:
+    """Orientation angles -> N_ORIENT_BINS bin indices (int64): round
+    half to even of angle * nb / 2pi, modulo nb (describe.py:195)."""
+    nb = N_ORIENT_BINS
+    scale = torch.tensor(nb / (2.0 * math.pi), dtype=torch.float32)
+    return torch.remainder(torch.round(angles * scale).to(torch.int32), nb).long()
+
+
+def _moments_at_keypoints(padded: torch.Tensor, xy: torch.Tensor, r: int):
+    """(B, K) disc moments (m10, m01) at round-half-up(xy), read from the
+    K4 maps of the (B, Hp, Wp) batch padded by r + 1 (describe.py:443)."""
+    mr = MOMENT_RADIUS
+    m10m, m01m = moment_maps(padded)
+    B, Hm, Wm = m10m.shape
+    fl = torch.floor(xy)
+    frac = xy - fl
+    c = fl.to(torch.int64) + (frac >= 0.5).to(torch.int64)
+    iy = torch.clamp(c[..., 1] + (r + 1 - mr), 0, Hm - 1)
+    ix = torch.clamp(c[..., 0] + (r + 1 - mr), 0, Wm - 1)
+    flat = iy * Wm + ix
+    return (
+        torch.gather(m10m.reshape(B, -1), 1, flat),
+        torch.gather(m01m.reshape(B, -1), 1, flat),
+    )
+
+
+def _aligned_runs(keys: torch.Tensor, n_groups: int, align: int):
+    """Stable sort of (B, N) integer keys into `align`-aligned contiguous
+    runs, one per group; keys >= n_groups are dropped (describe.py:495).
+
+    Returns (src (B, Kp) — source item per sorted slot, N for padding
+    slots — with Kp = ceil_align(N) + align * n_groups, and astarts,
+    aends (B, n_groups): each group's aligned run [astarts, aends)),
+    int64 each. Stability keeps detection-score order within a run."""
+    B, N = keys.shape
+    dev = keys.device
+    Kp = -(-N // align) * align + align * n_groups
+    order, sk = stable_argsort_small_keys(keys, n_groups)
+    ids = torch.arange(n_groups, dtype=sk.dtype, device=dev).expand(B, n_groups)
+    starts = torch.searchsorted(sk, ids.contiguous(), side="left")
+    ends = torch.searchsorted(sk, ids.contiguous(), side="right")
+    padded_counts = -torch.div(-(ends - starts), align, rounding_mode="floor") * align
+    aends = torch.cumsum(padded_counts, dim=1)
+    astarts = aends - padded_counts
+    pos = torch.arange(N, device=dev)
+    skc = torch.clamp(sk, 0, n_groups - 1)
+    dest = torch.where(
+        sk < n_groups,
+        torch.gather(astarts, 1, skc) + pos - torch.gather(starts, 1, skc),
+        torch.full_like(sk, Kp),
+    )
+    src = torch.full((B, Kp + 1), N, dtype=torch.int64, device=dev)
+    src.scatter_(1, dest, order)
+    return src[:, :Kp], astarts, aends
+
+
+def _backmap_words(
+    words: torch.Tensor, src: torch.Tensor, K: int, force_scatter: bool = False
+) -> torch.Tensor:
+    """Words (B, Kp, W) in sorted slot layout -> (B, K, W) in keypoint
+    order; src (B, Kp) is the keypoint per slot, >= K for padding slots
+    (describe.py:614). Every keypoint occupies exactly one slot, so a
+    sort of (src << sh) | slot puts keypoint k's slot at position k: the
+    inverse permutation, then one row gather. Packed in int64, which
+    holds any K, so the reference's 32-bit overflow branch is not
+    needed; `force_scatter` takes the reference's other route (each real
+    slot writes its keypoint's row) for the equivalence tests."""
+    B, Kp, W = words.shape
+    if force_scatter:
+        out = torch.zeros((B, K + 1, W), dtype=words.dtype, device=words.device)
+        idx = torch.clamp(src, max=K)[..., None].expand(B, Kp, W)
+        out.scatter_(1, idx, words)
+        return out[:, :K]
+    sh = max(1, int(Kp - 1).bit_length())
+    slots = torch.arange(Kp, dtype=torch.int64, device=words.device)
+    packed, _ = torch.sort((src.long() << sh) | slots, dim=-1)
+    inv = packed[:, :K] & ((1 << sh) - 1)
+    return torch.gather(words, 1, inv[..., None].expand(B, K, W))
+
+
+def _describe_oriented_sorted(padded, kps: Keypoints, bins, P: int) -> torch.Tensor:
+    """Bins-first oriented descriptors (describe.py:531): extraction and
+    selection in orientation-run order. Invalid keypoints get a run of
+    their own (group nb), so the slot -> keypoint map is a permutation."""
+    B, K = kps.xy.shape[:2]
+    nb = N_ORIENT_BINS
+    align = RUN_ALIGN
+    keys = torch.where(kps.valid, bins, torch.full_like(bins, nb))
+    src, _astarts, aends = _aligned_runs(keys, nb + 1, align)
+    Kp = src.shape[1]
+    safe = torch.clamp(src, max=K - 1)
+    xy_s = torch.gather(kps.xy, 1, safe[..., None].expand(B, Kp, 2))
+    xy_s = torch.where((src < K)[..., None], xy_s, torch.zeros((), device=xy_s.device))
+    pb = extract_blended(padded, xy_s.contiguous(), P)
+    flat = pb.reshape(B, Kp, -1)  # (B, Kp, L), orientation-run order
+    # block i starts at slot align * i; its bin is the run covering it
+    # (the invalid run nb and padding tail blocks clamp to a real matrix
+    # inside K5; their rows are masked below)
+    s_blk = (torch.arange(Kp // align, device=src.device) * align).expand(B, -1)
+    ibin = torch.searchsorted(aends, s_blk.contiguous(), side="right").to(torch.int32)
+    vals = binned_select_rows(flat, ibin, sel_rot(flat.device), align)
+    vals = vals.reshape(B, Kp, N_BITS, 2)
+    words = _pack_bits(vals[..., 0] < vals[..., 1])  # (B, Kp, W)
+    desc = _backmap_words(words, src, K)
+    return torch.where(kps.valid[..., None], desc, torch.zeros_like(desc))
+
+
 def describe_keypoints_batch(
     frames: torch.Tensor,
     kps: Keypoints,
     blur_sigma: float = 2.0,
     smooth: torch.Tensor | None = None,
+    oriented: bool = False,
 ) -> torch.Tensor:
-    """(B, K, N_WORDS) upright descriptors of a (B, H, W) batch.
+    """(B, K, N_WORDS) descriptors of a (B, H, W) batch.
 
     `smooth` optionally supplies the blur_sigma-blurred batch (K1's
-    free-ride output) so the blur is not recomputed."""
-    r = PATCH_RADIUS
+    free-ride output) so the blur is not recomputed. `oriented` takes
+    the bins-first route, which needs K >= BINS_FIRST_MIN_K."""
+    B, K = kps.xy.shape[:2]
+    if oriented and K < BINS_FIRST_MIN_K:
+        raise NotImplementedError(
+            f"oriented descriptors at K={K} < {BINS_FIRST_MIN_K} take the "
+            "small-K route through K6, not ported yet (ROADMAP queue 1 item 11)"
+        )
+    r = ROT_RADIUS if oriented else PATCH_RADIUS
     P = 2 * r + 2
     if smooth is None:
         smooth = gaussian_blur(frames, blur_sigma)
@@ -86,7 +247,10 @@ def describe_keypoints_batch(
         dim=(1, 2), keepdim=True
     ) / n_fin
     padded = edge_pad((smooth - mu).to(torch.bfloat16), r + 1).contiguous()
-    B, K = kps.xy.shape[:2]
+    if oriented:
+        m10, m01 = _moments_at_keypoints(padded, kps.xy, r)
+        bins = _quantize_bins(torch.atan2(m01, m10))
+        return _describe_oriented_sorted(padded, kps, bins, P)
     pb = extract_blended(padded, kps.xy.contiguous(), P)
     sel = torch.as_tensor(_SEL_UPRIGHT, device=pb.device)
     vals = pb.reshape(B, K, -1)[..., sel]
@@ -98,11 +262,12 @@ def describe_keypoints(
     kps: Keypoints,
     blur_sigma: float = 2.0,
     smooth: torch.Tensor | None = None,
+    oriented: bool = False,
 ) -> torch.Tensor:
-    """(K, N_WORDS) upright descriptors of one (H, W) frame (the batched
-    route on a batch of one)."""
+    """(K, N_WORDS) descriptors of one (H, W) frame (the batched route on
+    a batch of one)."""
     kb = Keypoints(*(t[None] for t in kps))
     return describe_keypoints_batch(
         img[None], kb, blur_sigma=blur_sigma,
-        smooth=None if smooth is None else smooth[None],
+        smooth=None if smooth is None else smooth[None], oriented=oriented,
     )[0]

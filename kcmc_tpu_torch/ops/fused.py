@@ -29,9 +29,11 @@ def fused_detect_describe(
     window_sigma: float,
     blur_sigma: float,
     cand_tile: int,
+    oriented: bool = False,
 ):
     """(Keypoints, desc) of a (B, H, W) float32 batch: K1 fields and
-    blur, selection, then the upright describe route through K2."""
+    blur, selection, then the upright describe route through K2 or,
+    with `oriented`, the bins-first route through K4, K2 and K5."""
     kps, smooth = detect_keypoints_batch(
         frames,
         max_keypoints=max_keypoints,
@@ -43,7 +45,9 @@ def fused_detect_describe(
         window_sigma=window_sigma,
         cand_tile=cand_tile,
     )
-    desc = describe_keypoints_batch(frames, kps, blur_sigma=blur_sigma, smooth=smooth)
+    desc = describe_keypoints_batch(
+        frames, kps, blur_sigma=blur_sigma, smooth=smooth, oriented=oriented
+    )
     return kps, desc
 
 

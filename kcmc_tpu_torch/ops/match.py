@@ -52,12 +52,15 @@ def hamming_matrix(q, r, q_valid, r_valid) -> torch.Tensor:
 
 def hamming_matrix_mm(q, r, q_valid, r_valid) -> torch.Tensor:
     """The same matrix as `hamming_matrix`, batched over q's leading
-    axes, as one float32 ±1 matmul."""
+    axes, as one float32 ±1 matmul. At K=4096 and 32 frames the matrix
+    is 2.1 GB, so it is converted and masked in place: one float32 and
+    one int32 copy at most, no (B, Kq, Kr) mask."""
     n_bits = 32 * q.shape[-1]
     s = torch.matmul(unpack_pm1(q), unpack_pm1(r).transpose(-1, -2))
-    d = ((n_bits - s) * 0.5).to(torch.int32)
-    mask = q_valid[..., :, None] & r_valid[..., None, :]
-    return torch.where(mask, d, torch.full_like(d, BIG))
+    d = s.sub_(n_bits).mul_(-0.5).to(torch.int32)  # (n_bits - s) / 2
+    del s
+    d.masked_fill_(~q_valid[..., :, None], BIG)
+    return d.masked_fill_(~r_valid[..., None, :], BIG)
 
 
 def knn_match_impl(
@@ -77,15 +80,17 @@ def knn_match_impl(
     q_valid = q_valid & torch.any(q_desc != 0, dim=-1)
     r_valid = r_valid & torch.any(r_desc != 0, dim=-1)
     Di = hamming_matrix_mm(q_desc, r_desc, q_valid, r_valid)
-    Kq, Kr = Di.shape[-2:]
+    Kq = Di.shape[-2]
     best = Di.amin(dim=-1)
     idx = torch.argmin(Di, dim=-1)  # first index among ties
-    taken = idx[..., None] == torch.arange(Kr, device=Di.device)
-    second = torch.where(taken, torch.full_like(Di, BIG), Di).amin(dim=-1)
+    if mutual:
+        rev_best = torch.argmin(Di, dim=-2)  # (..., Kr) best query per ref
+    # second best: the row minimum with the best entry masked (in place;
+    # Di is not read again)
+    second = Di.scatter_(-1, idx[..., None], BIG).amin(dim=-1)
     r32 = torch.tensor(ratio, dtype=torch.float32, device=Di.device)
     ok = (best < max_dist) & (best.to(torch.float32) < r32 * second.to(torch.float32))
     if mutual:
-        rev_best = torch.argmin(Di, dim=-2)  # (..., Kr) best query per ref
         back = torch.gather(rev_best, -1, idx)
         ok = ok & (back == torch.arange(Kq, device=Di.device))
     ok = ok & q_valid & (best < N_BITS + 1)

@@ -13,7 +13,16 @@ import pytest
 import torch
 
 from kcmc_tpu_torch import MotionCorrector
-from kcmc_tpu_torch.ops import cuda_build, cuda_detect, cuda_patch, cuda_warp
+from kcmc_tpu_torch.ops import (
+    cuda_build,
+    cuda_detect,
+    cuda_moments,
+    cuda_patch,
+    cuda_select,
+    cuda_warp,
+    cuda_warp_matrix,
+)
+from kcmc_tpu_torch.ops.describe import sel_rot
 from kcmc_tpu_torch.utils.synthetic import make_drift_stack
 
 pytestmark = pytest.mark.gpu
@@ -70,9 +79,72 @@ def test_slice_on_card_matches_cpu_route(cuda):
     on_card = MotionCorrector(batch_size=4).correct(data.stack)
     assert cuda_build.launch_counts() == {
         "detect_response": 3, "extract_blended": 3, "warp_translation": 4,
+        "moment_maps": 0, "binned_select_rows": 0, "warp_batch_matrix": 0,
     }
     on_cpu = MotionCorrector(device="cpu", batch_size=4).correct(data.stack)
     assert np.abs(on_card.transforms - on_cpu.transforms).max() <= 1e-4
     np.testing.assert_array_equal(
         on_card.diagnostics["n_inliers"], on_cpu.diagnostics["n_inliers"]
     )
+
+
+def test_k4_matches_plain_bitwise(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    padded = torch.randn((3, 230, 301), device=cuda, generator=gen).to(torch.bfloat16)
+    got = cuda_moments.moment_maps(padded)
+    want = cuda_moments.moment_maps_plain(padded)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_k5_matches_plain(cuda):
+    """One-hot sel (the describe route's): bit-identical; dense sel:
+    within one bf16 ulp plus float32 sum slack."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    B, Kp, L = 2, 96, 961
+    flat = torch.randn((B, Kp, L), device=cuda, generator=gen).to(torch.bfloat16)
+    ibin = torch.tensor([[0, 3, 3, 15, 16, 7], [9, 9, 9, 1, 0, 16]], dtype=torch.int32, device=cuda)
+    sel = sel_rot(cuda)
+    got = cuda_select.binned_select_rows(flat, ibin, sel, 16)
+    want = cuda_select.binned_select_rows_plain(flat, ibin, sel, 16)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    dense = torch.randn((16, L, 512), device=cuda, generator=gen).to(torch.bfloat16)
+    got = cuda_select.binned_select_rows(flat, ibin, dense, 16).float()
+    want = cuda_select.binned_select_rows_plain(flat, ibin, dense, 16).float()
+    mag = torch.maximum(got.abs(), want.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp(min=1e-30))) - 7)
+    assert ((got - want).abs() <= ulp + 1e-5 * want.abs().max()).all()
+
+
+def test_k7_matches_plain(cuda):
+    fr = torch.as_tensor(_stack(6, (200, 232)).stack, device=cuda)
+    th = torch.tensor([0.0, 0.02, -0.03, 0.2, 0.01, 0.0], device=cuda)
+    M = torch.eye(3, device=cuda).repeat(6, 1, 1)
+    M[:, 0, 0] = torch.cos(th)
+    M[:, 0, 1] = -torch.sin(th)
+    M[:, 1, 0] = torch.sin(th)
+    M[:, 1, 1] = torch.cos(th)
+    M[:, 0, 2] = torch.tensor([0.0, 3.3, -7.5, 0.0, 150.0, 2.0], device=cuda)
+    M[:, 2, 0] = torch.tensor([0.0, 1e-5, 0.0, 0.0, 0.0, 0.0], device=cuda)
+    M[5, 2, 2] = 0.0
+    out, ok = cuda_warp_matrix.warp_batch_matrix(fr, M.contiguous(), max_px=12)
+    want, want_ok = cuda_warp_matrix.warp_batch_matrix_plain(fr, M, 12)
+    assert ok.tolist() == want_ok.tolist() == [True, True, True, False, False, False]
+    assert torch.equal(out, want)
+
+
+def test_affine_slice_on_card_matches_cpu_route(cuda):
+    data = make_drift_stack(8, (128, 128), model="affine", seed=0, sigma_range=(0.7, 1.4))
+    kw = dict(model="affine", batch_size=4, max_keypoints=2048, cand_tile=4,
+              nms_size=3, harris_window_sigma=1.2)
+    cuda_build.reset_launches()
+    on_card = MotionCorrector(**kw).correct(data.stack)
+    counts = cuda_build.launch_counts()
+    assert counts["warp_translation"] == 0
+    assert all(counts[k] == 3 for k in (
+        "detect_response", "extract_blended", "moment_maps", "binned_select_rows"))
+    assert counts["warp_batch_matrix"] == 4
+    on_cpu = MotionCorrector(device="cpu", **kw).correct(data.stack)
+    assert np.abs(on_card.transforms - on_cpu.transforms).max() <= 1e-3
+    assert np.abs(on_card.diagnostics["n_inliers"].astype(int)
+                  - on_cpu.diagnostics["n_inliers"]).max() <= 2

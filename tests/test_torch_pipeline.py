@@ -129,7 +129,7 @@ def test_config_carries_across():
     [
         {"warm_start": True}, {"plan_buckets": ((128, 128),)},
         {"sanitize_input": True}, {"match_radius": 16.0}, {"n_octaves": 2},
-        {"quality_metrics": True}, {"mesh_devices": 2}, {"model": "affine"},
+        {"quality_metrics": True}, {"mesh_devices": 2}, {"model": "homography"},
         {"oriented": True}, {"match_precision": "float32"}, {"template_iters": 1},
         {"template_update_every": 8}, {"mesh": object()}, {"warp": "separable"},
     ],
@@ -153,9 +153,8 @@ def test_default_device_raises_without_card(no_card):
 def test_cpu_route_never_counts_launches(drift):
     cuda_build.reset_launches()
     kcmc_tpu_torch.MotionCorrector(device="cpu", batch_size=4).correct(drift.stack[:4])
-    assert cuda_build.launch_counts() == {
-        "detect_response": 0, "extract_blended": 0, "warp_translation": 0,
-    }
+    assert set(cuda_build.launch_counts().values()) == {0}
+    assert len(cuda_build.launch_counts()) == 6
 
 
 def test_port_imports_neither_jax_nor_kcmc_tpu():
