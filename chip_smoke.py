@@ -10,7 +10,7 @@ line is printed:
 
 1. device: requires a CUDA card; prints nvidia-smi's name and power
    limit;
-2. build: compiles every CUDA kernel (K1-K5, K7) from
+2. build: compiles every CUDA kernel (K1-K8) from
    kcmc_tpu_torch/csrc (one nvcc per source, in parallel);
 3. kernels: each kernel against its plain PyTorch version on the card
    at the main paths' shapes, then CUDA-event times of kernel, plain
@@ -30,6 +30,14 @@ line is printed:
      max_px=18 (also at 1024x1024 and 2048x2048; a rotation beyond the
      bound, a shift beyond +-128 px and M[2,2]=0 are zeroed and
      flagged);
+   - config-4 and config-3 paths: K6 (K2 with in-kernel ORB moments) on
+     the keypoints of 32 config-4 frames (K=512, P=32): patches
+     bit-identical to its plain version and to K2, moments bit-identical,
+     bins identical (also at 2048x2048); K8 (the piecewise field warp) at
+     512x512, B=32, on config 3's 8x8 fields with max_px=6, within 1e-5
+     relative with identical ok flags (a residual beyond the bound and a
+     mean beyond +-128 px zeroed and flagged; also at 1024x1024 and at
+     200x160 with a 6x5 grid);
 4. e2e: MotionCorrector(model="translation").correct() on a 1000-frame
    512x512 drift stack (config 1 of BASELINE.json), launch counters
    reset just before: transform RMSE <= 0.05 px, every frame warp_ok,
@@ -39,12 +47,24 @@ line is printed:
    config 2 (64 frames of 512x512, 12000 sharp blobs, tiled to 1000 as
    the JAX package's bench.py tiles it): RMSE <= 0.05 px, launches
    K1/K2/K4/K5 = 33 and K7 = 64, no K3; frames K7 flagged are rescued
-   through the gather warp and counted.
+   through the gather warp and counted, beside the count of frames whose
+   ground-truth map K7 flags (gt_beyond_warp_bound; config 4 and rigid
+   too);
+6. e2e_homography: MotionCorrector(model="homography").correct() on
+   config 4 (the default config, K=512: the small-K oriented route) on
+   64 frames of 512x512 projective drift tiled to 1000: RMSE <= 0.05 px,
+   launches K1/K6 = 33 and K7 = 64, no other kernel; then 128 frames of
+   model="rigid" (RMSE <= 0.05 px, K6 and K7 launched);
+7. e2e_piecewise: MotionCorrector(model="piecewise").correct() on config
+   3 (8x8 grid, field_polish=4) on 64 frames of 512x512 tiled to 1000:
+   field RMSE <= 0.15 px, launches K1/K2 = 33 and K8 = 160, no other
+   kernel; frames K8 flagged are rescued through the gather warp and
+   counted.
 
 The line before the last holds the kernels table; the last line is
 {"ok": true, "device": {...}}.
 
-    python3 chip_smoke.py --profile [translation|affine]
+    python3 chip_smoke.py --profile [translation|affine|homography|piecewise]
 
 instead runs the device and build phases and then profiles six 32-frame
 batches of that config's batch program (host wall time, device busy
@@ -71,6 +91,9 @@ TOL = 1e-5
 CFG2 = dict(max_keypoints=4096, nms_size=3, harris_window_sigma=1.2, cand_tile=4)
 CFG2_SCENE = dict(model="affine", max_drift=10.0, seed=0, n_blobs=12000,
                   sigma_range=(0.7, 1.4))
+# configs 4 and 3 of BASELINE.json: CONFIG_ROWS["homography"] and
+# ["piecewise"] of the JAX package's bench.py, the default config each
+CFG4_SCENE = dict(model="homography", max_drift=10.0, seed=0)
 
 
 def emit(obj) -> None:
@@ -98,15 +121,45 @@ def bound_ms(n_bytes: float, n_ops: float, rate: float = F32_FLOPS) -> tuple[flo
     return max(t_mem, t_ops) * 1e3, "bytes" if t_mem >= t_ops else "operations"
 
 
-def config2_stack(n_frames: int):
-    """Config 2's 64-frame drift stack tiled to n_frames (the JAX
+def field_warp_ops(B: int, H: int, W: int, gh: int, gw: int) -> int:
+    """Float operations that the piecewise field warp's function needs
+    (pallas_warp_field.py:82-188), each term counted once at the
+    granularity it varies on. A row coordinate with its two hat weights
+    is 14 operations, a two-term row interpolation 3 more. Per column:
+    its live cells and hat weights (14). Per frame, cell row, column and
+    channel: the column-interpolated residual (3). Per output row: its
+    row coordinate and weights (14). Per canvas pixel (one canvas row per
+    output row; each is read by the two output pixels around it): two
+    consumer-row fixed-point steps (17 + 1 each), the x-phase row
+    interpolation (17) and the floored two-tap x-lerp (6). Per output
+    pixel: the two-channel residual (6), its floor (2), the y-lerp (4)
+    and the in-frame test (9). Per frame: the mean and the residual
+    bound over the cells (8 per cell)."""
+    per_canvas_px = 2 * (17 + 1) + 17 + 6
+    per_out_px = 6 + 2 + 4 + 9
+    return (W * 14 + B * gh * W * 2 * 3 + H * 14
+            + B * H * W * (per_canvas_px + per_out_px) + B * gh * gw * 8)
+
+
+def tiled_stack(n_frames: int, scene: dict):
+    """A 64-frame 512x512 drift stack tiled to n_frames (the JAX
     package's bench.py tiling), with its tiled ground truth."""
     from kcmc_tpu_torch.utils.synthetic import make_drift_stack
 
-    data = make_drift_stack(n_frames=min(n_frames, 64), shape=(512, 512), **CFG2_SCENE)
+    data = make_drift_stack(n_frames=min(n_frames, 64), shape=(512, 512), **scene)
     reps = -(-n_frames // len(data.stack))
     stack = np.tile(data.stack, (reps, 1, 1))[:n_frames]
     return stack, np.tile(data.transforms, (reps, 1, 1))[:n_frames]
+
+
+def config3_stack(n_frames: int):
+    """Config 3's 64-frame piecewise stack tiled to n_frames, and the
+    untiled 64-frame data (its ground-truth fields)."""
+    from kcmc_tpu_torch.utils.synthetic import make_piecewise_stack
+
+    data = make_piecewise_stack(n_frames=min(n_frames, 64), shape=(512, 512), seed=0)
+    reps = -(-n_frames // len(data.stack))
+    return np.tile(data.stack, (reps, 1, 1))[:n_frames], data
 
 
 def phase_device() -> tuple[str, str]:
@@ -308,7 +361,7 @@ def phase_kernels_affine() -> tuple[list[dict], dict]:
     from kcmc_tpu_torch.ops.patterns import MOMENTS, N_ORIENT_BINS, ROT_RADIUS
 
     B, H, W = 32, 512, 512
-    stack, gt = config2_stack(B)
+    stack, gt = tiled_stack(B, CFG2_SCENE)
     frames = torch.as_tensor(stack, device="cuda").contiguous()
     extra = {}
     extra["k1_affine_err"] = _check_k1(frames, nms_size=3, window_sigma=1.2)
@@ -464,31 +517,177 @@ def phase_kernels_affine() -> tuple[list[dict], dict]:
     return rows, extra
 
 
+def phase_kernels_fields() -> tuple[list[dict], dict]:
+    """K6 at config 4's shapes, fed by the path's own keypoints on 32
+    config-4 frames, and K8 at config 3's, on its ground-truth fields."""
+    from kcmc_tpu_torch.ops import cuda_patch, cuda_warp_field
+    from kcmc_tpu_torch.ops import describe as D
+    from kcmc_tpu_torch.ops.detect import detect_keypoints_batch
+    from kcmc_tpu_torch.ops.patterns import MOMENT_RADIUS, ROT_RADIUS
+    from kcmc_tpu_torch.ops.piecewise import upsample_field
+
+    B, H, W, K = 32, 512, 512, 512
+    r = ROT_RADIUS
+    P = 2 * r + 2
+    extra = {}
+    rows = []
+
+    # K6 extract_blended with moments: bit-identical patches (also to
+    # K2), moments and bins, at config 4 and at 2048x2048
+    stack, _ = tiled_stack(B, CFG4_SCENE)
+    frames = torch.as_tensor(stack, device="cuda").contiguous()
+    kps, smooth = detect_keypoints_batch(frames, max_keypoints=K, threshold=1e-4,
+                                         smooth_sigma=2.0)
+    mu = smooth.mean(dim=(1, 2), keepdim=True)
+    padded = D.edge_pad((smooth - mu).to(torch.bfloat16), r + 1).contiguous()
+    xy = kps.xy.contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    big = torch.randn((2, 2048 + 2 * (r + 1), 2048 + 2 * (r + 1)), device="cuda",
+                      generator=gen).to(torch.bfloat16)
+    xyb = (16 + torch.rand((2, K, 2), device="cuda", generator=gen) * (2048 - 32)).contiguous()
+    for p_in, x_in, what in ((padded, xy, "config 4"), (big, xyb, "2048x2048")):
+        pb, m10, m01 = cuda_patch.extract_blended(p_in, x_in, P, with_moments=True)
+        wpb, w10, w01 = cuda_patch.extract_blended_plain(p_in, x_in, P, with_moments=True)
+        k2 = cuda_patch.extract_blended(p_in, x_in, P)
+        if not (torch.equal(pb.view(torch.int16), wpb.view(torch.int16))
+                and torch.equal(pb.view(torch.int16), k2.view(torch.int16))):
+            raise AssertionError(f"K6: patches not bit-identical to the plain version and K2 at {what}")
+        if not (torch.equal(m10, w10) and torch.equal(m01, w01)):
+            raise AssertionError(f"K6: moments not bit-identical to the plain version at {what}")
+        if not torch.equal(D._quantize_bins(torch.atan2(m01, m10)),
+                           D._quantize_bins(torch.atan2(w01, w10))):
+            raise AssertionError(f"K6: orientation bins differ at {what}")
+    del big, xyb
+    extra["k6_mean_valid_keypoints"] = float(kps.valid.sum(dim=1).float().mean())
+    n_out = B * K * (P - 1) ** 2
+    n_disc = sum(1 for dy in range(-MOMENT_RADIUS, MOMENT_RADIUS + 1)
+                 for dx in range(-MOMENT_RADIUS, MOMENT_RADIUS + 1)
+                 if dx * dx + dy * dy <= MOMENT_RADIUS ** 2)
+    b6, by6 = bound_ms(padded.numel() * 2 + xy.numel() * 4 + n_out * 2 + 2 * B * K * 4,
+                       n_out * 9 + B * K * 4 * n_disc)
+    rows.append({
+        "name": "extract_blended_moments", "route": "cuda",
+        "source": "kcmc_tpu_torch/csrc/patch.cu",
+        "replaces": "kcmc_tpu/ops/pallas_patch.py:524",
+        "max_abs_err": 0.0,
+        "ms": event_ms(lambda: cuda_patch.extract_blended(padded, xy, P, with_moments=True), 20),
+        "plain_ms": event_ms(
+            lambda: cuda_patch.extract_blended_plain(padded, xy, P, with_moments=True), 3, 1),
+        "bound_ms": b6, "bound_by": by6, "library_ms": None,
+    })
+    del frames, smooth, padded
+
+    # K8 warp_batch_field at max_px = max_flow_px = 6 on config 3's
+    # fields relative to frame 0 (what the path estimates)
+    stack3, data3 = config3_stack(B)
+    fr = torch.as_tensor(stack3, device="cuda").contiguous()
+    fields = torch.as_tensor(data3.fields[:B] - data3.fields[0], device="cuda").contiguous()
+
+    def check(frames_, fields_, what):
+        out, ok = cuda_warp_field.warp_batch_field(frames_, fields_, max_px=6)
+        ref, ref_ok = cuda_warp_field.warp_batch_field_plain(frames_, fields_, 6)
+        e = float((out - ref).abs().max())
+        if e > TOL * float(ref.abs().max()) or not torch.equal(ok, ref_ok):
+            raise AssertionError(f"K8: error {e} or ok flags differ at {what}")
+        return e, out, ok
+
+    err8, _, ok = check(fr, fields, "512x512")
+    extra["k8_config3_ok"] = int(ok.sum())
+    fx = fields.clone()
+    fx[1, :4] += 20.0  # residual beyond the bound
+    fx[2] += 300.0  # mean beyond +-PAD
+    e, out, ok = check(fr, fx.contiguous(), "512x512, out of envelope")
+    err8 = max(err8, e)
+    if ok[1:3].any() or float(out[1:3].abs().max()) != 0.0:
+        raise AssertionError("K8: frames out of the envelope must be zeroed and flagged")
+    g8 = torch.Generator(device="cuda").manual_seed(8)
+    for shape, grid, n in (((1024, 1024), (8, 8), 8), ((200, 160), (6, 5), 4)):
+        f_big = _frames(n, shape, seed=shape[0])
+        fld = ((torch.rand((n,) + grid + (2,), device="cuda", generator=g8) - 0.5) * 4.0
+               + torch.tensor([3.3, -2.2], device="cuda")).contiguous()
+        err8 = max(err8, check(f_big, fld, f"{shape[0]}x{shape[1]}, grid {grid}")[0])
+        del f_big
+    px = B * H * W
+    b8, by8 = bound_ms(2 * px * 4 + fields.numel() * 4 + B,
+                       field_warp_ops(B, H, W, *fields.shape[1:3]))
+    flows = upsample_field(fields, (H, W))  # (B, H, W, 2), outside the timing
+    ys = torch.arange(H, device="cuda", dtype=torch.float32)[None, :, None]
+    xs = torch.arange(W, device="cuda", dtype=torch.float32)[None, None, :]
+    grid = torch.stack([(xs + flows[..., 0]) * (2.0 / (W - 1)) - 1.0,
+                        (ys + flows[..., 1]) * (2.0 / (H - 1)) - 1.0], dim=-1).contiguous()
+    lib8 = event_ms(lambda: torch.nn.functional.grid_sample(
+        fr[:, None], grid, mode="bilinear", padding_mode="zeros", align_corners=True), 20)
+    rows.append({
+        "name": "warp_batch_field", "route": "cuda",
+        "source": "kcmc_tpu_torch/csrc/warp_field.cu",
+        "replaces": "kcmc_tpu/ops/pallas_warp_field.py:289",
+        "max_abs_err": err8,
+        "ms": event_ms(lambda: cuda_warp_field.warp_batch_field(fr, fields, max_px=6), 20),
+        "plain_ms": event_ms(lambda: cuda_warp_field.warp_batch_field_plain(fr, fields, 6), 3, 1),
+        "bound_ms": b8, "bound_by": by8, "library_ms": lib8,
+    })
+    extra["bound_rates"] = {"extract_blended_moments": "float32 67 TFLOP/s",
+                            "warp_batch_field": "float32 67 TFLOP/s"}
+    extra["library"] = {"warp_batch_field": "grid_sample on the dense grid of the upsampled "
+                        "field (the upsample not timed)"}
+    return rows, extra
+
+
 ZERO = {"detect_response": 0, "extract_blended": 0, "warp_translation": 0,
-        "moment_maps": 0, "binned_select_rows": 0, "warp_batch_matrix": 0}
+        "moment_maps": 0, "binned_select_rows": 0, "extract_blended_moments": 0,
+        "warp_batch_matrix": 0, "warp_batch_field": 0}
 WANT_LAUNCHES = {
     "translation": {**ZERO, "detect_response": 33, "extract_blended": 33,
                     "warp_translation": 64},
     "affine": {**ZERO, "detect_response": 33, "extract_blended": 33, "moment_maps": 33,
                "binned_select_rows": 33, "warp_batch_matrix": 64},
+    "homography": {**ZERO, "detect_response": 33, "extract_blended_moments": 33,
+                   "warp_batch_matrix": 64},
+    "piecewise": {**ZERO, "detect_response": 33, "extract_blended": 33,
+                  "warp_batch_field": 160},
 }
+PHASE = {"translation": "e2e", "affine": "e2e_affine", "homography": "e2e_homography",
+         "rigid": "e2e_homography", "piecewise": "e2e_piecewise"}
 
 
-def phase_e2e(smi: str, model: str) -> dict[str, int]:
-    """One 1000-frame correct() of the model's cell, counters reset just
-    before it and read just after."""
+def path_input(model: str, n_frames: int):
+    """(stack, ground truth, corrector) of a model's cell: ground-truth
+    transforms, or for piecewise the untiled 64-frame data."""
     from kcmc_tpu_torch import MotionCorrector
-    from kcmc_tpu_torch.utils.metrics import relative_transforms, transform_rmse
     from kcmc_tpu_torch.utils.synthetic import make_drift_stack
 
-    t0 = time.perf_counter()
     if model == "translation":
-        data = make_drift_stack(n_frames=1000, shape=(512, 512), model="translation", seed=0)
-        stack, gt = data.stack, data.transforms
-        mc = MotionCorrector(model="translation")
-    else:
-        stack, gt = config2_stack(1000)
-        mc = MotionCorrector(model="affine", **CFG2)
+        data = make_drift_stack(n_frames=n_frames, shape=(512, 512), model="translation", seed=0)
+        return data.stack, data.transforms, MotionCorrector(model="translation")
+    if model == "affine":
+        return (*tiled_stack(n_frames, CFG2_SCENE), MotionCorrector(model="affine", **CFG2))
+    if model == "piecewise":
+        return (*config3_stack(n_frames), MotionCorrector(model="piecewise"))
+    return (*tiled_stack(n_frames, {**CFG4_SCENE, "model": model}), MotionCorrector(model=model))
+
+
+def _gt_beyond_bound(stack, gt_rel, mc) -> int:
+    """Frames whose ground-truth map K7 zeroes and flags at the path's
+    max_px: the rescues the scene itself calls for (run after the
+    launch counters are read)."""
+    from kcmc_tpu_torch.ops.cuda_warp_matrix import warp_batch_matrix
+
+    mpx = mc.backend._matrix_resid_px(stack.shape[1:])
+    n = 0
+    for i in range(0, len(stack), 32):
+        fr = torch.as_tensor(stack[i:i + 32], device="cuda").contiguous()
+        M = torch.as_tensor(gt_rel[i:i + 32].astype(np.float32), device="cuda").contiguous()
+        n += int((~warp_batch_matrix(fr, M, max_px=mpx)[1]).sum())
+    return n
+
+
+def phase_e2e(smi: str, model: str, n_frames: int = 1000) -> dict[str, int]:
+    """One n_frames correct() of the model's cell, counters reset just
+    before it and read just after."""
+    from kcmc_tpu_torch.utils.metrics import field_rmse, relative_transforms, transform_rmse
+
+    t0 = time.perf_counter()
+    stack, gt, mc = path_input(model, n_frames)
     t_data = time.perf_counter() - t0
     mc.correct(stack[:32])  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
@@ -501,12 +700,24 @@ def phase_e2e(smi: str, model: str) -> dict[str, int]:
     seconds = time.perf_counter() - t0
     launches = mc.backend.launch_counts()
 
-    rmse = transform_rmse(res.transforms, relative_transforms(gt), (512, 512))
+    if model == "piecewise":
+        # bench.py's metric: the first 64 (untiled) frames' fields against
+        # the truth relative to frame 0
+        err = field_rmse(res.fields[:len(gt.stack)], gt.fields - gt.fields[0])
+        limit, metric = 0.15, "field_rmse_px"
+        finite = np.isfinite(res.fields).all()
+    else:
+        err = transform_rmse(res.transforms, relative_transforms(gt), (512, 512))
+        limit, metric = 0.05, "rmse_px"
+        finite = np.isfinite(res.transforms).all()
     rescued = int(np.sum(res.diagnostics["warp_rescued"]))
+    extra = {}
+    if model in ("affine", "homography", "rigid"):
+        extra["gt_beyond_warp_bound"] = _gt_beyond_bound(stack, relative_transforms(gt), mc)
     emit({
-        "phase": "e2e" if model == "translation" else "e2e_affine", "model": model,
+        "phase": PHASE[model], "model": model,
         "frames": len(stack), "seconds": seconds, "frames_per_s": len(stack) / seconds,
-        "rmse_px": rmse, "warp_rescued": rescued, "launches": launches,
+        metric: err, "warp_rescued": rescued, **extra, "launches": launches,
         "mean_keypoints": float(np.mean(res.diagnostics["n_keypoints"])),
         "mean_matches": float(np.mean(res.diagnostics["n_matches"])),
         "mean_inliers": float(np.mean(res.diagnostics["n_inliers"])),
@@ -515,11 +726,14 @@ def phase_e2e(smi: str, model: str) -> dict[str, int]:
     })
     if res.corrected.shape != stack.shape or not np.isfinite(res.corrected).all():
         raise AssertionError(f"{model}: corrected stack has the wrong shape or non-finite values")
-    if not np.isfinite(res.transforms).all() or rmse > 0.05:
-        raise AssertionError(f"{model}: transform RMSE {rmse} px exceeds 0.05 px")
+    if not finite or err > limit:
+        raise AssertionError(f"{model}: {metric} {err} exceeds {limit}")
     if model == "translation" and rescued:
         raise AssertionError(f"e2e: {rescued} frames were not warp_ok")
-    if launches != WANT_LAUNCHES[model]:
+    if model == "rigid":
+        if not (launches["extract_blended_moments"] and launches["warp_batch_matrix"]):
+            raise AssertionError(f"rigid: K6 and K7 must both launch, got {launches}")
+    elif launches != WANT_LAUNCHES[model]:
         raise AssertionError(f"{model}: launch counts {launches} != {WANT_LAUNCHES[model]}")
     return launches
 
@@ -535,17 +749,10 @@ def phase_profile(smi: str, model: str, n_batches: int = 6) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from kcmc_tpu_torch import MotionCorrector
-    from kcmc_tpu_torch.utils.synthetic import make_drift_stack
-
     B = 32
     n = B * (n_batches + 1)
-    if model == "translation":
-        stack = make_drift_stack(n_frames=n, shape=(512, 512), seed=0).stack
-        backend = MotionCorrector(model="translation").backend
-    else:
-        stack = config2_stack(n)[0]
-        backend = MotionCorrector(model="affine", **CFG2).backend
+    stack, _, mc = path_input(model, n)
+    backend = mc.backend
     ref = backend.prepare_reference(stack[0])
     batches = [
         (stack[i * B:(i + 1) * B], np.arange(i * B, (i + 1) * B))
@@ -617,12 +824,14 @@ def main() -> int:
         phase_profile(smi, model)
         return 0
     rows = phase_kernels()
-    rows_affine, extra = phase_kernels_affine()
-    rows += rows_affine
-    emit({"phase": "kernels_affine", **extra,
-          "checked": [r["name"] for r in rows_affine],
-          "max_abs_err": {r["name"]: r["max_abs_err"] for r in rows_affine}})
-    by_path = {m: phase_e2e(smi, m) for m in ("translation", "affine")}
+    for phase, fn in (("kernels_affine", phase_kernels_affine),
+                      ("kernels_fields", phase_kernels_fields)):
+        new_rows, extra = fn()
+        rows += new_rows
+        emit({"phase": phase, **extra, "checked": [r["name"] for r in new_rows],
+              "max_abs_err": {r["name"]: r["max_abs_err"] for r in new_rows}})
+    by_path = {m: phase_e2e(smi, m, 128 if m == "rigid" else 1000)
+               for m in ("translation", "affine", "homography", "rigid", "piecewise")}
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in by_path.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

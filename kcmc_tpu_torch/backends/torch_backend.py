@@ -1,14 +1,18 @@
-"""The PyTorch execution backend: the translation and affine batch
-programs.
+"""The PyTorch execution backend: the translation, matrix-model and
+piecewise batch programs.
 
 Counterpart of `kcmc_tpu/backends/jax_backend.py` for the slices the
-port covers — the translation and affine `core` of `_build_local_2d`
-(no shape buckets, temporal seeds or mesh):
+port covers — the 2D `core` of `_build_local_2d` (no shape buckets,
+temporal seeds or mesh):
 
     translation: K1 fields + blur -> selection -> K2 upright describe
         -> match -> consensus -> K3 warp -> polish -> K3 re-warp
-    affine:      K1 -> selection -> K4 moments, bins, K2, K5 oriented
-        describe -> match -> consensus -> K7 warp -> polish -> K7 re-warp
+    rigid, affine, homography: K1 -> selection -> oriented describe (K6
+        and the binned selection below K=2048; K4, bins, K2, K5 from
+        there on) -> match -> consensus -> K7 warp -> polish -> K7 re-warp
+    piecewise:   K1 -> selection -> K2 upright describe -> match ->
+        per-patch field estimate -> K8 warp -> field_polish passes of
+        correlation polish, each followed by a K8 re-warp
 
 plus reference preparation (the same detect+describe on a batch of
 one, so the reference runs the same kernels), the exact gather rescue
@@ -32,10 +36,16 @@ from kcmc_tpu_torch.config import CorrectorConfig
 from kcmc_tpu_torch.models.transforms import get_model
 from kcmc_tpu_torch.ops import cuda_build
 from kcmc_tpu_torch.ops.cuda_warp import warp_translation
+from kcmc_tpu_torch.ops.cuda_warp_field import warp_batch_field
 from kcmc_tpu_torch.ops.cuda_warp_matrix import warp_batch_matrix
-from kcmc_tpu_torch.ops.fused import fused_detect_describe, fused_match_consensus
+from kcmc_tpu_torch.ops.fused import (
+    fused_detect_describe,
+    fused_match_consensus,
+    match_to_reference,
+)
+from kcmc_tpu_torch.ops.piecewise import correlation_polish, estimate_field, upsample_field
 from kcmc_tpu_torch.ops.polish import polish_transforms
-from kcmc_tpu_torch.ops.warp import warp_batch
+from kcmc_tpu_torch.ops.warp import warp_batch, warp_batch_with_ok, warp_frame_flow
 from kcmc_tpu_torch.utils import prng
 from kcmc_tpu_torch.utils.device import resolve_device, set_full_precision
 
@@ -60,7 +70,7 @@ class TorchBackend:
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             set_full_precision()
-        self.model = get_model(config.model)
+        self.model = None if config.model == "piecewise" else get_model(config.model)
         self._base_key = prng.key(config.seed, device=self.device)
 
     # -- launch counters ---------------------------------------------------
@@ -112,12 +122,28 @@ class TorchBackend:
 
     def _resolve_batch_warp(self, shape):
         """fn(frames (B, H, W), transforms (B, 3, 3)) -> (corrected, ok):
-        K3 for translation, K7 with max_px = _matrix_resid_px(shape) for
-        affine (the reference's accelerator choices; `unsupported()`
-        refuses every other policy)."""
+        the gather warp for warp="jnp", else K3 for translation and K7
+        with max_px = _matrix_resid_px(shape) for the matrix models (the
+        reference's accelerator choices; `unsupported()` refuses every
+        other policy)."""
+        if self.config.warp == "jnp":
+            return warp_batch_with_ok
         if self.config.model == "translation":
             return warp_translation
         return functools.partial(warp_batch_matrix, max_px=self._matrix_resid_px(shape))
+
+    def _resolve_field_warp(self, shape):
+        """fn(frames (B, H, W), fields (B, gh, gw, 2)) -> (corrected, ok)
+        for piecewise: K8 with max_px = max_flow_px, or for warp="jnp"
+        the gather warp of the upsampled flow (unbounded, ok all True)."""
+        if self.config.warp == "jnp":
+            def gather(frames, fields):
+                return (
+                    warp_frame_flow(frames, upsample_field(fields, shape)),
+                    torch.ones(frames.shape[0], dtype=torch.bool, device=frames.device),
+                )
+            return gather
+        return functools.partial(warp_batch_field, max_px=self.config.max_flow_px)
 
     def prepare_reference(self, ref_frame) -> dict:
         """Keypoints and descriptors of the (H, W) reference frame:
@@ -143,8 +169,9 @@ class TorchBackend:
 
     def process_batch(self, frames, ref: dict, frame_indices) -> dict:
         """Register and correct a (B, H, W) batch against a prepared
-        reference. Returns numpy arrays: transform (B, 3, 3), corrected,
-        warp_ok and the per-frame diagnostics."""
+        reference. Returns numpy arrays: transform (B, 3, 3) (field (B,
+        gh, gw, 2) for piecewise), corrected, warp_ok and the per-frame
+        diagnostics."""
         cfg = self.config
         with stage("upload"):
             frames = torch.as_tensor(frames, device=self.device)
@@ -153,6 +180,57 @@ class TorchBackend:
             keys = prng.fold_in(self._base_key, idx)
         with stage("detect_describe"):
             kps, desc = self._detect_describe(frames)
+        if cfg.model == "piecewise":
+            out = self._piecewise_tail(frames, kps, desc, ref, keys)
+        else:
+            out = self._matrix_tail(frames, kps, desc, ref, keys)
+        with stage("download"):
+            return {k: v.cpu().numpy() for k, v in out.items()}
+
+    def _piecewise_tail(self, frames, kps, desc, ref, keys) -> dict:
+        """Match, per-patch field estimate, K8 warp and the field_polish
+        loop (jax_backend.py:1050-1104, :1212-1241)."""
+        cfg = self.config
+        with stage("match_consensus"):
+            src, m = match_to_reference(
+                desc, kps.valid, ref["desc"], ref["xy"], ref["valid"],
+                ratio=cfg.ratio, max_dist=cfg.max_hamming, mutual=cfg.mutual,
+            )
+            fres = estimate_field(
+                src, kps.xy, m.valid, keys, grid=cfg.patch_grid,
+                shape=tuple(frames.shape[1:]), n_global_hyps=cfg.n_hypotheses,
+                patch_hyps=cfg.patch_hypotheses, global_threshold=cfg.global_threshold,
+                patch_threshold=cfg.inlier_threshold, prior=cfg.patch_prior,
+                smooth_sigma=cfg.field_smooth_sigma, passes=cfg.field_passes,
+                refine_reach_scale=cfg.refine_reach_scale, patch_model=cfg.patch_model,
+                refine_hyps=cfg.refine_hypotheses,
+            )
+        field_warp = self._resolve_field_warp(tuple(frames.shape[1:]))
+        field = fres.field.contiguous()
+        with stage("warp"):
+            corrected, ok = field_warp(frames, field)
+        for _ in range(int(cfg.field_polish)):
+            # a frame the bounded warp zeroed has no pixels to correlate:
+            # its field stays for the rescue path
+            with stage("polish"):
+                delta = correlation_polish(corrected, ref["frame"], cfg.patch_grid)
+                field = (field + torch.where(ok[:, None, None, None], delta,
+                                             torch.zeros_like(delta))).contiguous()
+            with stage("warp"):
+                corrected, ok = field_warp(frames, field)
+        return {
+            "field": field,
+            "corrected": corrected,
+            "warp_ok": ok,
+            "n_keypoints": kps.valid.sum(dim=1).to(torch.int32),
+            "n_matches": m.valid.sum(dim=1).to(torch.int32),
+            "n_inliers": fres.n_inliers,
+            "rms_residual": fres.rms_residual,
+        }
+
+    def _matrix_tail(self, frames, kps, desc, ref, keys) -> dict:
+        """Match, consensus, bounded warp and the transform polish loop."""
+        cfg = self.config
         with stage("match_consensus"):
             res, n_matches = fused_match_consensus(
                 self.model, desc, kps.xy, kps.valid,
@@ -176,7 +254,7 @@ class TorchBackend:
                 M = torch.where(ok[:, None, None], newM, M).contiguous()
             with stage("warp"):
                 corrected, ok = batch_warp(frames, M)
-        out = {
+        return {
             "transform": M,
             "corrected": corrected,
             "warp_ok": ok,
@@ -185,16 +263,18 @@ class TorchBackend:
             "n_inliers": res.n_inliers,
             "rms_residual": res.rms_residual,
         }
-        with stage("download"):
-            return {k: v.cpu().numpy() for k, v in out.items()}
 
     def rescue_warp(self, frames, out: dict, ref: dict | None = None) -> np.ndarray:
         """Exact gather warp (plus the photometric polish, with `ref`)
-        for frames the bounded warp (K3 or K7) flagged; updates
+        for frames the bounded warp (K3, K7 or K8) flagged; updates
         out["transform"] in place so the exported transforms match the
-        rescued pixels."""
+        rescued pixels. Piecewise frames are re-warped from their field
+        as it is, with no polish (jax_backend.py:1431)."""
         cfg = self.config
         fr = torch.as_tensor(np.asarray(frames, np.float32), device=self.device)
+        if cfg.model == "piecewise":
+            fields = torch.as_tensor(np.asarray(out["field"], np.float32), device=self.device)
+            return warp_frame_flow(fr, upsample_field(fields, tuple(fr.shape[1:]))).cpu().numpy()
         M = torch.as_tensor(np.asarray(out["transform"], np.float32), device=self.device)
         corrected = warp_batch(fr, M)
         if ref is not None and ref.get("frame") is not None:

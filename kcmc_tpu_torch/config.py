@@ -1,8 +1,9 @@
 """Pipeline configuration of the PyTorch port.
 
-The fields the translation and affine slices read, under the names and
-defaults of `kcmc_tpu.config.CorrectorConfig`, so a JAX config carries
-across with `config_from_dict(dataclasses.asdict(cfg))`. Knobs the slice does not
+The fields the ported slices (translation, rigid, affine, homography and
+piecewise) read, under the names and defaults of
+`kcmc_tpu.config.CorrectorConfig`, so a JAX config carries across with
+`config_from_dict(dataclasses.asdict(cfg))`. Knobs the port does not
 implement are still declared: `unsupported()` names each non-default one
 with the ROADMAP.md item that will port it, and the backend raises
 `NotImplementedError` with that list instead of ignoring them.
@@ -13,9 +14,20 @@ from __future__ import annotations
 import dataclasses
 
 # Oriented describe takes the bins-first route from this many keypoints
-# on (kcmc_tpu/ops/describe.py:_BINS_FIRST_MIN_K); the small-K route
-# below it is not ported yet.
+# on, the small-K route through K6 below it
+# (kcmc_tpu/ops/describe.py:_BINS_FIRST_MIN_K).
 BINS_FIRST_MIN_K = 2048
+
+# Warp policies the port implements, per model: K3 (translation), K7
+# (matrix models), K8 (piecewise, "auto"), and the exact gather warp
+# ("jnp") for every model.
+_WARPS = {
+    "translation": ("auto", "pallas", "jnp"),
+    "rigid": ("auto", "matrix", "jnp"),
+    "affine": ("auto", "matrix", "jnp"),
+    "homography": ("auto", "matrix", "jnp"),
+    "piecewise": ("auto", "jnp"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +55,18 @@ class CorrectorConfig:
     match_radius: float | None = None
     match_precision: str = "auto"
 
+    # piecewise-rigid (config 3)
+    patch_grid: tuple[int, int] = (8, 8)
+    patch_hypotheses: int = 32
+    refine_hypotheses: int = 8  # 0 = patch_hypotheses
+    patch_model: str = "translation"
+    patch_prior: float = 2.0
+    field_smooth_sigma: float = 0.4  # in grid cells
+    field_passes: int = 3
+    refine_reach_scale: float = 0.5
+    global_threshold: float = 8.0
+    field_polish: int = 4
+
     # consensus
     n_hypotheses: int = 128
     inlier_threshold: float = 2.0
@@ -62,6 +86,7 @@ class CorrectorConfig:
     max_scale_dev: float = 0.02
     transform_polish: int = 1
     polish_grid: tuple[int, int] = (4, 4)
+    max_flow_px: int = 6  # K8's residual bound around the integer mean
 
     # orchestration
     batch_size: int = 32
@@ -97,11 +122,26 @@ class CorrectorConfig:
             )
         if self.warp not in ("auto", "jnp", "pallas", "separable", "matrix"):
             raise ValueError(f"unknown warp policy {self.warp!r}")
+        if self.field_passes < 1:
+            raise ValueError(f"field_passes must be >= 1, got {self.field_passes}")
+        if self.refine_hypotheses < 0:
+            raise ValueError(
+                "refine_hypotheses must be >= 0 (0 = patch_hypotheses), "
+                f"got {self.refine_hypotheses}"
+            )
+        if int(self.field_polish) < 0:
+            raise ValueError(f"field_polish must be >= 0 passes, got {self.field_polish}")
+        if self.patch_model not in ("translation", "rigid", "similarity", "affine"):
+            raise ValueError(
+                "patch_model must be one of translation/rigid/"
+                f"similarity/affine, got {self.patch_model!r}"
+            )
         if int(self.transform_polish) < 0:
             raise ValueError(
                 f"transform_polish must be >= 0, got {self.transform_polish}"
             )
         object.__setattr__(self, "polish_grid", tuple(self.polish_grid))
+        object.__setattr__(self, "patch_grid", tuple(self.patch_grid))
         object.__setattr__(self, "plan_buckets", tuple(self.plan_buckets))
 
     def resolved_oriented(self) -> bool:
@@ -126,13 +166,12 @@ class CorrectorConfig:
         """Non-default knobs the port does not implement yet, each with
         the ROADMAP.md queue-1 item that will port it."""
         out = []
-        if self.model not in ("translation", "affine"):
-            item = {"piecewise": 12, "rigid3d": 13}.get(self.model, 11)
+        if self.model not in _WARPS:
+            item = 13 if self.model == "rigid3d" else 14
             out.append(f"model={self.model!r} (ROADMAP queue 1 item {item})")
-        if self.resolved_oriented() and self.max_keypoints < BINS_FIRST_MIN_K:
+        if self.model == "piecewise" and self.patch_model != "translation":
             out.append(
-                f"oriented descriptors below max_keypoints={BINS_FIRST_MIN_K}: "
-                "the small-K route through K6 (ROADMAP queue 1 item 11)"
+                f"patch_model={self.patch_model!r} (ROADMAP queue 1 item 14)"
             )
         if self.n_octaves > 1:
             out.append("n_octaves > 1 (ROADMAP queue 1 item 14)")
@@ -153,12 +192,11 @@ class CorrectorConfig:
             out.append("plan_buckets (ROADMAP queue 1 item 16)")
         if self.mesh_devices:
             out.append("mesh_devices (ROADMAP queue 1 item 17)")
-        warps = {"translation": ("auto", "pallas"), "affine": ("auto", "matrix")}
-        if self.warp not in warps.get(self.model, ("auto",)):
+        if self.model in _WARPS and self.warp not in _WARPS[self.model]:
             out.append(
                 f"warp={self.warp!r} for model={self.model!r}: the port has "
-                "the translation kernel (K3) and the matrix kernel (K7) "
-                "only (ROADMAP queue 1 item 11)"
+                "K3, the matrix kernel K7, the field kernel K8 and the "
+                "gather warp (ROADMAP queue 1 item 14)"
             )
         return out
 

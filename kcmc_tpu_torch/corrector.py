@@ -1,4 +1,5 @@
-"""`MotionCorrector` of the PyTorch port (translation and affine slices).
+"""`MotionCorrector` of the PyTorch port (translation, rigid, affine,
+homography and piecewise slices).
 
 Counterpart of the one-shot path of `kcmc_tpu/corrector.py`
 (`MotionCorrector.correct`): reference selection, fixed-size batches
@@ -22,9 +23,10 @@ from kcmc_tpu_torch.config import CorrectorConfig
 @dataclasses.dataclass
 class CorrectionResult:
     corrected: np.ndarray  # (T, H, W)
-    transforms: np.ndarray  # (T, 3, 3) ref -> frame maps
+    transforms: np.ndarray | None  # (T, 3, 3) ref -> frame maps; None for piecewise
     diagnostics: dict  # per-frame arrays
     timing: dict
+    fields: np.ndarray | None = None  # (T, gh, gw, 2) for piecewise
 
 
 def _cast_output(arr: np.ndarray, dtype: np.dtype) -> np.ndarray:
@@ -110,7 +112,7 @@ class MotionCorrector:
         return n, batch, idx
 
     def _rescue_flagged(self, host: dict, batch: np.ndarray, n: int, ref: dict) -> None:
-        """Re-warp frames the bounded warp (K3 or K7) zeroed (warp_ok
+        """Re-warp frames the bounded warp (K3, K7 or K8) zeroed (warp_ok
         False) through the exact gather path, in place; `warp_rescued`
         records which."""
         ok = np.asarray(host["warp_ok"], bool)
@@ -118,13 +120,16 @@ class MotionCorrector:
         if ok.all() or not self.config.rescue_warp:
             return
         bad = np.nonzero(~ok)[0]
-        sub = {"transform": host["transform"][bad]}
+        sub = {k: host[k][bad] for k in ("transform", "field") if k in host}
         rescued = self.backend.rescue_warp(batch[:n][bad], sub, ref=ref)
         corrected = np.array(host["corrected"])
         corrected[bad] = rescued
-        transforms = np.array(host["transform"])
-        transforms[bad] = sub["transform"]
-        host["corrected"], host["transform"] = corrected, transforms
+        host["corrected"] = corrected
+        if "transform" in sub:
+            # the rescue polished the flagged frames' transforms
+            transforms = np.array(host["transform"])
+            transforms[bad] = sub["transform"]
+            host["transform"] = transforms
         host["warp_ok"] = np.ones_like(ok)
 
     def correct(self, stack, output_dtype="float32") -> CorrectionResult:
@@ -149,10 +154,12 @@ class MotionCorrector:
         merged = {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
         seconds = time.perf_counter() - t0
         corrected = _cast_output(merged.pop("corrected"), out_dt)
-        transforms = merged.pop("transform")
+        transforms = merged.pop("transform", None)
+        fields = merged.pop("field", None)
         return CorrectionResult(
             corrected=corrected,
             transforms=transforms,
+            fields=fields,
             diagnostics=merged,
             timing={
                 "seconds": seconds,

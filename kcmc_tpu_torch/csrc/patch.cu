@@ -1,8 +1,10 @@
 // K2 extract_blended: per-keypoint patch cut plus separable bilinear
-// blend, keypoint-first, bf16 in and out.
+// blend, keypoint-first, bf16 in and out; with moments (K6), also the
+// ORB intensity-centroid moments of each raw patch.
 //
 // Replaces kcmc_tpu/ops/pallas_patch.py::extract_blended
-// (extract_blended_planes / _blended_kernel with with_moments=False),
+// (extract_blended_planes / _blended_kernel, with_moments=False as K2 and
+// with_moments=True as K6),
 // and with it the banded (_extract_blended_planes_banded) and slab
 // (_extract_blended_planes_slab) layouts that the TPU needed for frames
 // past its VMEM budget: this kernel reads from device memory directly
@@ -31,6 +33,20 @@
 // KPB keypoints of one frame: it stages each P x P window once in shared
 // memory (the four taps of every output read it four times) and writes
 // each keypoint's (P-1)^2 outputs as one contiguous run.
+//
+// K6 (WITH_MOMENTS): per keypoint also
+//   m10 = sum patch * dx,  m01 = sum patch * dy
+// over the MOMENT_RADIUS disc of the RAW staged window, centred at window
+// index c + (qx, qy), c = (P - 2) / 2, q = (frac >= 0.5): the reference's
+// `_moment_maps(P)` weights (pallas_patch.py:222). Each product of a bf16
+// value and an integer |w| <= 7 is exact in float32 and in float64, so one
+// thread per keypoint accumulates the 15 x 15 box in float64, row-major,
+// and rounds once to float32; the plain version does the same, and the two
+// agree bit for bit (the TPU kernel sums in float32 in XLA's order, which
+// interpret mode matches to a few ulps). At config 4 (B=32, K=512, P=32,
+// 544^2 frames) K6 must read 18.9 MB and write 31.5 MB + 0.13 MB of
+// moments, ~15 us at 3.35 TB/s; the moment sums are 450 float64 adds per
+// keypoint, one long thread per keypoint after the block's blend.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,10 +57,13 @@ namespace {
 constexpr int NTHREADS = 256;
 constexpr int KPB = 4;  // keypoints per block
 constexpr int MAXP = 64;
+constexpr int MR = 7;  // MOMENT_RADIUS
 
+template <bool WITH_MOMENTS>
 __global__ void __launch_bounds__(NTHREADS)
 blend_kernel(const __nv_bfloat16* __restrict__ padded,
              const float* __restrict__ xy, __nv_bfloat16* __restrict__ out,
+             float* __restrict__ m10, float* __restrict__ m01,
              int K, int Hp, int Wp, int P) {
   extern __shared__ float win[];  // KPB x P x P
   const int b = blockIdx.y;
@@ -92,19 +111,52 @@ blend_kernel(const __nv_bfloat16* __restrict__ padded,
     float v = __fmaf_rn(gx, yb0, __fmul_rn(fx, yb1));
     out[((size_t)b * K + k) * n_out + q] = __float2bfloat16_rn(v);
   }
+  if (WITH_MOMENTS && threadIdx.x % 32 == 0 && threadIdx.x / 32 < KPB) {
+    const int j = threadIdx.x / 32;
+    const int k = k0 + j;
+    if (k < K) {
+      const int c = (P - 2) / 2;
+      const int cy = c + (fys[j] >= 0.5f ? 1 : 0);
+      const int cx = c + (fxs[j] >= 0.5f ? 1 : 0);
+      const float* w = win + j * PP;
+      double sx = 0.0, sy = 0.0;
+      for (int dy = -MR; dy <= MR; ++dy) {
+        for (int dx = -MR; dx <= MR; ++dx) {
+          if (dx * dx + dy * dy > MR * MR) continue;
+          const double v = (double)w[(cy + dy) * P + cx + dx];
+          sx = __dadd_rn(sx, __dmul_rn(v, (double)dx));
+          sy = __dadd_rn(sy, __dmul_rn(v, (double)dy));
+        }
+      }
+      m10[(size_t)b * K + k] = __double2float_rn(sx);
+      m01[(size_t)b * K + k] = __double2float_rn(sy);
+    }
+  }
 }
 
 }  // namespace
 
 // padded (B, Hp, Wp) bf16, xy (B, K, 2) f32 -> out (B, K, P-1, P-1) bf16
-// on `stream`. Returns cudaGetLastError() after the launch.
+// and, when m10 and m01 are not null, the (B, K) f32 moments (K6; needs
+// P >= 2 * MR + 3 so the disc fits the window), on `stream`. Returns
+// cudaGetLastError() after the launch.
 extern "C" int kcmc_extract_blended(const void* padded, const float* xy,
-                                    void* out, int B, int K, int Hp, int Wp,
-                                    int P, void* stream) {
+                                    void* out, float* m10, float* m01,
+                                    int B, int K, int Hp, int Wp, int P,
+                                    void* stream) {
   if (P < 2 || P > MAXP) return (int)cudaErrorInvalidValue;
+  const bool mom = m10 != nullptr && m01 != nullptr;
+  if (mom && P < 2 * MR + 3) return (int)cudaErrorInvalidValue;
   const int smem = KPB * P * P * (int)sizeof(float);
   dim3 grid((K + KPB - 1) / KPB, B);
-  blend_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)padded, xy, (__nv_bfloat16*)out, K, Hp, Wp, P);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (mom)
+    blend_kernel<true><<<grid, NTHREADS, smem, st>>>(
+        (const __nv_bfloat16*)padded, xy, (__nv_bfloat16*)out, m10, m01, K,
+        Hp, Wp, P);
+  else
+    blend_kernel<false><<<grid, NTHREADS, smem, st>>>(
+        (const __nv_bfloat16*)padded, xy, (__nv_bfloat16*)out, nullptr,
+        nullptr, K, Hp, Wp, P);
   return (int)cudaGetLastError();
 }

@@ -17,10 +17,10 @@
 //   * the y-lerp of the two rows.
 // A tap counts only where the TPU's masked sums include it: floor in
 // [-max_px, max_px + 1] for the (1 - f) tap, [-max_px - 1, max_px] for
-// the f tap. The per-frame prologue (the wrapper's `prep`:
-// normalization by M[2,2], round-half-even centre shift, the +-PAD
-// `exact` flag and the degenerate-M[2,2] flag) runs once per block
-// into shared memory. The in-frame residual maximum is reduced per warp
+// the f tap (warp_taps.cuh, shared with K8). The per-frame prologue
+// (the wrapper's `prep`: normalization by M[2,2], round-half-even centre
+// shift, the +-PAD `exact` flag and the degenerate-M[2,2] flag) runs
+// once per block into shared memory. The in-frame residual maximum is reduced per warp
 // and combined per frame with atomicMax on the float's bits (values are
 // >= 0); a second small kernel sets ok = okm & exact & max <= max_px - 0.5
 // and zeroes the frames it clears. Every float operation is an explicitly
@@ -37,7 +37,15 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "warp_taps.cuh"
+
 namespace {
+
+using kcmc::add;
+using kcmc::clamp_int;
+using kcmc::lerp;
+using kcmc::mul;
+using kcmc::sub;
 
 constexpr int PAD = 128;
 constexpr int NTHREADS = 256;
@@ -47,16 +55,6 @@ struct Scal {
   int tx, ty;
   bool exact, okm;
 };
-
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-
-// int of a float clamped to +-lim (NaN -> lim): the value is only used
-// where it is in range, and the conversion is then always defined.
-__device__ __forceinline__ int clamp_int(float v, float lim) {
-  return (int)(isnan(v) ? lim : fminf(fmaxf(v, -lim), lim));
-}
 
 __device__ Scal prologue(const float* M, int H, int W) {
   Scal s;
@@ -90,14 +88,6 @@ __device__ __forceinline__ void smap(const Scal& s, float x, float y,
   if (fabsf(wq) < 1e-6f) wq = wq < 0.0f ? -1e-6f : 1e-6f;
   *sx = __fdiv_rn(add(add(mul(s.m00, x), mul(s.m01, y)), s.m02), wq);
   *sy = __fdiv_rn(add(add(mul(s.m10, x), mul(s.m11, y)), s.m12), wq);
-}
-
-// 0 + (1 - f) v0 + f v1 with each tap only inside its window
-__device__ __forceinline__ float lerp(int i, float f, float v0, float v1,
-                                      int mp) {
-  const float a = (i >= -mp && i <= mp + 1) ? mul(sub(1.0f, f), v0) : 0.0f;
-  const float b = (i >= -mp - 1 && i <= mp) ? mul(f, v1) : 0.0f;
-  return add(a, b);
 }
 
 __global__ void __launch_bounds__(NTHREADS)

@@ -1,8 +1,8 @@
 """Geometric transform models as weighted closed-form solves
-(translation and affine).
+(translation, rigid, affine and homography).
 
-Counterpart of `kcmc_tpu/models/transforms.py` for the translation and
-affine families, batched over any leading axes instead of vmapped:
+Counterpart of `kcmc_tpu/models/transforms.py` for the 2D families
+except similarity, batched over any leading axes instead of vmapped:
 
 * `solve(src, dst, w)`: (..., N, 2) points and (..., N) weights ->
   (..., 3, 3) homogeneous matrices (weighted mean displacement);
@@ -11,11 +11,12 @@ affine families, batched over any leading axes instead of vmapped:
   projective divide clamped away from zero.
 
 Degenerate solves (zero weight mass, non-finite results, collinear or
-coincident samples) return the identity (`_guard`). The affine solves
-run in float32 on Hartley-conditioned normal equations; on the card the
-backend turns TF32 off, so their small matmuls stay full float32 as the
-reference's Precision.HIGHEST does. The other models raise
-NotImplementedError naming the ROADMAP item that ports them.
+coincident samples) return the identity (`_guard`). The affine and
+homography solves run in float32 on Hartley-conditioned normal
+equations; on the card the backend turns TF32 off, so their small
+matmuls stay full float32 as the reference's Precision.HIGHEST does.
+The other models raise NotImplementedError naming the ROADMAP item that
+ports them.
 """
 
 from __future__ import annotations
@@ -70,6 +71,27 @@ def solve_translation(src, dst, w) -> torch.Tensor:
     M[..., 0, 2] = t[..., 0]
     M[..., 1, 2] = t[..., 1]
     return _guard(M, w.sum(dim=-1) > _MIN_MASS)
+
+
+def solve_rigid(src, dst, w) -> torch.Tensor:
+    """Weighted 2D Procrustes (rotation + translation), closed form."""
+    cs = _wmean(src, w)
+    cd = _wmean(dst, w)
+    s = src - cs[..., None, :]
+    d = dst - cd[..., None, :]
+    a = torch.sum(w * (s[..., 0] * d[..., 0] + s[..., 1] * d[..., 1]), dim=-1)
+    b = torch.sum(w * (s[..., 0] * d[..., 1] - s[..., 1] * d[..., 0]), dim=-1)
+    norm = torch.clamp(torch.sqrt(a * a + b * b), min=_EPS)
+    c, sn = a / norm, b / norm
+    M = _eye(c.shape, c.device)
+    M[..., 0, 0] = c
+    M[..., 0, 1] = -sn
+    M[..., 1, 0] = sn
+    M[..., 1, 1] = c
+    M[..., 0, 2] = cd[..., 0] - (c * cs[..., 0] - sn * cs[..., 1])
+    M[..., 1, 2] = cd[..., 1] - (sn * cs[..., 0] + c * cs[..., 1])
+    # norm ~ 0: coincident or weightless samples define no rotation
+    return _guard(M, (w.sum(dim=-1) > _MIN_MASS) & (norm > 1e-6))
 
 
 def _normalization(pts: torch.Tensor, w: torch.Tensor):
@@ -169,6 +191,79 @@ def solve_affine_accurate(src, dst, w) -> torch.Tensor:
     return _affine_from_P(P.transpose(-1, -2), Ts, Td_inv, ok)
 
 
+def _homography_normal_system(src, dst, w):
+    """The weighted normalized-DLT (..., 9, 9) normal matrix, the
+    conditioning maps and the spread check."""
+    Ts, _ = _normalization(src, w)
+    Td, Td_inv = _normalization(dst, w)
+    sn = apply_transform(Ts, src)
+    dn = apply_transform(Td, dst)
+    x, y = sn[..., 0], sn[..., 1]
+    u, v = dn[..., 0], dn[..., 1]
+    zero = torch.zeros_like(x)
+    one = torch.ones_like(x)
+    r1 = torch.stack([-x, -y, -one, zero, zero, zero, u * x, u * y, u], dim=-1)
+    r2 = torch.stack([zero, zero, zero, -x, -y, -one, v * x, v * y, v], dim=-1)
+    rows = torch.cat([r1, r2], dim=-2)  # (..., 2N, 9)
+    rw = torch.cat([w, w], dim=-1)
+    ATA = torch.matmul(rows.transpose(-1, -2), rows * rw[..., None])
+    return ATA, Ts, Td_inv, _normalized_spread_ok(sn, dn, w)
+
+
+def _homography_from_h(h, Ts, Td_inv, w, ok):
+    """(..., 9) normalized null vector -> the denormalized map, scaled
+    to unit Frobenius norm, sign fixed by H[2, 2] >= 0, then divided by
+    H[2, 2]."""
+    H = torch.matmul(torch.matmul(Td_inv, h.reshape(h.shape[:-1] + (3, 3))), Ts)
+    H = H / torch.clamp(torch.linalg.vector_norm(H, dim=(-2, -1)), min=_EPS)[..., None, None]
+    H = H * torch.where(H[..., 2, 2] < 0, -1.0, 1.0)[..., None, None]
+    h22 = H[..., 2, 2]
+    denom = torch.where(h22.abs() > 1e-6, h22, torch.ones_like(h22))
+    return _guard(H / denom[..., None, None], (w.sum(dim=-1) > _MIN_MASS) & ok)
+
+
+def _cholesky_solve_unrolled(A: torch.Tensor, b: torch.Tensor, n: int):
+    """Solve SPD (..., n, n) systems A x = b by an unrolled scalar
+    Cholesky in the reference's operation order. Returns (x (..., n),
+    ok): ok is False where a pivot collapsed below 1e-5 of its diagonal
+    entry (rank deficiency: a degenerate sample)."""
+    L = [[None] * n for _ in range(n)]
+    ok = None
+    for j in range(n):
+        s = A[..., j, j] - sum(L[j][k] * L[j][k] for k in range(j))
+        healthy = s > 1e-5 * A[..., j, j]
+        ok = healthy if ok is None else ok & healthy
+        d = torch.sqrt(torch.clamp(s, min=1e-12))
+        L[j][j] = d
+        for i in range(j + 1, n):
+            L[i][j] = (A[..., i, j] - sum(L[i][k] * L[j][k] for k in range(j))) / d
+    y = [None] * n
+    for i in range(n):
+        y[i] = (b[..., i] - sum(L[i][k] * y[k] for k in range(i))) / L[i][i]
+    x = [None] * n
+    for i in reversed(range(n)):
+        x[i] = (y[i] - sum(L[k][i] * x[k] for k in range(i + 1, n))) / L[i][i]
+    return torch.stack(x, dim=-1), ok
+
+
+def solve_homography(src, dst, w) -> torch.Tensor:
+    """Weighted normalized DLT with h33 = 1: the 8x8 normal system by the
+    unrolled Cholesky (the hypothesis solver)."""
+    ATA, Ts, Td_inv, spread_ok = _homography_normal_system(src, dst, w)
+    A8 = ATA[..., :8, :8] + 1e-8 * torch.eye(8, dtype=ATA.dtype, device=ATA.device)
+    h8, ok = _cholesky_solve_unrolled(A8, -ATA[..., :8, 8], 8)
+    h = torch.cat([h8, torch.ones_like(h8[..., :1])], dim=-1)
+    return _homography_from_h(h, Ts, Td_inv, w, ok & spread_ok)
+
+
+def solve_homography_accurate(src, dst, w) -> torch.Tensor:
+    """Weighted normalized DLT, null vector by `eigh` of the 9x9 normal
+    matrix: the refine solver of IRLS and the photometric polish."""
+    ATA, Ts, Td_inv, spread_ok = _homography_normal_system(src, dst, w)
+    _, evecs = torch.linalg.eigh(ATA)
+    return _homography_from_h(evecs[..., :, 0], Ts, Td_inv, w, spread_ok)
+
+
 @dataclasses.dataclass(frozen=True)
 class TransformModel:
     name: str
@@ -194,9 +289,14 @@ MODELS: dict[str, TransformModel] = {
     "translation": TransformModel(
         "translation", ndim=2, dof=2, min_samples=1, solve=solve_translation
     ),
+    "rigid": TransformModel("rigid", ndim=2, dof=3, min_samples=2, solve=solve_rigid),
     "affine": TransformModel(
         "affine", ndim=2, dof=6, min_samples=3,
         solve=solve_affine, refine_solve=solve_affine_accurate,
+    ),
+    "homography": TransformModel(
+        "homography", ndim=2, dof=8, min_samples=4,
+        solve=solve_homography, refine_solve=solve_homography_accurate,
     ),
 }
 
@@ -205,6 +305,6 @@ def get_model(name: str) -> TransformModel:
     if name not in MODELS:
         raise NotImplementedError(
             f"transform model {name!r} is not ported yet (ROADMAP.md queue 1 "
-            "items 11-13); the port has: " + ", ".join(sorted(MODELS))
+            "items 13-14); the port has: " + ", ".join(sorted(MODELS))
         )
     return MODELS[name]

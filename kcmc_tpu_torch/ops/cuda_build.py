@@ -27,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kcmc_tpu_torch"
 SOURCES = {
     "detect": "detect.cu", "patch": "patch.cu", "warp": "warp.cu",
     "moments": "moments.cu", "select": "select.cu",
-    "warp_matrix": "warp_matrix.cu",
+    "warp_matrix": "warp_matrix.cu", "warp_field": "warp_field.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -36,7 +36,8 @@ NVCC_FLAGS = (
 
 LAUNCHES: dict[str, int] = {
     "detect_response": 0, "extract_blended": 0, "warp_translation": 0,
-    "moment_maps": 0, "binned_select_rows": 0, "warp_batch_matrix": 0,
+    "moment_maps": 0, "binned_select_rows": 0, "extract_blended_moments": 0,
+    "warp_batch_matrix": 0, "warp_batch_field": 0,
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -63,7 +64,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
+    # the shared headers are part of every library's hash
+    src = (CSRC / SOURCES[name]).read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh"))
+    )
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{h}.so"
 

@@ -1,4 +1,5 @@
-"""K2: per-keypoint patch cut + bilinear blend, and its plain version.
+"""K2 and K6: per-keypoint patch cut + bilinear blend (+ ORB moments),
+and their plain versions.
 
 Counterpart of `kcmc_tpu/ops/pallas_patch.py::extract_blended` (and of
 its banded and slab layouts, which the kernel needs no separate route
@@ -8,8 +9,12 @@ returns (B, K, P-1, P-1) bf16 blended patches: the window at
 floor(xy) + 1 blended at the fractional part, rows first, then columns,
 in float32 with the two fused multiply-adds the reference's CPU
 evaluation contracts the blend into (csrc/patch.cu). Reads past the
-padded frame clamp to its edge. Kernel on a CUDA tensor, plain version
-on a CPU tensor; the two are bit-identical.
+padded frame clamp to its edge. With `with_moments` (K6, the small-K
+oriented route) it also returns the ORB moments (m10, m01), (B, K)
+float32 each: the radius-7 disc of the RAW window centred at window
+index (P - 2) // 2 + (frac >= 0.5), summed row-major in float64 (every
+product is exact) and rounded once. Kernel on a CUDA tensor, plain
+version on a CPU tensor; the two are bit-identical.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import ctypes
 import torch
 
 from kcmc_tpu_torch.ops import cuda_build
+from kcmc_tpu_torch.ops.patterns import MOMENT_RADIUS
 from kcmc_tpu_torch.utils.device import kernel_route, require_tensor
 
 
@@ -37,8 +43,32 @@ def _origins(xy: torch.Tensor):
     return org[..., 0], org[..., 1], frac[..., 0], frac[..., 1]
 
 
-def extract_blended_plain(padded: torch.Tensor, xy: torch.Tensor, P: int):
-    """Plain PyTorch version of K2 (same float32 operations and order)."""
+def _moments_plain(patch: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor):
+    """(m10, m01) of raw (B, K, P, P) windows: K6's float64 row-major
+    sums over the disc, rounded once."""
+    P = patch.shape[-1]
+    mr = MOMENT_RADIUS
+    c = (P - 2) // 2
+    cy = c + (fy >= 0.5).long()
+    cx = c + (fx >= 0.5).long()
+    flat = patch.reshape(patch.shape[:-2] + (P * P,))
+    sx = torch.zeros(fx.shape, dtype=torch.float64, device=patch.device)
+    sy = torch.zeros_like(sx)
+    for dy in range(-mr, mr + 1):
+        for dx in range(-mr, mr + 1):
+            if dx * dx + dy * dy > mr * mr:
+                continue
+            idx = ((cy + dy) * P + cx + dx)[..., None]
+            v = torch.gather(flat, -1, idx)[..., 0].double()
+            sx = sx + v * float(dx)
+            sy = sy + v * float(dy)
+    return sx.float(), sy.float()
+
+
+def extract_blended_plain(padded: torch.Tensor, xy: torch.Tensor, P: int,
+                          with_moments: bool = False):
+    """Plain PyTorch version of K2 and K6 (same float32 operations and
+    order; K6's moments as in `_moments_plain`)."""
     B, Hp, Wp = padded.shape
     ox, oy, fx, fy = _origins(xy)
     ar = torch.arange(P, device=padded.device, dtype=torch.int32)
@@ -46,11 +76,14 @@ def extract_blended_plain(padded: torch.Tensor, xy: torch.Tensor, P: int):
     cols = torch.clamp(ox[..., None] + ar, 0, Wp - 1).long()
     bidx = torch.arange(B, device=padded.device)[:, None, None, None]
     patch = padded[bidx, rows[..., :, None], cols[..., None, :]].float()
-    fx = fx[..., None, None]
-    fy = fy[..., None, None]
-    yb = _fma(fy, patch[..., 1:, :], (1.0 - fy) * patch[..., :-1, :])
-    xb = _fma(1.0 - fx, yb[..., :-1], fx * yb[..., 1:])
-    return xb.to(torch.bfloat16)
+    fxb = fx[..., None, None]
+    fyb = fy[..., None, None]
+    yb = _fma(fyb, patch[..., 1:, :], (1.0 - fyb) * patch[..., :-1, :])
+    xb = _fma(1.0 - fxb, yb[..., :-1], fxb * yb[..., 1:])
+    pb = xb.to(torch.bfloat16)
+    if not with_moments:
+        return pb
+    return (pb, *_moments_plain(patch, fx, fy))
 
 
 def _lib():
@@ -58,13 +91,15 @@ def _lib():
     if fn.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def extract_blended(padded: torch.Tensor, xy: torch.Tensor, P: int):
-    """Keypoint-first blended (B, K, P-1, P-1) bf16 patches."""
+def extract_blended(padded: torch.Tensor, xy: torch.Tensor, P: int,
+                    with_moments: bool = False):
+    """Keypoint-first blended (B, K, P-1, P-1) bf16 patches; with
+    `with_moments` (K6), (patches, m10 (B, K), m01 (B, K))."""
     require_tensor(padded, "padded", torch.bfloat16, 3)
     require_tensor(xy, "xy", torch.float32, 3)
     if xy.shape[0] != padded.shape[0] or xy.shape[2] != 2:
@@ -73,15 +108,24 @@ def extract_blended(padded: torch.Tensor, xy: torch.Tensor, P: int):
         )
     if not 2 <= P <= 64:
         raise ValueError(f"patch side P must be in [2, 64], got {P}")
+    if with_moments and P < 2 * MOMENT_RADIUS + 3:
+        raise ValueError(f"moments need P >= {2 * MOMENT_RADIUS + 3}, got {P}")
     if not kernel_route(padded, xy):
-        return extract_blended_plain(padded, xy, P)
+        return extract_blended_plain(padded, xy, P, with_moments)
     B, Hp, Wp = padded.shape
     K = xy.shape[1]
     out = torch.empty((B, K, P - 1, P - 1), dtype=torch.bfloat16, device=padded.device)
+    if with_moments:
+        m10 = torch.empty((B, K), dtype=torch.float32, device=padded.device)
+        m01 = torch.empty_like(m10)
+        mp = (m10.data_ptr(), m01.data_ptr())
+    else:
+        mp = (None, None)
+    name = "extract_blended_moments" if with_moments else "extract_blended"
     rc = _lib()(
-        padded.data_ptr(), xy.data_ptr(), out.data_ptr(), B, K, Hp, Wp, P,
+        padded.data_ptr(), xy.data_ptr(), out.data_ptr(), *mp, B, K, Hp, Wp, P,
         torch.cuda.current_stream().cuda_stream,
     )
-    cuda_build.check(rc, "extract_blended")
-    cuda_build.LAUNCHES["extract_blended"] += 1
-    return out
+    cuda_build.check(rc, name)
+    cuda_build.LAUNCHES[name] += 1
+    return (out, m10, m01) if with_moments else out

@@ -48,6 +48,15 @@ def matrix_scalars(transforms: torch.Tensor, shape):
     return m, tcx, tcy, exact, okm
 
 
+def window_lerp(i: torch.Tensor, f: torch.Tensor, v0, v1, max_px: int) -> torch.Tensor:
+    """The masked-view sum of the TPU kernels: 0 + (1 - f) v0 + f v1,
+    the (1 - f) tap only for i in [-max_px, max_px + 1], the f tap only
+    for i in [-max_px - 1, max_px] (csrc/warp_taps.cuh)."""
+    zero = torch.zeros_like(f)
+    a = torch.where((i >= -max_px) & (i <= max_px + 1), (1.0 - f) * v0, zero)
+    return a + torch.where((i >= -max_px - 1) & (i <= max_px), f * v1, zero)
+
+
 def warp_batch_matrix_plain(frames: torch.Tensor, transforms: torch.Tensor, max_px: int):
     """Plain PyTorch version of K7: (corrected, ok)."""
     B, H, W = frames.shape
@@ -69,13 +78,6 @@ def warp_batch_matrix_plain(frames: torch.Tensor, transforms: torch.Tensor, max_
         idx = (r * W + c).expand(B, H, W).reshape(B, -1)
         return torch.gather(flat, 1, idx).reshape(B, H, W)
 
-    def lerp(i, f, v0, v1):
-        # the masked-view sum of the TPU kernel: 0 + (1-f) v0 + f v1,
-        # each tap only inside its window
-        zero = torch.zeros_like(f)
-        a = torch.where((i >= -max_px) & (i <= max_px + 1), (1.0 - f) * v0, zero)
-        return a + torch.where((i >= -max_px - 1) & (i <= max_px), f * v1, zero)
-
     sx_o, sy_o = smap(m, xs, ys)
     ux = sx_o - xs - tcx3
     uy = sy_o - ys - tcy3
@@ -90,8 +92,8 @@ def warp_batch_matrix_plain(frames: torch.Tensor, transforms: torch.Tensor, max_
             yc = ybf - (sy_c - yc - tcy3)
         sx_c, _ = smap(m, xs, yc)
         mxi, fx = floor_int(sx_c - xs - tcx3, max_px)
-        rows.append(lerp(mxi, fx, source(yb, mxi), source(yb, mxi + 1)))
-    acc = lerp(myi, fy, rows[0], rows[1])
+        rows.append(window_lerp(mxi, fx, source(yb, mxi), source(yb, mxi + 1), max_px))
+    acc = window_lerp(myi, fy, rows[0], rows[1], max_px)
     inb = (sx_o >= 0.0) & (sx_o <= W - 1.0) & (sy_o >= 0.0) & (sy_o <= H - 1.0)
     resid = torch.maximum(ux.abs(), uy.abs())
     maxr = torch.where(inb, resid, torch.zeros_like(resid)).amax(dim=(1, 2))

@@ -1,5 +1,5 @@
-"""Binary keypoint descriptors: upright BRIEF and the bins-first
-oriented (ORB-style) route.
+"""Binary keypoint descriptors: upright BRIEF and the two oriented
+(ORB-style) routes.
 
 Counterpart of `kcmc_tpu/ops/describe.py::describe_keypoints_batch`
 (describe.py:298-440). Both routes start alike: the blurred frames lose
@@ -12,9 +12,17 @@ it. The reference does this as a one-hot (729, 512) matmul, which
 selects exactly, so an index gather of the same rows is the same
 function.
 
+Oriented, small K (describe.py:421-431, below BINS_FIRST_MIN_K
+keypoints): kernel K6 cuts and blends each keypoint's patch and sums the
+ORB disc moments of its raw window; the moments give the orientation
+bin, `_binned_select` groups keypoints by bin into fixed-capacity
+segments (`dispatch.segment_by_key`; an overfull bin drops its weakest
+keypoints, whose descriptors stay zero) and each segment reads its bin's
+rotated pattern out of the patches.
+
 Oriented, bins-first (describe.py:401-420 and :531, taken from
-K >= BINS_FIRST_MIN_K keypoints; the small-K route through K6 is not
-ported): kernel K4 computes the ORB disc moments at every pixel, the
+K >= BINS_FIRST_MIN_K keypoints): kernel K4 computes the ORB disc
+moments at every pixel, the
 moments at each keypoint's rounded position give its angle and its
 orientation bin, a packed stable sort lays the keypoints out in
 16-aligned runs of equal bin, K2 extracts the patches in that order, and
@@ -41,7 +49,7 @@ from kcmc_tpu_torch.ops.cuda_moments import moment_maps
 from kcmc_tpu_torch.ops.cuda_patch import extract_blended
 from kcmc_tpu_torch.ops.cuda_select import binned_select_rows
 from kcmc_tpu_torch.ops.detect import Keypoints, gaussian_blur
-from kcmc_tpu_torch.ops.dispatch import stable_argsort_small_keys
+from kcmc_tpu_torch.ops.dispatch import segment_by_key, stable_argsort_small_keys
 from kcmc_tpu_torch.ops.patterns import (
     MOMENT_RADIUS,
     N_BITS,
@@ -217,6 +225,30 @@ def _describe_oriented_sorted(padded, kps: Keypoints, bins, P: int) -> torch.Ten
     return torch.where(kps.valid[..., None], desc, torch.zeros_like(desc))
 
 
+def _binned_select(flat: torch.Tensor, bins: torch.Tensor, valid: torch.Tensor):
+    """Oriented selection dispatched by bin (describe.py:650, the bf16
+    branch): (B, K, L) bf16 patch rows + (B, K) bins -> (B, K, 512)
+    selected values. Each bin keeps `cap` slots in stable (score) order;
+    keypoints past a full bin, and invalid ones, get zero values. The
+    reference multiplies each segment by its bin's one-hot (L, 512)
+    matrix, which selects exactly, so an index gather of the same
+    columns is the same function (as on the upright route)."""
+    B, K, L = flat.shape
+    nb = N_ORIENT_BINS
+    cap = min(K, max(32, -(-2 * K // (nb * 8)) * 8))
+    keys = torch.where(valid, bins, torch.full_like(bins, nb))
+    rows_idx, ok = segment_by_key(keys, nb, cap)  # (B, nb, cap)
+    rows = torch.gather(flat, 1, rows_idx.reshape(B, nb * cap, 1).expand(B, nb * cap, L))
+    cols = torch.as_tensor(_SEL_ROT_INDEX, device=flat.device)  # (nb, 512)
+    cols = cols[None, :, None, :].expand(B, nb, cap, cols.shape[-1])
+    out = torch.gather(rows.reshape(B, nb, cap, L), 3, cols)  # (B, nb, cap, 512)
+    vals = torch.zeros((B, K + 1, out.shape[-1]), dtype=flat.dtype, device=flat.device)
+    dest = torch.where(ok, rows_idx, torch.full_like(rows_idx, K)).reshape(B, nb * cap)
+    vals.scatter_(1, dest[..., None].expand(B, nb * cap, out.shape[-1]),
+                  out.reshape(B, nb * cap, -1))
+    return vals[:, :K]
+
+
 def describe_keypoints_batch(
     frames: torch.Tensor,
     kps: Keypoints,
@@ -228,13 +260,9 @@ def describe_keypoints_batch(
 
     `smooth` optionally supplies the blur_sigma-blurred batch (K1's
     free-ride output) so the blur is not recomputed. `oriented` takes
-    the bins-first route, which needs K >= BINS_FIRST_MIN_K."""
+    the small-K route below BINS_FIRST_MIN_K keypoints, the bins-first
+    route from there on."""
     B, K = kps.xy.shape[:2]
-    if oriented and K < BINS_FIRST_MIN_K:
-        raise NotImplementedError(
-            f"oriented descriptors at K={K} < {BINS_FIRST_MIN_K} take the "
-            "small-K route through K6, not ported yet (ROADMAP queue 1 item 11)"
-        )
     r = ROT_RADIUS if oriented else PATCH_RADIUS
     P = 2 * r + 2
     if smooth is None:
@@ -247,10 +275,15 @@ def describe_keypoints_batch(
         dim=(1, 2), keepdim=True
     ) / n_fin
     padded = edge_pad((smooth - mu).to(torch.bfloat16), r + 1).contiguous()
-    if oriented:
+    if oriented and K >= BINS_FIRST_MIN_K:
         m10, m01 = _moments_at_keypoints(padded, kps.xy, r)
         bins = _quantize_bins(torch.atan2(m01, m10))
         return _describe_oriented_sorted(padded, kps, bins, P)
+    if oriented:
+        pb, m10, m01 = extract_blended(padded, kps.xy.contiguous(), P, with_moments=True)
+        bins = _quantize_bins(torch.atan2(m01, m10))
+        vals = _binned_select(pb.reshape(B, K, -1), bins, kps.valid)
+        return _finalize_descriptors(vals, kps.valid)
     pb = extract_blended(padded, kps.xy.contiguous(), P)
     sel = torch.as_tensor(_SEL_UPRIGHT, device=pb.device)
     vals = pb.reshape(B, K, -1)[..., sel]

@@ -1,7 +1,9 @@
-"""Stable argsort of small integer keys by one packed sort.
+"""Stable argsort of small integer keys by one packed sort, and the
+fixed-capacity segment-by-key built on it.
 
-Counterpart of `kcmc_tpu/ops/dispatch.py::stable_argsort_small_keys`,
-the primitive the bins-first describe route groups keypoints with.
+Counterpart of `kcmc_tpu/ops/dispatch.py`: the primitives the oriented
+describe routes group keypoints by orientation bin with (bins-first:
+aligned runs; small K: fixed-capacity segments).
 """
 
 from __future__ import annotations
@@ -31,3 +33,25 @@ def stable_argsort_small_keys(keys: torch.Tensor, max_key: int):
     idx = torch.arange(N, dtype=torch.int64, device=keys.device)
     packed, _ = torch.sort((k << sh) | idx, dim=-1)
     return packed & ((1 << sh) - 1), packed >> sh
+
+
+def segment_by_key(keys: torch.Tensor, n_groups: int, cap: int):
+    """Group items by integer key, `cap` slots per group, along the last
+    axis of keys (..., N) (dispatch.py:54). Keys >= n_groups are dropped
+    (n_groups is the drop sentinel); out-of-range keys are clamped as in
+    `stable_argsort_small_keys`. Returns (slot_idx (..., n_groups, cap)
+    int64, the item per slot, and slot_ok (..., n_groups, cap) bool).
+    The sort is stable, so items keep their order within a group and an
+    overfull group drops its LAST items."""
+    N = keys.shape[-1]
+    order, sk = stable_argsort_small_keys(keys, n_groups)
+    lead = tuple(sk.shape[:-1])
+    bins = torch.arange(n_groups, dtype=sk.dtype, device=sk.device)
+    bins = bins.expand(lead + (n_groups,)).contiguous()
+    starts = torch.searchsorted(sk.contiguous(), bins, side="left")
+    ends = torch.searchsorted(sk.contiguous(), bins, side="right")
+    slots = starts[..., None] + torch.arange(cap, device=sk.device)
+    slot_ok = slots < ends[..., None]
+    flat = torch.clamp(slots, max=N - 1).reshape(lead + (n_groups * cap,))
+    slot_idx = torch.gather(order, -1, flat).reshape(lead + (n_groups, cap))
+    return slot_idx, slot_ok

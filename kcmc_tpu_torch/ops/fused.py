@@ -14,7 +14,7 @@ import torch
 from kcmc_tpu_torch.models.transforms import TransformModel
 from kcmc_tpu_torch.ops.describe import describe_keypoints_batch
 from kcmc_tpu_torch.ops.detect import detect_keypoints_batch
-from kcmc_tpu_torch.ops.match import knn_match_impl
+from kcmc_tpu_torch.ops.match import Matches, knn_match_impl
 from kcmc_tpu_torch.ops.ransac import RansacResult, consensus_batch
 
 
@@ -33,7 +33,8 @@ def fused_detect_describe(
 ):
     """(Keypoints, desc) of a (B, H, W) float32 batch: K1 fields and
     blur, selection, then the upright describe route through K2 or,
-    with `oriented`, the bins-first route through K4, K2 and K5."""
+    with `oriented`, the small-K route through K6 or (K >= 2048) the
+    bins-first route through K4, K2 and K5."""
     kps, smooth = detect_keypoints_batch(
         frames,
         max_keypoints=max_keypoints,
@@ -49,6 +50,27 @@ def fused_detect_describe(
         frames, kps, blur_sigma=blur_sigma, smooth=smooth, oriented=oriented
     )
     return kps, desc
+
+
+def match_to_reference(
+    desc: torch.Tensor,
+    kp_valid: torch.Tensor,
+    ref_desc: torch.Tensor,
+    ref_xy: torch.Tensor,
+    ref_valid: torch.Tensor,
+    ratio: float = 0.85,
+    max_dist: int = 80,
+    mutual: bool = True,
+) -> tuple[torch.Tensor, Matches]:
+    """Match (B, K, W) descriptors against the reference: (src (B, K, 2),
+    the reference keypoint of each frame keypoint's match, and the
+    Matches). The piecewise path's per-frame match (jax_backend.py:1056)
+    and the first half of `fused_match_consensus`."""
+    matches = knn_match_impl(
+        desc, ref_desc, kp_valid, ref_valid,
+        ratio=ratio, max_dist=max_dist, mutual=mutual,
+    )
+    return ref_xy[matches.idx], matches
 
 
 def fused_match_consensus(
@@ -73,11 +95,10 @@ def fused_match_consensus(
     """Match (B, K, W) descriptors against the reference and estimate
     per-frame transforms: (RansacResult, n_matches (B,) int32).
     Correspondences run reference keypoint -> frame keypoint."""
-    matches = knn_match_impl(
-        desc, ref_desc, kp_valid, ref_valid,
+    src, matches = match_to_reference(
+        desc, kp_valid, ref_desc, ref_xy, ref_valid,
         ratio=ratio, max_dist=max_dist, mutual=mutual,
     )
-    src = ref_xy[matches.idx]  # (B, K, 2)
     res = consensus_batch(
         model, src, kp_xy, matches.valid, keys,
         n_hypotheses=n_hypotheses, threshold=threshold,

@@ -1,7 +1,8 @@
 """Photometric residual-shift measurement and the transform polish.
 
-Counterpart of `kcmc_tpu/ops/polish.py` (the non-`exact` measurement
-branch, which `polish_transforms` uses). After the batch warp, each
+Counterpart of `kcmc_tpu/ops/polish.py`: both measurement branches, the
+ring-windowed index-shifted one `polish_transforms` uses and the `exact`
+per-region one the piecewise field polish uses. After the batch warp, each
 corrected frame's per-region residual shift against the template is
 measured by a center-weighted two-way cross-correlation at the 3x3
 integer shifts with a separable quadratic peak fit; the model's own
@@ -20,15 +21,17 @@ from kcmc_tpu_torch.ops.describe import edge_pad
 from kcmc_tpu_torch.ops.warp import coverage_mask
 
 
-def region_window(sh: int, sw: int, window_frac: float, device=None) -> torch.Tensor:
+def region_window(sh: int, sw: int, window_frac: float, device=None,
+                  ring: bool = True) -> torch.Tensor:
     """Flattened normalized Gaussian window of an (sh, sw) region, built
-    in float64 numpy and cast (polish.region_window). Its outer 1-px ring
-    is zero, which makes the index-shifted second correlation term of
-    `measure_shifts` exact."""
+    in float64 numpy and cast (polish.region_window). With `ring` its
+    outer 1-px ring is zero, which makes the index-shifted second
+    correlation term of `measure_shifts` exact; the `exact` branch uses
+    the full window."""
     yy = (np.arange(sh, dtype=np.float64) - (sh - 1) / 2) / (window_frac * sh)
     xx = (np.arange(sw, dtype=np.float64) - (sw - 1) / 2) / (window_frac * sw)
     w2 = np.exp(-0.5 * (yy[:, None] ** 2 + xx[None, :] ** 2))
-    if sh > 2 and sw > 2:
+    if ring and sh > 2 and sw > 2:
         mask = np.zeros((sh, sw))
         mask[1:-1, 1:-1] = 1.0
         w2 = w2 * mask
@@ -58,10 +61,63 @@ def region_centers(grid, shape, device=None) -> torch.Tensor:
 _SHIFTS = ((0, 0), (0, -1), (0, 1), (-1, 0), (1, 0))
 
 
-def measure_shifts(corrected, template, grid, window_frac: float = 0.25):
+def _exact_scores(corrected, template, grid, window_frac: float):
+    """The `exact` branch's scores (polish.py:164): per-region two-way
+    correlation with the full window, every shifted view zero-meaned.
+    Returns (s_c, s_xm, s_xp, s_ym, s_yp, e_c, e_t)."""
+    B, H, W = corrected.shape
+    gh, gw = grid
+    w = region_window(H // gh, W // gw, window_frac, device=corrected.device, ring=False)
+
+    def zero_mean(p):
+        return p - torch.sum(w * p, dim=-1, keepdim=True)
+
+    C = zero_mean(region_patches(corrected, grid))
+    T0 = zero_mean(region_patches(template, grid))
+    tpad = edge_pad(template, 1)
+    cpad = edge_pad(corrected, 1)
+
+    def score(dy, dx):
+        t = zero_mean(region_patches(tpad[1 + dy: 1 + dy + H, 1 + dx: 1 + dx + W], grid))
+        c = zero_mean(region_patches(cpad[:, 1 - dy: 1 - dy + H, 1 - dx: 1 - dx + W], grid))
+        return torch.sum(w * (C * t + c * T0), dim=-1)
+
+    return (
+        *(score(dy, dx) for dy, dx in _SHIFTS),
+        torch.sum(w * C * C, dim=-1),
+        torch.sum(w * T0 * T0, dim=-1),
+    )
+
+
+def measure_shifts(corrected, template, grid, window_frac: float = 0.25,
+                   exact: bool = False):
     """(d (B, gh, gw, 2), significant (B, gh, gw)): per-region residual
     shifts of corrected (B, H, W) against template (H, W); content
-    displaced by eps peaks at d = -eps."""
+    displaced by eps peaks at d = -eps. `exact` takes the per-region
+    full-window estimator of the piecewise field polish."""
+    scores = _exact_scores if exact else _ring_scores
+    s_c, s_xm, s_xp, s_ym, s_yp, e_c, e_t = scores(corrected, template, grid, window_frac)
+    significant = s_c > 0.2 * torch.sqrt(e_c * e_t * 4.0) + 1e-12
+
+    def subpixel(sm, sp):
+        denom = sm - 2.0 * s_c + sp
+        peak = denom < -1e-12
+        off = torch.where(
+            peak,
+            0.5 * (sm - sp) / torch.where(peak, denom, torch.full_like(denom, -1.0)),
+            torch.sign(sp - sm),
+        )
+        off = torch.where(significant, off, torch.zeros_like(off))
+        return torch.clamp(off, -1.0, 1.0)
+
+    d = torch.stack([subpixel(s_xm, s_xp), subpixel(s_ym, s_yp)], dim=-1)
+    return d, significant
+
+
+def _ring_scores(corrected, template, grid, window_frac: float):
+    """The ring-windowed branch's scores (polish.py:200): term 1 against
+    shifted template views, term 2 index-shifted onto the template side.
+    Returns (s_c, s_xm, s_xp, s_ym, s_yp, e_c, e_t)."""
     B, H, W = corrected.shape
     gh, gw = grid
     sh, sw = H // gh, W // gw
@@ -88,24 +144,7 @@ def measure_shifts(corrected, template, grid, window_frac: float = 0.25):
     ])
     scores = torch.einsum("bghs,nghs->nbgh", V, tstack)
     scores = scores + torch.einsum("bghs,nghs->nbgh", CP, ustack)
-    s_c, s_xm, s_xp, s_ym, s_yp = scores
-    e_c = torch.sum(V * CP, dim=-1)
-    e_t = torch.sum(w * T0 * T0, dim=-1)
-    significant = s_c > 0.2 * torch.sqrt(e_c * e_t * 4.0) + 1e-12
-
-    def subpixel(sm, sp):
-        denom = sm - 2.0 * s_c + sp
-        peak = denom < -1e-12
-        off = torch.where(
-            peak,
-            0.5 * (sm - sp) / torch.where(peak, denom, torch.full_like(denom, -1.0)),
-            torch.sign(sp - sm),
-        )
-        off = torch.where(significant, off, torch.zeros_like(off))
-        return torch.clamp(off, -1.0, 1.0)
-
-    d = torch.stack([subpixel(s_xm, s_xp), subpixel(s_ym, s_yp)], dim=-1)
-    return d, significant
+    return (*scores, torch.sum(V * CP, dim=-1), torch.sum(w * T0 * T0, dim=-1))
 
 
 def _windowed_mean(x: torch.Tensor, grid, window_frac: float) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Batched RANSAC consensus with an adaptive hypothesis-budget ladder.
+"""Batched RANSAC consensus with an adaptive hypothesis-budget ladder,
+and the fixed-budget estimator the piecewise field runs per patch.
 
 Counterpart of `kcmc_tpu/ops/ransac.py::consensus_batch`. Hypotheses
 are solved and scored as (frames x hypotheses) blocks. With
@@ -11,6 +12,12 @@ reference's bits: key = fold_in(frame_key, h), scores =
 uniform(key, (N,)) over the valid matches, m argmax-and-mask rounds.
 The winner gets IRLS refinement and a final least-squares polish on the
 full match set (`_refine_polish`).
+
+`ransac_estimate` is the reference's single-frame entry
+(ransac.py:435): without the ladder it is `_estimate_single`, whose
+hypothesis keys come from `split(key, n_hypotheses)` instead of
+`fold_in`, batched here over any leading axes (frames x patches in the
+piecewise estimator) as one block of solves and scores.
 """
 
 from __future__ import annotations
@@ -35,16 +42,38 @@ class RansacResult(NamedTuple):
 def _sample_indices(keys: torch.Tensor, valid: torch.Tensor, m: int) -> torch.Tensor:
     """(B, C, m) indices of m distinct valid matches per hypothesis key
     (keys (B, C, 2), valid (B, N)): top-m of iid uniform scores by m
-    argmax-and-mask rounds (ransac.py:66)."""
+    argmax-and-mask rounds (ransac.py:66). The uniforms are drawn only
+    where a match is valid (uniform(key, N)'s bits there, since draw i
+    hashes counter i); invalid matches score -1."""
+    B, C = keys.shape[:2]
     N = valid.shape[-1]
-    u = prng.uniform(keys, N)  # (B, C, N)
-    scores = torch.where(valid[:, None, :], u, torch.full_like(u, -1.0))
+    b, i = valid.nonzero(as_tuple=True)  # (V,) each
+    y0, y1 = prng.threefry2x32(
+        keys[b, :, 0], keys[b, :, 1], torch.zeros_like(i)[:, None], i[:, None]
+    )  # (V, C)
+    scores = torch.full((B, N, C), -1.0, device=keys.device)
+    scores[b, i] = prng.bits_to_uniform(y0 ^ y1)
+    scores = scores.transpose(1, 2)
     picks = []
     for _ in range(m):
         j = torch.argmax(scores, dim=-1)
         picks.append(j)
         scores = scores.scatter(-1, j[..., None], -1.0)
     return torch.stack(picks, dim=-1)
+
+
+def _solve_sampled(model, hk, psrc, pdst, pvalid) -> torch.Tensor:
+    """(B, C, 3, 3) minimal-sample solves, one per hypothesis key of hk
+    (B, C, 2), sampled from the (B, N) pools."""
+    m = int(model.min_samples)
+    B = psrc.shape[0]
+    idx = _sample_indices(hk, pvalid, m)  # (B, C, m)
+    C = idx.shape[1]
+    flat = idx.reshape(B, C * m)
+    s = torch.gather(psrc, 1, flat[..., None].expand(B, C * m, 2))
+    t = torch.gather(pdst, 1, flat[..., None].expand(B, C * m, 2))
+    w = torch.gather(pvalid, 1, flat).to(torch.float32)
+    return model.solve(s.reshape(B, C, m, 2), t.reshape(B, C, m, 2), w.reshape(B, C, m))
 
 
 def _count_inliers(model, M, src, dst, valid, thresh_sq) -> torch.Tensor:
@@ -115,15 +144,7 @@ def consensus_batch(
 
     def solve_block(hids, psrc, pdst, pvalid):
         hk = prng.fold_in(keys[:, None, :], hids[None, :])  # (B, C, 2)
-        idx = _sample_indices(hk, pvalid, m)  # (B, C, m)
-        C = idx.shape[1]
-        flat = idx.reshape(B, C * m)
-        s = torch.gather(psrc, 1, flat[..., None].expand(B, C * m, 2))
-        t = torch.gather(pdst, 1, flat[..., None].expand(B, C * m, 2))
-        w = torch.gather(pvalid, 1, flat).to(torch.float32)
-        return model.solve(
-            s.reshape(B, C, m, 2), t.reshape(B, C, m, 2), w.reshape(B, C, m)
-        )
+        return _solve_sampled(model, hk, psrc, pdst, pvalid)
 
     def score_block(Ms):
         return _count_inliers(model, Ms, src_s, dst_s, valid_s, thresh_sq)
@@ -190,3 +211,72 @@ def consensus_batch(
     return _refine_polish(
         model, best_M, n0, src, dst, valid, thresh_sq, refine_iters
     )
+
+
+def _estimate_single(model, src, dst, valid, keys, n_hypotheses, thresh_sq,
+                     refine_iters, score_cap) -> RansacResult:
+    """The fixed-budget estimator (ransac.py:370) on (B, N) problems:
+    one key per hypothesis from split(key), every hypothesis scored, the
+    first best kept, then `_refine_polish`."""
+    B, N = src.shape[:2]
+    H = int(n_hypotheses)
+    subset = bool(score_cap) and N > int(score_cap)
+    if subset:
+        stride = -(-N // int(score_cap))
+        src_s, dst_s, valid_s = src[:, ::stride], dst[:, ::stride], valid[:, ::stride]
+    else:
+        src_s, dst_s, valid_s = src, dst, valid
+    hk = prng.split(keys, H)  # (B, H, 2)
+    if subset:
+        n_full = max(1, H // 8)
+        Ms = torch.cat([
+            _solve_sampled(model, hk[:, :n_full], src, dst, valid),
+            _solve_sampled(model, hk[:, n_full:], src_s, dst_s, valid_s),
+        ], dim=1)
+    else:
+        Ms = _solve_sampled(model, hk, src, dst, valid)
+    scores = _count_inliers(model, Ms, src_s, dst_s, valid_s, thresh_sq)
+    best = torch.argmax(scores, dim=1)  # first maximum
+    M0 = Ms[torch.arange(B, device=src.device), best]
+    if subset:
+        n0 = _count_inliers(model, M0[:, None], src, dst, valid, thresh_sq)[:, 0]
+    else:
+        n0 = scores.gather(1, best[:, None])[:, 0]
+    return _refine_polish(model, M0, n0, src, dst, valid, thresh_sq, refine_iters)
+
+
+def ransac_estimate(
+    model: TransformModel,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    valid: torch.Tensor,
+    key: torch.Tensor,
+    n_hypotheses: int = 128,
+    threshold: float = 2.0,
+    refine_iters: int = 2,
+    score_cap: int = 0,
+    budget_rungs: int = 0,
+    early_exit_frac: float = 0.7,
+) -> RansacResult:
+    """RANSAC estimate of `model` mapping src -> dst (ransac.py:435),
+    batched over the leading axes: src/dst (..., N, 2), valid (..., N),
+    key (..., 2). With budget_rungs <= 1 the fixed-budget estimator,
+    else the laddered `consensus_batch`. Result fields carry the leading
+    axes."""
+    lead = tuple(src.shape[:-2])
+    N = src.shape[-2]
+    src = src.reshape((-1, N, 2))
+    dst = dst.reshape((-1, N, 2))
+    valid = valid.reshape((-1, N))
+    key = key.reshape((-1, 2))
+    if int(budget_rungs) > 1:
+        res = consensus_batch(
+            model, src, dst, valid, key, n_hypotheses=n_hypotheses,
+            threshold=threshold, refine_iters=refine_iters, score_cap=score_cap,
+            budget_rungs=budget_rungs, early_exit_frac=early_exit_frac,
+        )
+    else:
+        thresh_sq = float(torch.tensor(threshold * threshold, dtype=torch.float32))
+        res = _estimate_single(model, src, dst, valid, key, n_hypotheses, thresh_sq,
+                               refine_iters, score_cap)
+    return RansacResult(*(x.reshape(lead + tuple(x.shape[1:])) for x in res))

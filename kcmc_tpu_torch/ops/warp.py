@@ -3,8 +3,10 @@
 Counterpart of `kcmc_tpu/ops/warp.py`: corrected(p) = frame(M p), 0
 where the sample leaves the frame. This gather warp handles every
 transform, so it is the exact oracle of kernel K3 and the route of the
-host-side rescue of frames K3 flags. Functions take batched tensors:
-frames (B, H, W), transforms (B, 3, 3).
+host-side rescue of frames K3 and K7 flag. Functions take batched
+tensors: frames (B, H, W), transforms (B, 3, 3). `warp_frame_flow`
+warps through dense flows instead (the piecewise model's gather route,
+its rescue and K8's accuracy oracle).
 """
 
 from __future__ import annotations
@@ -81,6 +83,13 @@ def warp_batch_with_ok(frames: torch.Tensor, transforms: torch.Tensor):
         warp_batch(frames, transforms),
         torch.ones(frames.shape[0], dtype=torch.bool, device=frames.device),
     )
+
+
+def warp_frame_flow(frames: torch.Tensor, flows: torch.Tensor) -> torch.Tensor:
+    """Correct (B, H, W) frames with dense (B, H, W, 2) forward
+    displacement fields u: corrected(p) = frame(p + u(p))."""
+    xs, ys = _grid(frames.shape[1:], frames.device)
+    return bilinear_sample(frames, xs + flows[..., 0], ys + flows[..., 1])
 
 
 def coverage_mask(shape, transforms: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,10 @@
-"""Transform-error metrics (numpy only), copied from kcmc_tpu.utils.metrics.
+"""Transform- and field-error metrics (numpy only), copied from
+kcmc_tpu.utils.metrics.
 
 Transform error is the RMS control-point displacement, in pixels, that
 an estimated ref -> frame transform induces relative to ground truth
-over a 9x9 grid inset 10% from the borders.
+over a 9x9 grid inset 10% from the borders; field error the RMS
+endpoint error of patch-grid displacement fields.
 """
 
 from __future__ import annotations
@@ -45,3 +47,9 @@ def relative_transforms(gt: np.ndarray, ref_index: int = 0) -> np.ndarray:
     gt_t @ inv(gt_ref), the target of an estimate against that frame."""
     inv = np.linalg.inv(gt[ref_index])
     return np.stack([M @ inv for M in np.asarray(gt)])
+
+
+def field_rmse(est: np.ndarray, gt: np.ndarray) -> float:
+    """RMS endpoint error between (T, gh, gw, 2) displacement fields (px)."""
+    diff = np.asarray(est, np.float64) - np.asarray(gt, np.float64)
+    return float(np.sqrt(np.mean(np.sum(diff * diff, axis=-1))))

@@ -1,4 +1,5 @@
-"""Threefry-2x32 keys, `fold_in` and `uniform`, bit-exact with jax.random.
+"""Threefry-2x32 keys, `fold_in`, `split` and `uniform`, bit-exact with
+jax.random.
 
 The reference draws RANSAC hypotheses from `jax.random` (a per-frame
 key folded from the global frame index, a per-hypothesis key folded
@@ -8,9 +9,11 @@ statistically.
 
 Words are uint32 values held in int64 tensors (torch's uint32 support
 is thin); every operation masks back to 32 bits. A key is a (..., 2)
-int64 tensor. `uniform` follows jax's `jax_threefry_partitionable=True`
-bit layout: element i of an (N,) draw hashes the counter pair (0, i)
-and takes the XOR of the two output words.
+int64 tensor. `uniform` and `split` follow jax's
+`jax_threefry_partitionable=True` bit layout (jax 0.9's default):
+element i of an (N,) draw hashes the counter pair (0, i) and takes the
+XOR of the two output words, and key i of a split is the hash of
+(0, i) itself.
 """
 
 from __future__ import annotations
@@ -58,6 +61,12 @@ def fold_in(k: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
+def split(k: torch.Tensor, n: int = 2) -> torch.Tensor:
+    """`jax.random.split(k, n)`: (..., n, 2) keys, key i = threefry(k,
+    (0, i)), per key in the leading axes of k (..., 2)."""
+    return fold_in(k[..., None, :], torch.arange(n, dtype=torch.int64, device=k.device))
+
+
 def random_bits(k: torch.Tensor, n: int) -> torch.Tensor:
     """(..., n) 32-bit words: threefry(key, (0, i)) XOR-folded, per
     key in the leading axes of k (..., 2)."""
@@ -68,10 +77,14 @@ def random_bits(k: torch.Tensor, n: int) -> torch.Tensor:
     return y0 ^ y1
 
 
+def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
+    """32-bit words -> jax's uniform floats in [0, 1): the top 23 bits
+    become the mantissa of a float in [1, 2), minus 1."""
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return torch.clamp(f, min=0.0)
+
+
 def uniform(k: torch.Tensor, n: int) -> torch.Tensor:
     """`jax.random.uniform(k, (n,))` in [0, 1) float32, batched over the
-    leading axes of k: the top 23 bits become the mantissa of a float in
-    [1, 2), minus 1."""
-    bits = (random_bits(k, n) >> 9) | 0x3F800000
-    f = bits.to(torch.int32).view(torch.float32) - 1.0
-    return torch.clamp(f, min=0.0)
+    leading axes of k."""
+    return bits_to_uniform(random_bits(k, n))

@@ -1,10 +1,11 @@
-"""Synthetic translation/matrix drift stacks (numpy only).
+"""Synthetic drift stacks (numpy only): matrix drift and piecewise
+fields.
 
-A copy of `make_drift_stack` and what it calls from
-`kcmc_tpu/utils/synthetic.py`, kept in the port so that scripts driving
-the port (chip_smoke.py) never import the JAX package. Same seed, same
-stack: `tests/test_torch_pipeline.py` checks that the two generators
-agree.
+A copy of `make_drift_stack`, `make_piecewise_stack` and what they call
+from `kcmc_tpu/utils/synthetic.py`, kept in the port so that scripts
+driving the port (chip_smoke.py) never import the JAX package. Same
+seed, same stack: `tests/test_torch_pipeline.py` and
+`tests/test_torch_piecewise.py` check that the generators agree.
 """
 
 from __future__ import annotations
@@ -181,3 +182,68 @@ def make_drift_stack(
     if noise > 0:
         stack = stack + rng.normal(0, noise, stack.shape).astype(np.float32)
     return SyntheticStack(stack=stack.astype(np.float32), transforms=mats, reference=scene)
+
+
+def make_piecewise_stack(
+    n_frames: int = 32,
+    shape: tuple[int, int] = (256, 256),
+    grid: tuple[int, int] = (8, 8),
+    max_disp: float = 6.0,
+    noise: float = 0.01,
+    seed: int = 0,
+    n_blobs: int | None = None,
+) -> SyntheticStack:
+    """Config 3: smooth non-rigid per-frame displacement fields on a patch grid."""
+    rng = np.random.default_rng(seed)
+    H, W = shape
+    gh, gw = grid
+    if n_blobs is None:
+        n_blobs = max(200, H * W // 650)
+    scene = render_scene(rng, shape, n_blobs=n_blobs)
+    fields = np.zeros((n_frames, gh, gw, 2), dtype=np.float32)
+    # Temporally-correlated, spatially-smooth displacement fields.
+    walk = _random_walk(rng, n_frames, 2, step=0.6, maxdev=max_disp * 0.6)
+    for t in range(n_frames):
+        base = _smooth_noise(rng, (gh, gw, 2), sigma=3, axes=(0, 1)) * 2.0
+        fields[t] = np.clip(base + walk[t], -max_disp, max_disp)
+    stack = np.empty((n_frames, H, W), dtype=np.float32)
+    ys, xs = np.meshgrid(np.arange(H, dtype=np.float32), np.arange(W, dtype=np.float32), indexing="ij")
+    for t in range(n_frames):
+        flow = upsample_field(fields[t], shape)  # (H, W, 2) in (dx, dy)
+        # frame(x) = scene(x - u(x)): sample the scene at shifted coords so
+        # the *forward* field maps ref->frame (matches pipeline convention).
+        stack[t] = _bilinear(scene, xs - flow[..., 0], ys - flow[..., 1])
+    if noise > 0:
+        stack = stack + rng.normal(0, noise, stack.shape).astype(np.float32)
+    mats = np.tile(np.eye(3, dtype=np.float32), (n_frames, 1, 1))
+    return SyntheticStack(stack=stack.astype(np.float32), transforms=mats, fields=fields, reference=scene)
+
+
+def upsample_field(field: np.ndarray, shape: tuple[int, int]) -> np.ndarray:
+    """Bilinearly upsample a (gh, gw, 2) patch-center field to (H, W, 2).
+
+    Patch centers sit at ((i + 0.5) * H / gh - 0.5) so the field is
+    defined on a uniform cell-center grid.
+    """
+    gh, gw, _ = field.shape
+    H, W = shape
+    ys = (np.arange(H, dtype=np.float32) + 0.5) * gh / H - 0.5
+    xs = (np.arange(W, dtype=np.float32) + 0.5) * gw / W - 0.5
+    ys = np.clip(ys, 0, gh - 1)
+    xs = np.clip(xs, 0, gw - 1)
+    y0 = np.floor(ys).astype(np.int32)
+    x0 = np.floor(xs).astype(np.int32)
+    y1 = np.minimum(y0 + 1, gh - 1)
+    x1 = np.minimum(x0 + 1, gw - 1)
+    fy = (ys - y0)[:, None, None]
+    fx = (xs - x0)[None, :, None]
+    f00 = field[y0][:, x0]
+    f01 = field[y0][:, x1]
+    f10 = field[y1][:, x0]
+    f11 = field[y1][:, x1]
+    return (
+        f00 * (1 - fy) * (1 - fx)
+        + f01 * (1 - fy) * fx
+        + f10 * fy * (1 - fx)
+        + f11 * fy * fx
+    ).astype(np.float32)

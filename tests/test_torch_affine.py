@@ -278,14 +278,14 @@ def test_matrix_bounds_and_config_carry_across():
 @pytest.mark.parametrize(
     "kw",
     [
-        {"model": "affine"},  # oriented below the bins-first gate (K6)
+        {"model": "rigid", "warp": "pallas"},
         {"model": "affine", "max_keypoints": 4096, "oriented": None, "warp": "separable"},
         {"model": "affine", "max_keypoints": 4096, "warp": "pallas"},
-        {"model": "rigid", "max_keypoints": 4096},
+        {"model": "rigid3d", "max_keypoints": 4096},
         {"model": "similarity", "max_keypoints": 4096},
-        {"model": "homography", "max_keypoints": 4096},
+        {"model": "homography", "max_keypoints": 4096, "warp": "separable"},
         {"model": "translation", "warp": "matrix"},
-        {"model": "translation", "oriented": True},
+        {"model": "translation", "warp": "separable"},
     ],
 )
 def test_unported_affine_knobs_raise(kw):

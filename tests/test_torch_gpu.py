@@ -20,10 +20,11 @@ from kcmc_tpu_torch.ops import (
     cuda_patch,
     cuda_select,
     cuda_warp,
+    cuda_warp_field,
     cuda_warp_matrix,
 )
 from kcmc_tpu_torch.ops.describe import sel_rot
-from kcmc_tpu_torch.utils.synthetic import make_drift_stack
+from kcmc_tpu_torch.utils.synthetic import make_drift_stack, make_piecewise_stack
 
 pytestmark = pytest.mark.gpu
 
@@ -79,7 +80,8 @@ def test_slice_on_card_matches_cpu_route(cuda):
     on_card = MotionCorrector(batch_size=4).correct(data.stack)
     assert cuda_build.launch_counts() == {
         "detect_response": 3, "extract_blended": 3, "warp_translation": 4,
-        "moment_maps": 0, "binned_select_rows": 0, "warp_batch_matrix": 0,
+        "moment_maps": 0, "binned_select_rows": 0, "extract_blended_moments": 0,
+        "warp_batch_matrix": 0, "warp_batch_field": 0,
     }
     on_cpu = MotionCorrector(device="cpu", batch_size=4).correct(data.stack)
     assert np.abs(on_card.transforms - on_cpu.transforms).max() <= 1e-4
@@ -148,3 +150,61 @@ def test_affine_slice_on_card_matches_cpu_route(cuda):
     assert np.abs(on_card.transforms - on_cpu.transforms).max() <= 1e-3
     assert np.abs(on_card.diagnostics["n_inliers"].astype(int)
                   - on_cpu.diagnostics["n_inliers"]).max() <= 2
+
+
+def test_k6_matches_plain_bitwise(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    padded = torch.randn((3, 220, 250), device=cuda, generator=gen).to(torch.bfloat16)
+    xy = (torch.rand((3, 300, 2), device=cuda, generator=gen) * torch.tensor(
+        [250.0 - 30, 220.0 - 30], device=cuda)).contiguous()
+    before = cuda_build.launch_counts()
+    got = cuda_patch.extract_blended(padded, xy, 32, with_moments=True)
+    after = cuda_build.launch_counts()
+    assert after["extract_blended_moments"] == before["extract_blended_moments"] + 1
+    assert after["extract_blended"] == before["extract_blended"]
+    want = cuda_patch.extract_blended_plain(padded, xy, 32, with_moments=True)
+    assert torch.equal(got[0].view(torch.int16), want[0].view(torch.int16))
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+def test_k8_matches_plain(cuda):
+    """Bit-identical on fields inside the envelope, one beyond the
+    residual bound and one beyond +-PAD, at an odd shape and grid."""
+    fr = torch.as_tensor(_stack(4, (200, 160)).stack, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    f = (torch.rand((4, 6, 5, 2), device=cuda, generator=gen) - 0.5) * 4.0
+    f[1] += torch.tensor([7.3, -5.1], device=cuda)
+    f[2, :3] += 10.0
+    f[3] += 300.0
+    f = f.contiguous()
+    out, ok = cuda_warp_field.warp_batch_field(fr, f, max_px=6)
+    want, want_ok = cuda_warp_field.warp_batch_field_plain(fr, f, 6)
+    assert ok.tolist() == want_ok.tolist() == [True, True, False, False]
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("model", ["homography", "rigid"])
+def test_matrix_slices_on_card_match_cpu_route(cuda, model):
+    data = make_drift_stack(8, (128, 128), model=model, seed=0)
+    cuda_build.reset_launches()
+    on_card = MotionCorrector(model=model, batch_size=4).correct(data.stack)
+    counts = cuda_build.launch_counts()
+    assert counts["detect_response"] == counts["extract_blended_moments"] == 3
+    assert counts["warp_batch_matrix"] == 4
+    assert counts["extract_blended"] == counts["moment_maps"] == counts["warp_translation"] == 0
+    on_cpu = MotionCorrector(model=model, device="cpu", batch_size=4).correct(data.stack)
+    assert np.abs(on_card.transforms - on_cpu.transforms).max() <= 1e-3
+    assert np.abs(on_card.diagnostics["n_inliers"].astype(int)
+                  - on_cpu.diagnostics["n_inliers"]).max() <= 2
+
+
+def test_piecewise_slice_on_card_matches_cpu_route(cuda):
+    data = make_piecewise_stack(8, (128, 128), seed=0)
+    cuda_build.reset_launches()
+    on_card = MotionCorrector(model="piecewise", batch_size=4).correct(data.stack)
+    counts = cuda_build.launch_counts()
+    assert counts["detect_response"] == counts["extract_blended"] == 3
+    assert counts["warp_batch_field"] == 2 * (1 + 4)
+    assert counts["warp_batch_matrix"] == counts["extract_blended_moments"] == 0
+    on_cpu = MotionCorrector(model="piecewise", device="cpu", batch_size=4).correct(data.stack)
+    assert np.sqrt(np.mean(np.sum((on_card.fields - on_cpu.fields) ** 2, -1))) <= 1e-3

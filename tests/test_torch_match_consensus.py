@@ -190,4 +190,4 @@ def test_translation_solver_guard_matches():
 
 def test_other_models_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_get_model("homography")
+        t_get_model("similarity")

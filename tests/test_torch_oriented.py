@@ -243,7 +243,20 @@ def test_oriented_words_match_both_reference_routes(oriented_case):
     np.testing.assert_array_equal(one.numpy(), got[0])
 
 
-def test_oriented_below_bins_first_gate_raises():
-    kps = TKeypoints(torch.zeros((1, 64, 2)), torch.zeros((1, 64)), torch.ones((1, 64), dtype=bool))
-    with pytest.raises(NotImplementedError, match="K6"):
-        tdescribe.describe_keypoints_batch(torch.zeros((1, 64, 64)), kps, oriented=True)
+def test_oriented_below_bins_first_gate_raises(monkeypatch):
+    """The K gate routes: with K4 patched to raise, K = 64 takes the
+    small-K route (K6) and describes, K = 2048 takes the bins-first route
+    and raises."""
+    def boom(*_a, **_k):
+        raise AssertionError("bins-first route taken")
+
+    monkeypatch.setattr(tdescribe, "moment_maps", boom)
+
+    def kps(K):
+        return TKeypoints(torch.full((1, K, 2), 30.0), torch.zeros((1, K)),
+                          torch.ones((1, K), dtype=bool))
+
+    frame = torch.rand((1, 64, 64), generator=torch.Generator().manual_seed(0))
+    assert tdescribe.describe_keypoints_batch(frame, kps(64), oriented=True).shape == (1, 64, 8)
+    with pytest.raises(AssertionError, match="bins-first"):
+        tdescribe.describe_keypoints_batch(frame, kps(tdescribe.BINS_FIRST_MIN_K), oriented=True)
