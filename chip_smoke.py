@@ -10,7 +10,7 @@ line is printed:
 
 1. device: requires a CUDA card; prints nvidia-smi's name and power
    limit;
-2. build: compiles every CUDA kernel (K1-K8) from
+2. build: compiles every CUDA kernel (K1-K10) from
    kcmc_tpu_torch/csrc (one nvcc per source, in parallel);
 3. kernels: each kernel against its plain PyTorch version on the card
    at the main paths' shapes, then CUDA-event times of kernel, plain
@@ -38,6 +38,14 @@ line is printed:
      relative with identical ok flags (a residual beyond the bound and a
      mean beyond +-128 px zeroed and flagged; also at 1024x1024 and at
      200x160 with a 6x5 grid);
+   - config-5 path (kernels_volumes: 8 volumes of 32x256x256, K=512): K9
+     (3D structure tensor, Harris response and blur) within 1e-5 of
+     max|response| and of max|blur| on the zero-background scene and on a
+     camera-offset one (background 100 +- noise), also at an odd
+     24x200x136; K10 (trilinear 3D patches, Pz=8, Pxy=20) on the path's
+     own keypoints within 1e-5 relative (both are bit-identical in
+     practice; the phase line says so); K10's bytes count the union of
+     the slabs this run's keypoints read;
 4. e2e: MotionCorrector(model="translation").correct() on a 1000-frame
    512x512 drift stack (config 1 of BASELINE.json), launch counters
    reset just before: transform RMSE <= 0.05 px, every frame warp_ok,
@@ -59,17 +67,24 @@ line is printed:
    3 (8x8 grid, field_polish=4) on 64 frames of 512x512 tiled to 1000:
    field RMSE <= 0.15 px, launches K1/K2 = 33 and K8 = 160, no other
    kernel; frames K8 flagged are rescued through the gather warp and
-   counted.
+   counted;
+8. e2e_rigid3d: MotionCorrector(model="rigid3d").correct() on config 5
+   (the default config, K=512, batch 8) on 125 volumes of 32x256x256 (16
+   distinct volumes of rigid 3D drift tiled, the JAX package's bench.py
+   sizing: frames // 8): transform RMSE on a 9x9x9 control grid <= 0.05
+   px, launches K9 = K10 = 17 (16 batches and the reference volume) and
+   no other kernel; volumes the bounded volume warp flags are rescued
+   through the trilinear gather and counted, beside gt_beyond_warp_bound.
 
 The line before the last holds the kernels table; the last line is
 {"ok": true, "device": {...}}.
 
-    python3 chip_smoke.py --profile [translation|affine|homography|piecewise]
+    python3 chip_smoke.py --profile [translation|affine|homography|piecewise|rigid3d]
 
-instead runs the device and build phases and then profiles six 32-frame
-batches of that config's batch program (host wall time, device busy
-time and idle share, the kcmc.* stage ranges, the top device
-operations), for PERF.md's breakdown.
+instead runs the device and build phases and then profiles six batches
+(32 frames; 8 volumes for rigid3d) of that config's batch program (host
+wall time, device busy time and idle share, the kcmc.* stage ranges,
+the top device operations), for PERF.md's breakdown.
 """
 
 from __future__ import annotations
@@ -94,6 +109,8 @@ CFG2_SCENE = dict(model="affine", max_drift=10.0, seed=0, n_blobs=12000,
 # configs 4 and 3 of BASELINE.json: CONFIG_ROWS["homography"] and
 # ["piecewise"] of the JAX package's bench.py, the default config each
 CFG4_SCENE = dict(model="homography", max_drift=10.0, seed=0)
+# config 5 of BASELINE.json: bench.py's rigid3d row at --size 512
+VOL_SHAPE = (32, 256, 256)
 
 
 def emit(obj) -> None:
@@ -160,6 +177,26 @@ def config3_stack(n_frames: int):
     data = make_piecewise_stack(n_frames=min(n_frames, 64), shape=(512, 512), seed=0)
     reps = -(-n_frames // len(data.stack))
     return np.tile(data.stack, (reps, 1, 1))[:n_frames], data
+
+
+def volume_stack(n_frames: int):
+    """Config 5's 16 distinct volumes of rigid 3D drift tiled to
+    n_frames, with the tiled ground truth."""
+    from kcmc_tpu_torch.utils.synthetic import make_drift_stack_3d
+
+    data = make_drift_stack_3d(n_frames=min(n_frames, 16), shape=VOL_SHAPE, seed=0)
+    reps = -(-n_frames // len(data.stack))
+    stack = np.tile(data.stack, (reps, 1, 1, 1))[:n_frames]
+    return stack, np.tile(data.transforms, (reps, 1, 1))[:n_frames]
+
+
+def structure_ops_per_voxel(window_taps: int, blur_taps: int) -> int:
+    """Float operations per voxel of K9's function: three central
+    differences (a subtraction and a halving each), six products, the
+    six entries windowed along three axes (t products and t - 1 sums per
+    pass), the blur along three axes, and the response (14 for the 3x3
+    determinant, 2 for the trace, 4 for det - k tr^3)."""
+    return 3 * 2 + 6 + 6 * 3 * (2 * window_taps - 1) + 3 * (2 * blur_taps - 1) + 14 + 2 + 4
 
 
 def phase_device() -> tuple[str, str]:
@@ -633,9 +670,123 @@ def phase_kernels_fields() -> tuple[list[dict], dict]:
     return rows, extra
 
 
+def phase_kernels_volumes() -> tuple[list[dict], dict]:
+    """K9 and K10 at config 5's shapes: 8 volumes of 32x256x256 (the
+    path's batch), K=512 keypoints from the path's own detection."""
+    from kcmc_tpu_torch.ops import cuda_detect3d, cuda_patch3d
+    from kcmc_tpu_torch.ops.cuda_detect import gauss_taps
+    from kcmc_tpu_torch.ops.describe3d import PXY, PZ, edge_pad_3d
+    from kcmc_tpu_torch.ops.detect3d import detect_keypoints_3d_batch
+
+    B, K = 8, 512
+    D, H, W = VOL_SHAPE
+    stack, _ = volume_stack(B)
+    vols = torch.as_tensor(stack, device="cuda").contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    offset = (vols * 50.0 + 100.0
+              + 2.0 * torch.randn(vols.shape, device="cuda", generator=gen)).contiguous()
+    odd = (torch.rand((2, 24, 200, 136), device="cuda", generator=gen) * 10.0).contiguous()
+    extra = {"k9_bitwise": {}}
+    rows = []
+
+    # K9 response_fields_3d: response and blur against the plain version
+    err9 = 0.0
+    for what, v in (("zero_background", vols), ("camera_offset", offset), ("24x200x136", odd)):
+        got = cuda_detect3d.response_fields_3d(v, smooth_sigma=2.0)
+        want = cuda_detect3d.response_fields_3d_plain(v, smooth_sigma=2.0)
+        torch.cuda.synchronize()
+        for g, w, field in zip(got, want, ("response", "blur")):
+            e = float((g - w).abs().max())
+            if e > TOL * float(w.abs().max()):
+                raise AssertionError(f"K9: {field} error {e} exceeds {TOL} x max at {what}")
+            err9 = max(err9, e)
+        extra["k9_bitwise"][what] = all(torch.equal(g, w) for g, w in zip(got, want))
+    del offset, odd
+    n_vox = B * D * H * W
+    b9, by9 = bound_ms(3 * n_vox * 4, n_vox * structure_ops_per_voxel(
+        len(gauss_taps(1.5)), len(gauss_taps(2.0))))
+    rows.append({
+        "name": "response_fields_3d", "route": "cuda",
+        "source": "kcmc_tpu_torch/csrc/detect3d.cu",
+        "replaces": "kcmc_tpu/ops/pallas_detect3d.py:206",
+        "max_abs_err": err9,
+        "ms": event_ms(lambda: cuda_detect3d.response_fields_3d(vols, smooth_sigma=2.0), 10),
+        "plain_ms": event_ms(
+            lambda: cuda_detect3d.response_fields_3d_plain(vols, smooth_sigma=2.0), 2, 1),
+        "bound_ms": b9, "bound_by": by9, "library_ms": None,
+    })
+
+    # K10 extract_blended_3d on the path's keypoints and blur
+    kps, smooth = detect_keypoints_3d_batch(vols, max_keypoints=K, border=8, smooth_sigma=2.0)
+    padded = edge_pad_3d(smooth).contiguous()
+    xyz = kps.xy.contiguous()
+    got = cuda_patch3d.extract_blended_3d(padded, xyz, PZ, PXY)
+    want = cuda_patch3d.extract_blended_3d_plain(padded, xyz, PZ, PXY)
+    err10 = float((got - want).abs().max())
+    if err10 > TOL * float(want.abs().max()):
+        raise AssertionError(f"K10: error {err10} exceeds {TOL} x max")
+    extra["k10_bitwise"] = torch.equal(got, want)
+    extra["k10_mean_valid_keypoints"] = float(kps.valid.sum(dim=1).float().mean())
+    # distinct input voxels: the union of the slabs these keypoints read
+    Bp, Dp, Hp, Wp = padded.shape
+    org = torch.floor(xyz).long() + 1
+    zi = (org[..., 2, None] + torch.arange(PZ, device="cuda")).clamp(0, Dp - 1)
+    yi = (org[..., 1, None] + torch.arange(PXY, device="cuda")).clamp(0, Hp - 1)
+    xi = (org[..., 0, None] + torch.arange(PXY, device="cuda")).clamp(0, Wp - 1)
+    bi = torch.arange(B, device="cuda")[:, None, None, None, None]
+    flat = ((bi * Dp + zi[..., :, None, None]) * Hp + yi[..., None, :, None]) * Wp \
+        + xi[..., None, None, :]
+    read = torch.zeros(B * Dp * Hp * Wp, dtype=torch.bool, device="cuda")
+    read[flat.reshape(-1)] = True
+    n_read = int(read.sum())
+    extra["k10_input_voxels_read"] = n_read
+    del read, flat
+    n_out = got.numel()
+    lerps = PZ * (PXY - 1) * PXY + PZ * (PXY - 1) ** 2 + (PZ - 1) * (PXY - 1) ** 2
+    b10, by10 = bound_ms(n_read * 4 + xyz.numel() * 4 + n_out * 4,
+                         B * K * (lerps * 3 + 6))
+    # yardstick: one 5-D grid_sample (trilinear, border = edge clamp,
+    # align_corners) on a precomputed grid of every output's position
+    d = [torch.arange(n, device="cuda", dtype=torch.float32) for n in (PZ - 1, PXY - 1, PXY - 1)]
+    px = xyz[..., 0, None, None, None] + 1.0 + d[2][None, None, :]
+    py = xyz[..., 1, None, None, None] + 1.0 + d[1][None, :, None]
+    pz = xyz[..., 2, None, None, None] + 1.0 + d[0][:, None, None]
+    shape = (B, K, PZ - 1, PXY - 1, PXY - 1)
+    grid = torch.stack([(px * (2.0 / (Wp - 1)) - 1.0).expand(shape),
+                        (py * (2.0 / (Hp - 1)) - 1.0).expand(shape),
+                        (pz * (2.0 / (Dp - 1)) - 1.0).expand(shape)], dim=-1)
+    grid = grid.reshape(B, K * (PZ - 1), PXY - 1, PXY - 1, 3).contiguous()
+
+    def lib_call():
+        return torch.nn.functional.grid_sample(
+            padded[:, None], grid, mode="bilinear", padding_mode="border", align_corners=True)
+
+    extra["k10_vs_grid_sample_max_abs"] = float(
+        (lib_call().reshape(shape) - want).abs().max())
+    rows.append({
+        "name": "extract_blended_3d", "route": "cuda",
+        "source": "kcmc_tpu_torch/csrc/patch3d.cu",
+        "replaces": "kcmc_tpu/ops/pallas_patch.py:1033",
+        "max_abs_err": err10,
+        "ms": event_ms(lambda: cuda_patch3d.extract_blended_3d(padded, xyz, PZ, PXY), 20),
+        "plain_ms": event_ms(
+            lambda: cuda_patch3d.extract_blended_3d_plain(padded, xyz, PZ, PXY), 3, 1),
+        "bound_ms": b10, "bound_by": by10, "library_ms": event_ms(lib_call, 20),
+    })
+    extra["bound_rates"] = {"response_fields_3d": "float32 67 TFLOP/s",
+                            "extract_blended_3d": "float32 67 TFLOP/s"}
+    extra["library"] = {
+        "response_fields_3d": "none: no one call computes the windowed 3D structure tensor",
+        "extract_blended_3d": "grid_sample, 5-D input, precomputed (B, K*7, 19, 19, 3) grid, "
+                              "align_corners, border (grid build not timed)",
+    }
+    return rows, extra
+
+
 ZERO = {"detect_response": 0, "extract_blended": 0, "warp_translation": 0,
         "moment_maps": 0, "binned_select_rows": 0, "extract_blended_moments": 0,
-        "warp_batch_matrix": 0, "warp_batch_field": 0}
+        "warp_batch_matrix": 0, "warp_batch_field": 0, "response_fields_3d": 0,
+        "extract_blended_3d": 0}
 WANT_LAUNCHES = {
     "translation": {**ZERO, "detect_response": 33, "extract_blended": 33,
                     "warp_translation": 64},
@@ -645,9 +796,10 @@ WANT_LAUNCHES = {
                    "warp_batch_matrix": 64},
     "piecewise": {**ZERO, "detect_response": 33, "extract_blended": 33,
                   "warp_batch_field": 160},
+    "rigid3d": {**ZERO, "response_fields_3d": 17, "extract_blended_3d": 17},
 }
 PHASE = {"translation": "e2e", "affine": "e2e_affine", "homography": "e2e_homography",
-         "rigid": "e2e_homography", "piecewise": "e2e_piecewise"}
+         "rigid": "e2e_homography", "piecewise": "e2e_piecewise", "rigid3d": "e2e_rigid3d"}
 
 
 def path_input(model: str, n_frames: int):
@@ -663,21 +815,23 @@ def path_input(model: str, n_frames: int):
         return (*tiled_stack(n_frames, CFG2_SCENE), MotionCorrector(model="affine", **CFG2))
     if model == "piecewise":
         return (*config3_stack(n_frames), MotionCorrector(model="piecewise"))
+    if model == "rigid3d":
+        # bench.py's config-5 row: batch min(32, 8)
+        return (*volume_stack(n_frames), MotionCorrector(model="rigid3d", batch_size=8))
     return (*tiled_stack(n_frames, {**CFG4_SCENE, "model": model}), MotionCorrector(model=model))
 
 
 def _gt_beyond_bound(stack, gt_rel, mc) -> int:
-    """Frames whose ground-truth map K7 zeroes and flags at the path's
-    max_px: the rescues the scene itself calls for (run after the
-    launch counters are read)."""
-    from kcmc_tpu_torch.ops.cuda_warp_matrix import warp_batch_matrix
-
-    mpx = mc.backend._matrix_resid_px(stack.shape[1:])
+    """Frames whose ground-truth map the path's bounded warp (K7, or the
+    rigid3d volume warp) zeroes and flags: the rescues the scene itself
+    calls for (run after the launch counters are read)."""
+    warp = mc.backend._resolve_batch_warp(stack.shape[1:])
+    B = mc.config.batch_size
     n = 0
-    for i in range(0, len(stack), 32):
-        fr = torch.as_tensor(stack[i:i + 32], device="cuda").contiguous()
-        M = torch.as_tensor(gt_rel[i:i + 32].astype(np.float32), device="cuda").contiguous()
-        n += int((~warp_batch_matrix(fr, M, max_px=mpx)[1]).sum())
+    for i in range(0, len(stack), B):
+        fr = torch.as_tensor(stack[i:i + B], device="cuda").contiguous()
+        M = torch.as_tensor(gt_rel[i:i + B].astype(np.float32), device="cuda").contiguous()
+        n += int((~warp(fr, M)[1]).sum())
     return n
 
 
@@ -689,7 +843,7 @@ def phase_e2e(smi: str, model: str, n_frames: int = 1000) -> dict[str, int]:
     t0 = time.perf_counter()
     stack, gt, mc = path_input(model, n_frames)
     t_data = time.perf_counter() - t0
-    mc.correct(stack[:32])  # warm-up: cuBLAS handles, allocator
+    mc.correct(stack[:mc.config.batch_size])  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
 
     mc.backend.reset_launch_counts()
@@ -707,13 +861,17 @@ def phase_e2e(smi: str, model: str, n_frames: int = 1000) -> dict[str, int]:
         limit, metric = 0.15, "field_rmse_px"
         finite = np.isfinite(res.fields).all()
     else:
-        err = transform_rmse(res.transforms, relative_transforms(gt), (512, 512))
+        err = transform_rmse(res.transforms, relative_transforms(gt), stack.shape[1:])
         limit, metric = 0.05, "rmse_px"
         finite = np.isfinite(res.transforms).all()
     rescued = int(np.sum(res.diagnostics["warp_rescued"]))
     extra = {}
-    if model in ("affine", "homography", "rigid"):
+    if model in ("affine", "homography", "rigid", "rigid3d"):
         extra["gt_beyond_warp_bound"] = _gt_beyond_bound(stack, relative_transforms(gt), mc)
+    if model == "rigid3d":
+        extra["volumes_per_s"] = len(stack) / seconds
+        extra["volume_shape"] = list(stack.shape[1:])
+        extra["batch"] = mc.config.batch_size
     emit({
         "phase": PHASE[model], "model": model,
         "frames": len(stack), "seconds": seconds, "frames_per_s": len(stack) / seconds,
@@ -740,7 +898,7 @@ def phase_e2e(smi: str, model: str, n_frames: int = 1000) -> dict[str, int]:
 
 def phase_profile(smi: str, model: str, n_batches: int = 6) -> None:
     """Where the time of the model's batch program goes on the card:
-    host wall time per 32-frame batch (no profiler), then one
+    host wall time per batch (32 frames, 8 volumes; no profiler), then one
     torch.profiler pass over the same batches for device busy time, the
     per-stage ranges (kcmc.*: host time and device span) and the
     device's top kernels and copies. The profiled pass is slower than
@@ -749,7 +907,7 @@ def phase_profile(smi: str, model: str, n_batches: int = 6) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    B = 32
+    B = 8 if model == "rigid3d" else 32
     n = B * (n_batches + 1)
     stack, _, mc = path_input(model, n)
     backend = mc.backend
@@ -825,13 +983,16 @@ def main() -> int:
         return 0
     rows = phase_kernels()
     for phase, fn in (("kernels_affine", phase_kernels_affine),
-                      ("kernels_fields", phase_kernels_fields)):
+                      ("kernels_fields", phase_kernels_fields),
+                      ("kernels_volumes", phase_kernels_volumes)):
         new_rows, extra = fn()
         rows += new_rows
         emit({"phase": phase, **extra, "checked": [r["name"] for r in new_rows],
               "max_abs_err": {r["name"]: r["max_abs_err"] for r in new_rows}})
-    by_path = {m: phase_e2e(smi, m, 128 if m == "rigid" else 1000)
-               for m in ("translation", "affine", "homography", "rigid", "piecewise")}
+    frames = {"rigid": 128, "rigid3d": 125}
+    by_path = {m: phase_e2e(smi, m, frames.get(m, 1000))
+               for m in ("translation", "affine", "homography", "rigid", "piecewise",
+                         "rigid3d")}
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in by_path.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

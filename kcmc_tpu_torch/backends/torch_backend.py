@@ -1,9 +1,9 @@
-"""The PyTorch execution backend: the translation, matrix-model and
-piecewise batch programs.
+"""The PyTorch execution backend: the translation, matrix-model,
+piecewise and rigid3d batch programs.
 
 Counterpart of `kcmc_tpu/backends/jax_backend.py` for the slices the
-port covers — the 2D `core` of `_build_local_2d` (no shape buckets,
-temporal seeds or mesh):
+port covers — the 2D `core` of `_build_local_2d` and the 3D one of
+`_build_local_3d` (no shape buckets, temporal seeds or mesh):
 
     translation: K1 fields + blur -> selection -> K2 upright describe
         -> match -> consensus -> K3 warp -> polish -> K3 re-warp
@@ -13,6 +13,9 @@ temporal seeds or mesh):
     piecewise:   K1 -> selection -> K2 upright describe -> match ->
         per-patch field estimate -> K8 warp -> field_polish passes of
         correlation polish, each followed by a K8 re-warp
+    rigid3d (T, D, H, W volumes): K9 response + blur -> 3x3x3 NMS and
+        selection -> K10 trilinear patches -> match -> rigid3d consensus
+        -> the bounded rigid3d volume warp; no polish (jax_backend.py:1305)
 
 plus reference preparation (the same detect+describe on a batch of
 one, so the reference runs the same kernels), the exact gather rescue
@@ -38,6 +41,8 @@ from kcmc_tpu_torch.ops import cuda_build
 from kcmc_tpu_torch.ops.cuda_warp import warp_translation
 from kcmc_tpu_torch.ops.cuda_warp_field import warp_batch_field
 from kcmc_tpu_torch.ops.cuda_warp_matrix import warp_batch_matrix
+from kcmc_tpu_torch.ops.describe3d import describe_keypoints_3d_batch
+from kcmc_tpu_torch.ops.detect3d import detect_keypoints_3d_batch
 from kcmc_tpu_torch.ops.fused import (
     fused_detect_describe,
     fused_match_consensus,
@@ -45,7 +50,8 @@ from kcmc_tpu_torch.ops.fused import (
 )
 from kcmc_tpu_torch.ops.piecewise import correlation_polish, estimate_field, upsample_field
 from kcmc_tpu_torch.ops.polish import polish_transforms
-from kcmc_tpu_torch.ops.warp import warp_batch, warp_batch_with_ok, warp_frame_flow
+from kcmc_tpu_torch.ops.warp import warp_batch, warp_batch_with_ok, warp_frame_flow, warp_volume
+from kcmc_tpu_torch.ops.warp_field import warp_batch_rigid3d
 from kcmc_tpu_torch.utils import prng
 from kcmc_tpu_torch.utils.device import resolve_device, set_full_precision
 
@@ -86,7 +92,21 @@ class TorchBackend:
     # -- reference ---------------------------------------------------------
 
     def _detect_describe(self, frames: torch.Tensor):
+        """(Keypoints, desc) of a (B, H, W) frame batch or, for rigid3d, a
+        (B, D, H, W) volume batch (K9 and K10; the reference's window
+        sigma and Harris k of 3D detection, border <= min(D, H, W) // 4)."""
         cfg = self.config
+        if frames.dim() == 4:
+            kps, smooth = detect_keypoints_3d_batch(
+                frames,
+                max_keypoints=cfg.max_keypoints,
+                threshold=cfg.detect_threshold,
+                border=min(cfg.border, min(frames.shape[1:]) // 4),
+                smooth_sigma=cfg.blur_sigma,
+            )
+            return kps, describe_keypoints_3d_batch(
+                frames, kps, blur_sigma=cfg.blur_sigma, smooth=smooth
+            )
         return fused_detect_describe(
             frames,
             max_keypoints=cfg.max_keypoints,
@@ -125,7 +145,16 @@ class TorchBackend:
         the gather warp for warp="jnp", else K3 for translation and K7
         with max_px = _matrix_resid_px(shape) for the matrix models (the
         reference's accelerator choices; `unsupported()` refuses every
-        other policy)."""
+        other policy). For rigid3d volumes and (B, 4, 4) maps: the
+        bounded volume warp with max_px = max_flow_px, or the gather
+        warp for warp="jnp"."""
+        if self.config.model == "rigid3d":
+            if self.config.warp == "jnp":
+                def gather(vols, transforms):
+                    ok = torch.ones(vols.shape[0], dtype=torch.bool, device=vols.device)
+                    return warp_volume(vols, transforms), ok
+                return gather
+            return functools.partial(warp_batch_rigid3d, max_px=self.config.max_flow_px)
         if self.config.warp == "jnp":
             return warp_batch_with_ok
         if self.config.model == "translation":
@@ -146,15 +175,19 @@ class TorchBackend:
         return functools.partial(warp_batch_field, max_px=self.config.max_flow_px)
 
     def prepare_reference(self, ref_frame) -> dict:
-        """Keypoints and descriptors of the (H, W) reference frame:
-        {"xy" (K, 2), "desc" (K, N_WORDS) int64, "valid" (K,), "frame"}."""
+        """Keypoints and descriptors of the (H, W) reference frame or
+        (D, H, W) reference volume, through the batch program's kernels:
+        {"xy" (K, 2 or 3), "desc" (K, N_WORDS) int64, "valid" (K,),
+        "frame"}. (The JAX package prepares a 3D reference through its
+        jnp route; on the CPU the port's plain versions reproduce it.)"""
         frame = torch.as_tensor(np.array(ref_frame, np.float32), device=self.device)
         kps, desc = self._detect_describe(frame[None].contiguous())
         return {"xy": kps.xy[0], "desc": desc[0], "valid": kps.valid[0], "frame": frame}
 
     def reference_from_numpy(self, ref: dict) -> dict:
         """A prepared reference from numpy arrays (e.g. one prepared by
-        kcmc_tpu: desc as uint32 words) as this backend's tensors."""
+        kcmc_tpu: desc as uint32 words, xy (K, 2) or, for rigid3d,
+        (K, 3)) as this backend's tensors."""
         dev = self.device
         return {
             "xy": torch.as_tensor(np.array(ref["xy"], np.float32), device=dev),
@@ -168,10 +201,10 @@ class TorchBackend:
     # -- batch program -----------------------------------------------------
 
     def process_batch(self, frames, ref: dict, frame_indices) -> dict:
-        """Register and correct a (B, H, W) batch against a prepared
-        reference. Returns numpy arrays: transform (B, 3, 3) (field (B,
-        gh, gw, 2) for piecewise), corrected, warp_ok and the per-frame
-        diagnostics."""
+        """Register and correct a (B, H, W) batch (rigid3d: (B, D, H, W))
+        against a prepared reference. Returns numpy arrays: transform (B,
+        3, 3) ((B, 4, 4) for rigid3d; field (B, gh, gw, 2) for
+        piecewise), corrected, warp_ok and the per-frame diagnostics."""
         cfg = self.config
         with stage("upload"):
             frames = torch.as_tensor(frames, device=self.device)
@@ -229,7 +262,8 @@ class TorchBackend:
         }
 
     def _matrix_tail(self, frames, kps, desc, ref, keys) -> dict:
-        """Match, consensus, bounded warp and the transform polish loop."""
+        """Match, consensus, bounded warp and the transform polish loop
+        (rigid3d has no polish, jax_backend.py:1323)."""
         cfg = self.config
         with stage("match_consensus"):
             res, n_matches = fused_match_consensus(
@@ -244,7 +278,8 @@ class TorchBackend:
         batch_warp = self._resolve_batch_warp(frames.shape[1:])
         with stage("warp"):
             corrected, ok = batch_warp(frames, M)
-        for _ in range(int(cfg.transform_polish)):
+        n_polish = 0 if cfg.model == "rigid3d" else int(cfg.transform_polish)
+        for _ in range(n_polish):
             # frames the bounded warp zeroed have nothing to correlate:
             # they keep their transform for the rescue path
             with stage("polish"):
@@ -266,16 +301,19 @@ class TorchBackend:
 
     def rescue_warp(self, frames, out: dict, ref: dict | None = None) -> np.ndarray:
         """Exact gather warp (plus the photometric polish, with `ref`)
-        for frames the bounded warp (K3, K7 or K8) flagged; updates
-        out["transform"] in place so the exported transforms match the
-        rescued pixels. Piecewise frames are re-warped from their field
-        as it is, with no polish (jax_backend.py:1431)."""
+        for frames the bounded warp (K3, K7, K8 or the rigid3d volume
+        warp) flagged; updates out["transform"] in place so the exported
+        transforms match the rescued pixels. Piecewise frames are
+        re-warped from their field as it is, rigid3d volumes through the
+        trilinear gather, neither with a polish (jax_backend.py:1431)."""
         cfg = self.config
         fr = torch.as_tensor(np.asarray(frames, np.float32), device=self.device)
         if cfg.model == "piecewise":
             fields = torch.as_tensor(np.asarray(out["field"], np.float32), device=self.device)
             return warp_frame_flow(fr, upsample_field(fields, tuple(fr.shape[1:]))).cpu().numpy()
         M = torch.as_tensor(np.asarray(out["transform"], np.float32), device=self.device)
+        if fr.dim() == 4:
+            return warp_volume(fr, M).cpu().numpy()
         corrected = warp_batch(fr, M)
         if ref is not None and ref.get("frame") is not None:
             for _ in range(int(cfg.transform_polish)):

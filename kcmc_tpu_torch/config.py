@@ -1,7 +1,7 @@
 """Pipeline configuration of the PyTorch port.
 
-The fields the ported slices (translation, rigid, affine, homography and
-piecewise) read, under the names and defaults of
+The fields the ported slices (translation, rigid, affine, homography,
+piecewise and rigid3d) read, under the names and defaults of
 `kcmc_tpu.config.CorrectorConfig`, so a JAX config carries across with
 `config_from_dict(dataclasses.asdict(cfg))`. Knobs the port does not
 implement are still declared: `unsupported()` names each non-default one
@@ -19,15 +19,20 @@ import dataclasses
 BINS_FIRST_MIN_K = 2048
 
 # Warp policies the port implements, per model: K3 (translation), K7
-# (matrix models), K8 (piecewise, "auto"), and the exact gather warp
-# ("jnp") for every model.
+# (matrix models), K8 (piecewise, "auto"), the bounded rigid3d volume warp
+# ("auto"), and the exact gather warp ("jnp") for every model.
 _WARPS = {
     "translation": ("auto", "pallas", "jnp"),
     "rigid": ("auto", "matrix", "jnp"),
     "affine": ("auto", "matrix", "jnp"),
     "homography": ("auto", "matrix", "jnp"),
     "piecewise": ("auto", "jnp"),
+    "rigid3d": ("auto", "jnp"),
 }
+
+# Largest Gaussian radius kernel K9 covers (its blur of the volume);
+# radius = max(1, int(3 sigma + 0.5)).
+K9_MAX_RADIUS = 6
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,6 +141,13 @@ class CorrectorConfig:
                 "patch_model must be one of translation/rigid/"
                 f"similarity/affine, got {self.patch_model!r}"
             )
+        if self.model == "rigid3d" and self.n_octaves > 1:
+            raise ValueError("n_octaves > 1 (scale pyramid) supports 2D models only")
+        if self.model == "rigid3d" and self.match_radius is not None:
+            raise ValueError(
+                "match_radius (banded matching) supports 2D models only; "
+                "rigid3d uses the dense matcher"
+            )
         if int(self.transform_polish) < 0:
             raise ValueError(
                 f"transform_polish must be >= 0, got {self.transform_polish}"
@@ -167,8 +179,13 @@ class CorrectorConfig:
         the ROADMAP.md queue-1 item that will port it."""
         out = []
         if self.model not in _WARPS:
-            item = 13 if self.model == "rigid3d" else 14
-            out.append(f"model={self.model!r} (ROADMAP queue 1 item {item})")
+            out.append(f"model={self.model!r} (ROADMAP queue 1 item 14)")
+        if (self.model == "rigid3d"
+                and max(1, int(3.0 * self.blur_sigma + 0.5)) > K9_MAX_RADIUS):
+            out.append(
+                "rigid3d blur_sigma above 2.16 (K9's blur radius is at most "
+                f"{K9_MAX_RADIUS}; ROADMAP queue 1 item 13)"
+            )
         if self.model == "piecewise" and self.patch_model != "translation":
             out.append(
                 f"patch_model={self.patch_model!r} (ROADMAP queue 1 item 14)"
@@ -195,8 +212,8 @@ class CorrectorConfig:
         if self.model in _WARPS and self.warp not in _WARPS[self.model]:
             out.append(
                 f"warp={self.warp!r} for model={self.model!r}: the port has "
-                "K3, the matrix kernel K7, the field kernel K8 and the "
-                "gather warp (ROADMAP queue 1 item 14)"
+                "K3, the matrix kernel K7, the field kernel K8, the rigid3d "
+                "volume warp and the gather warp (ROADMAP queue 1 item 14)"
             )
         return out
 

@@ -1,5 +1,5 @@
 """`MotionCorrector` of the PyTorch port (translation, rigid, affine,
-homography and piecewise slices).
+homography, piecewise and rigid3d slices).
 
 Counterpart of the one-shot path of `kcmc_tpu/corrector.py`
 (`MotionCorrector.correct`): reference selection, fixed-size batches
@@ -22,8 +22,9 @@ from kcmc_tpu_torch.config import CorrectorConfig
 
 @dataclasses.dataclass
 class CorrectionResult:
-    corrected: np.ndarray  # (T, H, W)
-    transforms: np.ndarray | None  # (T, 3, 3) ref -> frame maps; None for piecewise
+    corrected: np.ndarray  # (T, H, W), or (T, D, H, W) for rigid3d
+    transforms: np.ndarray | None  # (T, 3, 3) ref -> frame maps ((T, 4, 4)
+    # for rigid3d); None for piecewise
     diagnostics: dict  # per-frame arrays
     timing: dict
     fields: np.ndarray | None = None  # (T, gh, gw, 2) for piecewise
@@ -41,13 +42,14 @@ def _cast_output(arr: np.ndarray, dtype: np.dtype) -> np.ndarray:
 
 
 class MotionCorrector:
-    """Register every frame of a (T, H, W) stack to a reference frame
-    and resample it.
+    """Register every frame of a (T, H, W) stack (model="rigid3d": every
+    volume of a (T, D, H, W) z-stack series) to a reference and resample
+    it.
 
     `device`: None runs on the card and raises when there is none;
     "cpu" runs every kernel's plain version (the tests' route).
     `reference`: a frame index, "first", "mean" (mean of the first
-    `reference_window` frames) or an explicit (H, W) array.
+    `reference_window` frames) or an explicit (H, W) / (D, H, W) array.
     `config` / **overrides: a CorrectorConfig or keyword overrides.
     """
 
@@ -133,11 +135,21 @@ class MotionCorrector:
         host["warp_ok"] = np.ones_like(ok)
 
     def correct(self, stack, output_dtype="float32") -> CorrectionResult:
-        """Correct a (T, H, W) stack. `output_dtype`: "float32", "input"
-        (the stack's dtype; integers rounded and clipped) or a dtype."""
+        """Correct a (T, H, W) stack, or a (T, D, H, W) one for rigid3d.
+        `output_dtype`: "float32", "input" (the stack's dtype; integers
+        rounded and clipped) or a dtype."""
         stack = np.asarray(stack)
-        if stack.ndim != 3:
-            raise ValueError(f"stack must be (T, H, W), got shape {stack.shape}")
+        if stack.ndim not in (3, 4):
+            raise ValueError(
+                f"stack must be (T, H, W) or (T, D, H, W), got shape {stack.shape}"
+            )
+        if stack.ndim == 4 and self.config.model != "rigid3d":
+            raise ValueError(
+                "4D (volumetric) stacks require model='rigid3d', got "
+                f"{self.config.model!r}"
+            )
+        if stack.ndim == 3 and self.config.model == "rigid3d":
+            raise ValueError("model='rigid3d' requires a (T, D, H, W) stack")
         out_dt = np.dtype(stack.dtype if output_dtype == "input" else output_dtype)
         t0 = time.perf_counter()
         ref = self.backend.prepare_reference(self._select_reference(stack))

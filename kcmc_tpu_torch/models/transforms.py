@@ -1,11 +1,11 @@
 """Geometric transform models as weighted closed-form solves
-(translation, rigid, affine and homography).
+(translation, rigid, affine, homography and rigid3d).
 
-Counterpart of `kcmc_tpu/models/transforms.py` for the 2D families
-except similarity, batched over any leading axes instead of vmapped:
+Counterpart of `kcmc_tpu/models/transforms.py` for every family except
+similarity, batched over any leading axes instead of vmapped:
 
-* `solve(src, dst, w)`: (..., N, 2) points and (..., N) weights ->
-  (..., 3, 3) homogeneous matrices (weighted mean displacement);
+* `solve(src, dst, w)`: (..., N, d) points and (..., N) weights ->
+  (..., d+1, d+1) homogeneous matrices (d = 2, or 3 for rigid3d);
 * `residual(M, src, dst)`: squared reprojection error (..., N);
 * `apply_transform(M, pts)`: homogeneous application with the
   projective divide clamped away from zero.
@@ -30,34 +30,39 @@ _EPS = 1e-8
 _MIN_MASS = 1e-3
 
 
-def _eye(shape, device) -> torch.Tensor:
-    return torch.eye(3, dtype=torch.float32, device=device).expand(
-        tuple(shape) + (3, 3)
+def _eye(shape, device, n: int = 3) -> torch.Tensor:
+    return torch.eye(n, dtype=torch.float32, device=device).expand(
+        tuple(shape) + (n, n)
     ).clone()
 
 
 def apply_transform(M: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
-    """(..., 3, 3) applied to (..., N, 2) points (broadcasting over the
-    leading axes): (x M00 + y M01) + M02 etc., divided by the clamped
-    homogeneous coordinate."""
-    x, y = pts[..., 0], pts[..., 1]
+    """(..., d+1, d+1) applied to (..., N, d) points (broadcasting over
+    the leading axes): ((x M00 + y M01) [+ z M02]) + M0d etc., divided by
+    the clamped homogeneous coordinate."""
+    d = pts.shape[-1]
+    coords = [pts[..., j] for j in range(d)]
 
     def row(i):
-        return x * M[..., i, 0, None] + y * M[..., i, 1, None] + M[..., i, 2, None]
+        acc = coords[0] * M[..., i, 0, None]
+        for j in range(1, d):
+            acc = acc + coords[j] * M[..., i, j, None]
+        return acc + M[..., i, d, None]
 
-    w = row(2)
+    w = row(d)
     w = torch.where(
         w.abs() < _EPS,
         torch.where(w < 0, torch.full_like(w, -_EPS), torch.full_like(w, _EPS)),
         w,
     )
-    return torch.stack([row(0), row(1)], dim=-1) / w[..., None]
+    return torch.stack([row(i) for i in range(d)], dim=-1) / w[..., None]
 
 
 def _guard(M: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
     """Identity wherever M is non-finite or `ok` is False."""
     good = torch.isfinite(M).all(dim=-1).all(dim=-1) & ok
-    return torch.where(good[..., None, None], M, _eye(M.shape[:-2], M.device))
+    eye = _eye(M.shape[:-2], M.device, M.shape[-1])
+    return torch.where(good[..., None, None], M, eye)
 
 
 def _wmean(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -264,6 +269,132 @@ def solve_homography_accurate(src, dst, w) -> torch.Tensor:
     return _homography_from_h(evecs[..., :, 0], Ts, Td_inv, w, spread_ok)
 
 
+def _cross_covariance3(src, dst, w, with_norms: bool = False):
+    """Weighted (..., 3, 3) cross-covariance of the centred clouds and
+    the centroids; with `with_norms` also the weighted squared norms of
+    both centred clouds."""
+    cs = _wmean(src, w)
+    cd = _wmean(dst, w)
+    sc = src - cs[..., None, :]
+    dc = dst - cd[..., None, :]
+    H = torch.matmul((sc * w[..., None]).transpose(-1, -2), dc)
+    if not with_norms:
+        return H, cs, cd
+    ga = torch.sum(w[..., None] * sc * sc, dim=(-2, -1))
+    gb = torch.sum(w[..., None] * dc * dc, dim=(-2, -1))
+    return H, cs, cd, ga, gb
+
+
+def _det3(a, b, c, d, e, f, g, h, i):
+    """Determinant of the rows [a b c; d e f; g h i] (scalars or
+    tensors), in the reference's cofactor order."""
+    return a * (e * i - f * h) - b * (d * i - f * g) + c * (d * h - e * g)
+
+
+def _cross4(r0, r1, r2) -> torch.Tensor:
+    """Generalized cross product of three (..., 4) vectors: a vector
+    orthogonal to all three."""
+    comps = []
+    for i in range(4):
+        c = [j for j in range(4) if j != i]
+        m = _det3(
+            r0[..., c[0]], r0[..., c[1]], r0[..., c[2]],
+            r1[..., c[0]], r1[..., c[1]], r1[..., c[2]],
+            r2[..., c[0]], r2[..., c[1]], r2[..., c[2]],
+        )
+        comps.append(((-1.0) ** i) * m)
+    return torch.stack(comps, dim=-1)
+
+
+def _embed3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    M = _eye(R.shape[:-2], R.device, 4)
+    M[..., :3, :3] = R
+    M[..., :3, 3] = t
+    return M
+
+
+def solve_rigid3d(src, dst, w) -> torch.Tensor:
+    """Weighted Kabsch through the quaternion characteristic polynomial
+    (the hypothesis solver): the largest eigenvalue of Horn's 4x4
+    matrix by 12 Newton steps from the (GA + GB) / 2 upper bound, its
+    eigenvector as the largest of four generalized cross products of
+    rows of K - lambda I. Identity for zero weight mass, non-finite
+    math or a vanishing quaternion."""
+    H, cs, cd, ga, gb = _cross_covariance3(src, dst, w, with_norms=True)
+    xx, xy, xz = H[..., 0, 0], H[..., 0, 1], H[..., 0, 2]
+    yx, yy, yz = H[..., 1, 0], H[..., 1, 1], H[..., 1, 2]
+    zx, zy, zz = H[..., 2, 0], H[..., 2, 1], H[..., 2, 2]
+    rows = (
+        (xx + yy + zz, yz - zy, zx - xz, xy - yx),
+        (yz - zy, xx - yy - zz, xy + yx, zx + xz),
+        (zx - xz, xy + yx, -xx + yy - zz, yz + zy),
+        (xy - yx, zx + xz, yz + zy, -xx - yy + zz),
+    )
+    K = torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+    K2 = torch.matmul(K, K)
+    c2 = -0.5 * K2.diagonal(dim1=-2, dim2=-1).sum(dim=-1)
+    c1 = -torch.sum(K2 * K, dim=(-2, -1)) / 3.0
+    dets = []
+    for j in range(4):
+        c = [k for k in range(4) if k != j]
+        m = _det3(
+            K[..., 1, c[0]], K[..., 1, c[1]], K[..., 1, c[2]],
+            K[..., 2, c[0]], K[..., 2, c[1]], K[..., 2, c[2]],
+            K[..., 3, c[0]], K[..., 3, c[1]], K[..., 3, c[2]],
+        )
+        dets.append(((-1.0) ** j) * K[..., 0, j] * m)
+    c0 = dets[0] + dets[1] + dets[2] + dets[3]
+
+    lam = 0.5 * (ga + gb)
+    for _ in range(12):
+        p = ((lam * lam + c2) * lam + c1) * lam + c0
+        dp = (4.0 * lam * lam + 2.0 * c2) * lam + c1
+        lam = lam - p / torch.where(dp.abs() > _EPS, dp, torch.full_like(dp, _EPS))
+
+    A = K - lam[..., None, None] * torch.eye(4, dtype=K.dtype, device=K.device)
+    a0, a1, a2, a3 = (A[..., i, :] for i in range(4))
+    cands = torch.stack(
+        [_cross4(a1, a2, a3), _cross4(a0, a2, a3), _cross4(a0, a1, a3),
+         _cross4(a0, a1, a2)],
+        dim=-2,
+    )  # (..., 4 candidates, 4)
+    norms = torch.sum(cands * cands, dim=-1)
+    best = torch.argmax(norms, dim=-1)  # first maximum
+    q = torch.gather(cands, -2, best[..., None, None].expand(best.shape + (1, 4)))[..., 0, :]
+    nmax = norms.amax(dim=-1)
+    q = q / torch.sqrt(torch.clamp(nmax, min=_EPS))[..., None]
+    a, b, c, d = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    R = torch.stack([
+        torch.stack([a * a + b * b - c * c - d * d, 2 * (b * c - a * d),
+                     2 * (b * d + a * c)], dim=-1),
+        torch.stack([2 * (b * c + a * d), a * a - b * b + c * c - d * d,
+                     2 * (c * d - a * b)], dim=-1),
+        torch.stack([2 * (b * d - a * c), 2 * (c * d + a * b),
+                     a * a - b * b - c * c + d * d], dim=-1),
+    ], dim=-2)
+    t = cd - torch.matmul(R, cs[..., None])[..., 0]
+    # any unit quaternion is a proper isometry: a degenerate sample only
+    # loses the vote, so only the hard failures fall back to identity
+    ok = (w.sum(dim=-1) > _MIN_MASS) & (nmax > 1e-30)
+    return _guard(_embed3(R, t), ok)
+
+
+def solve_rigid3d_accurate(src, dst, w) -> torch.Tensor:
+    """Weighted Kabsch through the 3x3 SVD of the cross-covariance with
+    the determinant fix (the refine solver of IRLS)."""
+    H, cs, cd = _cross_covariance3(src, dst, w)
+    U, _, Vh = torch.linalg.svd(H)
+    V = Vh.transpose(-1, -2)
+    Ut = U.transpose(-1, -2)
+    det = torch.linalg.det(torch.matmul(V, Ut))
+    Dm = torch.diag_embed(
+        torch.stack([torch.ones_like(det), torch.ones_like(det), det], dim=-1)
+    )
+    R = torch.matmul(torch.matmul(V, Dm), Ut)
+    t = cd - torch.matmul(R, cs[..., None])[..., 0]
+    return _guard(_embed3(R, t), w.sum(dim=-1) > _MIN_MASS)
+
+
 @dataclasses.dataclass(frozen=True)
 class TransformModel:
     name: str
@@ -298,6 +429,10 @@ MODELS: dict[str, TransformModel] = {
         "homography", ndim=2, dof=8, min_samples=4,
         solve=solve_homography, refine_solve=solve_homography_accurate,
     ),
+    "rigid3d": TransformModel(
+        "rigid3d", ndim=3, dof=6, min_samples=3,
+        solve=solve_rigid3d, refine_solve=solve_rigid3d_accurate,
+    ),
 }
 
 
@@ -305,6 +440,6 @@ def get_model(name: str) -> TransformModel:
     if name not in MODELS:
         raise NotImplementedError(
             f"transform model {name!r} is not ported yet (ROADMAP.md queue 1 "
-            "items 13-14); the port has: " + ", ".join(sorted(MODELS))
+            "item 14); the port has: " + ", ".join(sorted(MODELS))
         )
     return MODELS[name]

@@ -28,6 +28,7 @@ SOURCES = {
     "detect": "detect.cu", "patch": "patch.cu", "warp": "warp.cu",
     "moments": "moments.cu", "select": "select.cu",
     "warp_matrix": "warp_matrix.cu", "warp_field": "warp_field.cu",
+    "detect3d": "detect3d.cu", "patch3d": "patch3d.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -37,7 +38,8 @@ NVCC_FLAGS = (
 LAUNCHES: dict[str, int] = {
     "detect_response": 0, "extract_blended": 0, "warp_translation": 0,
     "moment_maps": 0, "binned_select_rows": 0, "extract_blended_moments": 0,
-    "warp_batch_matrix": 0, "warp_batch_field": 0,
+    "warp_batch_matrix": 0, "warp_batch_field": 0, "response_fields_3d": 0,
+    "extract_blended_3d": 0,
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

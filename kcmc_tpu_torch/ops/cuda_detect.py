@@ -48,10 +48,10 @@ def gauss_taps(sigma: float) -> tuple[float, ...]:
 
 
 def corr1d(x: torch.Tensor, taps, dim: int) -> torch.Tensor:
-    """Zero-padded ("SAME") correlation of a (B, H, W) tensor along dim
-    1 (rows) or 2 (columns), accumulated tap by tap in tap order."""
+    """Zero-padded ("SAME") correlation of a tensor along `dim` (not the
+    leading batch axis), accumulated tap by tap in tap order."""
     r = len(taps) // 2
-    pad = (0, 0, r, r) if dim == 1 else (r, r)
+    pad = (0, 0) * (x.dim() - 1 - dim) + (r, r)
     xp = F.pad(x, pad)
     n = x.shape[dim]
     acc = None

@@ -1,7 +1,7 @@
 """Descriptor sampling pattern and detector constants (numpy only).
 
-A copy of the constants the upright and oriented describe routes need
-from `kcmc_tpu/ops/patterns.py`. The port keeps its own copy instead of
+A copy of the constants the upright, oriented and 3D describe routes
+need from `kcmc_tpu/ops/patterns.py`. The port keeps its own copy instead of
 importing the JAX package; `tests/test_torch_describe.py` and
 `tests/test_torch_oriented.py` assert the two stay equal, which is what
 keeps descriptor words bit-identical across the two packages.
@@ -19,6 +19,10 @@ N_ORIENT_BINS = 16  # orientation quantization (22.5 deg, ORB-style)
 ROT_RADIUS = 15  # rotated-pattern support radius (rotated offsets clipped)
 CAND_TILE = 8  # detector candidate-reduction tile side (one keypoint/tile)
 WINDOW_SIGMA = 1.5  # Harris structure-tensor window sigma
+
+# 3D descriptor support (anisotropic: z-stacks are shallow)
+RADIUS_XY = 9.0
+RADIUS_Z = 3.0
 
 
 def make_pattern(seed: int = 7) -> np.ndarray:
@@ -54,6 +58,19 @@ def moment_offsets(radius: int = MOMENT_RADIUS) -> np.ndarray:
     return np.stack([xs, ys, inside], axis=-1).astype(np.float32)
 
 
+def make_pattern_3d(seed: int = 11) -> np.ndarray:
+    """The 3D BRIEF pair pattern: (N_BITS, 2, 3) float32 (pair,
+    endpoint, (x, y, z)) integer offsets, Gaussian with a smaller z
+    extent, clipped to the anisotropic patch."""
+    rng = np.random.default_rng(seed)
+    xy = rng.normal(0.0, RADIUS_XY / 2.0, size=(N_BITS, 2, 2))
+    z = rng.normal(0.0, RADIUS_Z / 2.0, size=(N_BITS, 2, 1))
+    pts = np.concatenate([xy, z], axis=-1)
+    lim = np.array([RADIUS_XY, RADIUS_XY, RADIUS_Z])
+    return np.rint(np.clip(pts, -lim, lim)).astype(np.float32)
+
+
 PATTERN = make_pattern()
 ROT_PATTERNS = make_rotated_patterns()
 MOMENTS = moment_offsets()
+PATTERN_3D = make_pattern_3d()

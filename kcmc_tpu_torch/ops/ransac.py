@@ -33,7 +33,7 @@ EARLY_EXIT_MIN_MATCHES = 24
 
 
 class RansacResult(NamedTuple):
-    transform: torch.Tensor  # (B, 3, 3)
+    transform: torch.Tensor  # (B, d+1, d+1)
     n_inliers: torch.Tensor  # (B,) int32
     inlier_mask: torch.Tensor  # (B, N) bool
     rms_residual: torch.Tensor  # (B,) float32
@@ -63,21 +63,21 @@ def _sample_indices(keys: torch.Tensor, valid: torch.Tensor, m: int) -> torch.Te
 
 
 def _solve_sampled(model, hk, psrc, pdst, pvalid) -> torch.Tensor:
-    """(B, C, 3, 3) minimal-sample solves, one per hypothesis key of hk
-    (B, C, 2), sampled from the (B, N) pools."""
+    """(B, C, d+1, d+1) minimal-sample solves, one per hypothesis key of
+    hk (B, C, 2), sampled from the (B, N, d) pools."""
     m = int(model.min_samples)
-    B = psrc.shape[0]
+    B, _, d = psrc.shape
     idx = _sample_indices(hk, pvalid, m)  # (B, C, m)
     C = idx.shape[1]
     flat = idx.reshape(B, C * m)
-    s = torch.gather(psrc, 1, flat[..., None].expand(B, C * m, 2))
-    t = torch.gather(pdst, 1, flat[..., None].expand(B, C * m, 2))
+    s = torch.gather(psrc, 1, flat[..., None].expand(B, C * m, d))
+    t = torch.gather(pdst, 1, flat[..., None].expand(B, C * m, d))
     w = torch.gather(pvalid, 1, flat).to(torch.float32)
-    return model.solve(s.reshape(B, C, m, 2), t.reshape(B, C, m, 2), w.reshape(B, C, m))
+    return model.solve(s.reshape(B, C, m, d), t.reshape(B, C, m, d), w.reshape(B, C, m))
 
 
 def _count_inliers(model, M, src, dst, valid, thresh_sq) -> torch.Tensor:
-    """Inlier counts of hypotheses M (B, C, 3, 3) on (B, N) matches."""
+    """Inlier counts of hypotheses M (B, C, d+1, d+1) on (B, N) matches."""
     r = model.residual(M, src[:, None], dst[:, None])  # (B, C, N)
     return ((r < thresh_sq) & valid[:, None]).sum(dim=-1).to(torch.int32)
 
@@ -126,10 +126,11 @@ def consensus_batch(
     budget_rungs: int = 0,
     early_exit_frac: float = 0.7,
 ) -> RansacResult:
-    """Batched consensus: src/dst (B, N, 2), valid (B, N), keys (B, 2)
-    per-frame keys. `score_cap` > 0 scores on an every-stride-th subset
-    when N exceeds it (the first eighth of the hypotheses then samples
-    the full set); `budget_rungs` > 1 arms the early-exit ladder."""
+    """Batched consensus: src/dst (B, N, d) with d = model.ndim (2, or 3
+    for rigid3d), valid (B, N), keys (B, 2) per-frame keys. `score_cap`
+    > 0 scores on an every-stride-th subset when N exceeds it (the first
+    eighth of the hypotheses then samples the full set); `budget_rungs`
+    > 1 arms the early-exit ladder."""
     B, N = src.shape[:2]
     dev = src.device
     m = int(model.min_samples)
@@ -167,7 +168,8 @@ def consensus_batch(
     )
     can_exit = n_valid_s >= EARLY_EXIT_MIN_MATCHES
 
-    best_M = torch.eye(3, dtype=torch.float32, device=dev).expand(B, 3, 3).clone()
+    dd = int(model.ndim) + 1
+    best_M = torch.eye(dd, dtype=torch.float32, device=dev).expand(B, dd, dd).clone()
     best_s = torch.full((B,), -1, dtype=torch.int32, device=dev)
     never_done = torch.zeros((B,), dtype=torch.bool, device=dev)
 

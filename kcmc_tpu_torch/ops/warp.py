@@ -6,7 +6,9 @@ transform, so it is the exact oracle of kernel K3 and the route of the
 host-side rescue of frames K3 and K7 flag. Functions take batched
 tensors: frames (B, H, W), transforms (B, 3, 3). `warp_frame_flow`
 warps through dense flows instead (the piecewise model's gather route,
-its rescue and K8's accuracy oracle).
+its rescue and K8's accuracy oracle). `warp_volume` is the 3D gather
+warp of (B, D, H, W) volumes under (B, 4, 4) maps (the rigid3d rescue
+and `warp="jnp"` route).
 """
 
 from __future__ import annotations
@@ -97,3 +99,61 @@ def coverage_mask(shape, transforms: torch.Tensor) -> torch.Tensor:
     H, W = shape
     sx, sy = _source_coords(shape, transforms)
     return (sx >= 0) & (sx <= W - 1) & (sy >= 0) & (sy <= H - 1)
+
+
+def trilinear_sample(vols: torch.Tensor, sx, sy, sz) -> torch.Tensor:
+    """Sample (B, D, H, W) volumes at float (x, y, z) coordinates of
+    shape (B, D, H, W) each; edge-clamped taps, 0 outside the volume."""
+    B, D, H, W = vols.shape
+
+    def split(v, n):
+        f = torch.floor(v)
+        # clamp in float first: far-out coordinates map to the edge
+        i0 = torch.clamp(f, -1, n).to(torch.int64).clamp(0, n - 1)
+        return i0, torch.clamp(i0 + 1, 0, n - 1), v - f
+
+    x0, x1, fx = split(sx, W)
+    y0, y1, fy = split(sy, H)
+    z0, z1, fz = split(sz, D)
+    flat = vols.reshape(B, -1)
+
+    def tap(zi, yi, xi):
+        idx = ((zi * H + yi) * W + xi).reshape(B, -1)
+        return torch.gather(flat, 1, idx).reshape(B, D, H, W)
+
+    out = (
+        tap(z0, y0, x0) * (1 - fx) * (1 - fy) * (1 - fz)
+        + tap(z0, y0, x1) * fx * (1 - fy) * (1 - fz)
+        + tap(z0, y1, x0) * (1 - fx) * fy * (1 - fz)
+        + tap(z0, y1, x1) * fx * fy * (1 - fz)
+        + tap(z1, y0, x0) * (1 - fx) * (1 - fy) * fz
+        + tap(z1, y0, x1) * fx * (1 - fy) * fz
+        + tap(z1, y1, x0) * (1 - fx) * fy * fz
+        + tap(z1, y1, x1) * fx * fy * fz
+    )
+    inb = (
+        (sx >= 0) & (sx <= W - 1) & (sy >= 0) & (sy <= H - 1)
+        & (sz >= 0) & (sz <= D - 1)
+    )
+    return out * inb
+
+
+def source_coords_3d(shape, M: torch.Tensor):
+    """Per-voxel source coordinates (sx, sy, sz) of (B, 4, 4) maps acting
+    on (x, y, z) points, (B, D, H, W) each, in the reference's order."""
+    D, H, W = shape
+    dev = M.device
+    zs = torch.arange(D, dtype=torch.float32, device=dev)[None, :, None, None]
+    ys = torch.arange(H, dtype=torch.float32, device=dev)[None, None, :, None]
+    xs = torch.arange(W, dtype=torch.float32, device=dev)[None, None, None, :]
+
+    def row(i):
+        m = M[:, i, :, None, None, None]
+        return m[:, 0] * xs + m[:, 1] * ys + m[:, 2] * zs + m[:, 3]
+
+    return row(0), row(1), row(2)
+
+
+def warp_volume(vols: torch.Tensor, transforms: torch.Tensor) -> torch.Tensor:
+    """Correct (B, D, H, W) volumes with (B, 4, 4) ref -> frame maps."""
+    return trilinear_sample(vols, *source_coords_3d(vols.shape[1:], transforms))

@@ -1,4 +1,5 @@
-"""Single-interpolation matrix warp, the XLA form.
+"""Bounded warps without a gather of the residual, the XLA forms: the
+single-interpolation matrix warp and the rigid3d volume warp.
 
 Counterpart of `kcmc_tpu/ops/warp_field.py::warp_batch_matrix`
 (warp_field.py:269): affine/projective frames corrected with ONE
@@ -17,11 +18,17 @@ Frames whose in-coverage residual exceeds max_px - 0.5 are zeroed and
 flagged. This form has no +-PAD translation window and no degenerate
 M[2, 2] flag (kernel K7, `cuda_warp_matrix`, adds both); it is the
 independent oracle K7's plain version is held against.
+
+`warp_batch_rigid3d` (warp_field.py:163) has no Pallas kernel in the
+reference either: it is plain torch on both devices.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+from kcmc_tpu_torch.ops.warp import source_coords_3d
 
 
 def smap(m: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
@@ -81,6 +88,15 @@ def floor_int(v: torch.Tensor, bound: int):
     return fi, v - fl
 
 
+def _shift_index(n_in: int, P: int, t: torch.Tensor) -> torch.Tensor:
+    """(B, n_in + 2P) source indices of the canvas translated by the
+    integer shifts t (B,) and haloed by P: in[clip(i + t - P, 0, n_in -
+    1)], the reference's one-hot clamped-shift matrix as an index."""
+    off = torch.nan_to_num(t).clamp(-n_in - 2 * P, n_in + 2 * P).to(torch.int64)
+    ar = torch.arange(n_in + 2 * P, device=t.device)
+    return torch.clamp(ar[None, :] + off[:, None] - P, 0, n_in - 1)
+
+
 def warp_batch_matrix(frames: torch.Tensor, transforms: torch.Tensor, max_px: int = 16):
     """Correct (B, H, W) float32 frames through (B, 3, 3) ref -> frame
     maps: (corrected, ok (B,) bool)."""
@@ -100,13 +116,8 @@ def warp_batch_matrix(frames: torch.Tensor, transforms: torch.Tensor, max_px: in
     ok = torch.where(inb, resid, torch.zeros_like(resid)).amax(dim=(1, 2)) <= max_px - 0.5
 
     # exact integer translation onto the haloed canvas (clamped taps)
-    def shift_index(n_in, n_out, t):
-        off = torch.nan_to_num(t).clamp(-n_in - 2 * P, n_in + 2 * P).to(torch.int64)
-        ar = torch.arange(n_out, device=dev)
-        return torch.clamp(ar[None, :] + off[:, None] - P, 0, n_in - 1)
-
-    ri = shift_index(H, H + 2 * P, tcy)  # (B, H + 2P)
-    ci = shift_index(W, W + 2 * P, tcx)
+    ri = _shift_index(H, P, tcy)  # (B, H + 2P)
+    ci = _shift_index(W, P, tcx)
     bidx = torch.arange(B, device=dev)[:, None, None]
     hp = frames[bidx, ri[:, :, None], ci[:, None, :]]  # (B, H + 2P, W + 2P)
 
@@ -129,3 +140,65 @@ def warp_batch_matrix(frames: torch.Tensor, transforms: torch.Tensor, max_px: in
         out = out + _tap_weight(myi, fy, k) * r1[:, P + k: P + k + H, :]
     keep = ok[:, None, None] & inb
     return torch.where(keep, out, torch.zeros_like(out)), ok
+
+
+def warp_batch_rigid3d(vols: torch.Tensor, transforms: torch.Tensor, max_px: int = 6):
+    """Correct (B, D, H, W) float32 volumes through (B, 4, 4) rigid maps
+    with no gather of the residual (warp_field.py:163): the integer
+    centre translation onto a canvas haloed by P = max_px + 1, then three
+    sequential per-axis 1D resamples (x, y, z) of the bounded residual
+    u(p) = M p - p - t, each component read at the ORIGINAL voxel (an
+    O(|u| * rotation) approximation, ~0.03 px at 1 degree). A volume
+    whose residual exceeds max_px anywhere, or whose map is not affine,
+    is zeroed and flagged. Returns (corrected, ok (B,) bool)."""
+    B, D, H, W = vols.shape
+    dev = vols.device
+    P = max_px + 1
+    M = transforms.to(torch.float32)
+    ok = (
+        (M[:, 3, 0].abs() < 1e-12) & (M[:, 3, 1].abs() < 1e-12)
+        & (M[:, 3, 2].abs() < 1e-12) & ((M[:, 3, 3] - 1.0).abs() < 1e-6)
+    )
+    sx, sy, sz = source_coords_3d((D, H, W), M)
+    cz, cy, cx = (D - 1) / 2.0, (H - 1) / 2.0, (W - 1) / 2.0
+
+    def centre(i, c):
+        return torch.round(M[:, i, 0] * cx + M[:, i, 1] * cy + M[:, i, 2] * cz + M[:, i, 3] - c)
+
+    tcx, tcy, tcz = centre(0, cx), centre(1, cy), centre(2, cz)
+    zs = torch.arange(D, dtype=torch.float32, device=dev)[None, :, None, None]
+    ys = torch.arange(H, dtype=torch.float32, device=dev)[None, None, :, None]
+    xs = torch.arange(W, dtype=torch.float32, device=dev)[None, None, None, :]
+    ux = sx - xs - tcx[:, None, None, None]
+    uy = sy - ys - tcy[:, None, None, None]
+    uz = sz - zs - tcz[:, None, None, None]
+    resid = torch.maximum(
+        ux.abs().amax(dim=(1, 2, 3)),
+        torch.maximum(uy.abs().amax(dim=(1, 2, 3)), uz.abs().amax(dim=(1, 2, 3))),
+    )
+    ok = ok & (resid <= max_px)
+
+    zi = _shift_index(D, P, tcz)
+    yi = _shift_index(H, P, tcy)
+    xi = _shift_index(W, P, tcx)
+    bidx = torch.arange(B, device=dev)[:, None, None, None]
+    hp = vols[bidx, zi[:, :, None, None], yi[:, None, :, None], xi[:, None, None, :]]
+
+    def pass_axis(arr, u, dim, n):
+        mi, f = floor_int(u, max_px)
+        out = torch.zeros(u.shape, dtype=torch.float32, device=dev)
+        for k in range(-max_px, max_px + 2):
+            out = out + _tap_weight(mi, f, k) * arr.narrow(dim, P + k, n)
+        return out
+
+    uxh = F.pad(ux[:, None], (0, 0, P, P, P, P), mode="replicate")[:, 0]
+    r1 = pass_axis(hp, uxh, 3, W)  # (B, D + 2P, H + 2P, W)
+    uyh = F.pad(uy[:, None], (0, 0, 0, 0, P, P), mode="replicate")[:, 0]
+    r2 = pass_axis(r1, uyh, 2, H)  # (B, D + 2P, H, W)
+    r3 = pass_axis(r2, uz, 1, D)  # (B, D, H, W)
+    inb = (
+        (sx >= 0) & (sx <= W - 1) & (sy >= 0) & (sy <= H - 1)
+        & (sz >= 0) & (sz <= D - 1)
+    )
+    keep = ok[:, None, None, None] & inb
+    return torch.where(keep, r3, torch.zeros_like(r3)), ok

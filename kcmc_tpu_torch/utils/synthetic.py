@@ -1,7 +1,8 @@
-"""Synthetic drift stacks (numpy only): matrix drift and piecewise
-fields.
+"""Synthetic drift stacks (numpy only): matrix drift, piecewise fields
+and rigid 3D drift of z-stack volumes.
 
-A copy of `make_drift_stack`, `make_piecewise_stack` and what they call
+A copy of `make_drift_stack`, `make_piecewise_stack`,
+`make_drift_stack_3d` and what they call
 from `kcmc_tpu/utils/synthetic.py`, kept in the port so that scripts
 driving the port (chip_smoke.py) never import the JAX package. Same
 seed, same stack: `tests/test_torch_pipeline.py` and
@@ -247,3 +248,75 @@ def upsample_field(field: np.ndarray, shape: tuple[int, int]) -> np.ndarray:
         + f10 * fy * (1 - fx)
         + f11 * fy * fx
     ).astype(np.float32)
+
+
+def make_drift_stack_3d(
+    n_frames: int = 16,
+    shape: tuple[int, int, int] = (32, 96, 96),
+    max_drift: float = 4.0,
+    max_angle: float = 0.03,
+    noise: float = 0.01,
+    seed: int = 0,
+) -> SyntheticStack:
+    """Config 5: z-stack volumes under rigid 3D drift (rotation + translation)."""
+    rng = np.random.default_rng(seed)
+    D, H, W = shape
+    scene = render_scene(rng, shape, n_blobs=max(150, D * H * W // 2000))
+    center = (np.array([W, H, D], np.float32) - 1) / 2.0  # (x, y, z)
+    trans = _random_walk(rng, n_frames, 3, step=0.5, maxdev=max_drift)
+    angs = _random_walk(rng, n_frames, 3, step=0.003, maxdev=max_angle)
+    mats = np.tile(np.eye(4, dtype=np.float32), (n_frames, 1, 1))
+    zs, ys, xs = np.meshgrid(
+        np.arange(D, dtype=np.float32),
+        np.arange(H, dtype=np.float32),
+        np.arange(W, dtype=np.float32),
+        indexing="ij",
+    )
+    pts = np.stack([xs, ys, zs], axis=-1).reshape(-1, 3)
+    stack = np.empty((n_frames,) + shape, dtype=np.float32)
+    for t in range(n_frames):
+        R = _euler(angs[t])
+        M = np.eye(4, dtype=np.float32)
+        M[:3, :3] = R
+        M[:3, 3] = trans[t] + center - R @ center
+        mats[t] = M
+        Minv = np.linalg.inv(M)
+        sp = pts @ Minv[:3, :3].T + Minv[:3, 3]
+        stack[t] = _trilinear(scene, sp).reshape(shape)
+    if noise > 0:
+        stack = stack + rng.normal(0, noise, stack.shape).astype(np.float32)
+    return SyntheticStack(stack=stack.astype(np.float32), transforms=mats, reference=scene)
+
+
+def _euler(angles: np.ndarray) -> np.ndarray:
+    ax, ay, az = angles
+    cx, sx = np.cos(ax), np.sin(ax)
+    cy, sy = np.cos(ay), np.sin(ay)
+    cz, sz = np.cos(az), np.sin(az)
+    Rx = np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]], np.float32)
+    Ry = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]], np.float32)
+    Rz = np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]], np.float32)
+    return Rz @ Ry @ Rx
+
+
+def _trilinear(vol: np.ndarray, pts_xyz: np.ndarray) -> np.ndarray:
+    """Sample a (D, H, W) volume at (N, 3) float (x, y, z) points."""
+    D, H, W = vol.shape
+    x, y, z = pts_xyz[:, 0], pts_xyz[:, 1], pts_xyz[:, 2]
+    x0, y0, z0 = np.floor(x).astype(np.int32), np.floor(y).astype(np.int32), np.floor(z).astype(np.int32)
+    fx, fy, fz = x - x0, y - y0, z - z0
+    out = np.zeros(len(pts_xyz), dtype=np.float32)
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                xi = np.clip(x0 + dx, 0, W - 1)
+                yi = np.clip(y0 + dy, 0, H - 1)
+                zi = np.clip(z0 + dz, 0, D - 1)
+                wgt = (
+                    (fx if dx else 1 - fx)
+                    * (fy if dy else 1 - fy)
+                    * (fz if dz else 1 - fz)
+                )
+                out += vol[zi, yi, xi] * wgt
+    inb = (x >= 0) & (x <= W - 1) & (y >= 0) & (y <= H - 1) & (z >= 0) & (z <= D - 1)
+    return (out * inb).astype(np.float32)

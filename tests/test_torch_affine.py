@@ -281,7 +281,7 @@ def test_matrix_bounds_and_config_carry_across():
         {"model": "rigid", "warp": "pallas"},
         {"model": "affine", "max_keypoints": 4096, "oriented": None, "warp": "separable"},
         {"model": "affine", "max_keypoints": 4096, "warp": "pallas"},
-        {"model": "rigid3d", "max_keypoints": 4096},
+        {"model": "rigid3d", "template_iters": 1},
         {"model": "similarity", "max_keypoints": 4096},
         {"model": "homography", "max_keypoints": 4096, "warp": "separable"},
         {"model": "translation", "warp": "matrix"},

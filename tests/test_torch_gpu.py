@@ -13,18 +13,28 @@ import pytest
 import torch
 
 from kcmc_tpu_torch import MotionCorrector
+from kcmc_tpu_torch.backends.torch_backend import TorchBackend
+from kcmc_tpu_torch.config import CorrectorConfig
 from kcmc_tpu_torch.ops import (
     cuda_build,
     cuda_detect,
+    cuda_detect3d,
     cuda_moments,
     cuda_patch,
+    cuda_patch3d,
     cuda_select,
     cuda_warp,
     cuda_warp_field,
     cuda_warp_matrix,
+    warp_field,
 )
 from kcmc_tpu_torch.ops.describe import sel_rot
-from kcmc_tpu_torch.utils.synthetic import make_drift_stack, make_piecewise_stack
+from kcmc_tpu_torch.utils.metrics import control_points, relative_transforms
+from kcmc_tpu_torch.utils.synthetic import (
+    make_drift_stack,
+    make_drift_stack_3d,
+    make_piecewise_stack,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -81,7 +91,8 @@ def test_slice_on_card_matches_cpu_route(cuda):
     assert cuda_build.launch_counts() == {
         "detect_response": 3, "extract_blended": 3, "warp_translation": 4,
         "moment_maps": 0, "binned_select_rows": 0, "extract_blended_moments": 0,
-        "warp_batch_matrix": 0, "warp_batch_field": 0,
+        "warp_batch_matrix": 0, "warp_batch_field": 0, "response_fields_3d": 0,
+        "extract_blended_3d": 0,
     }
     on_cpu = MotionCorrector(device="cpu", batch_size=4).correct(data.stack)
     assert np.abs(on_card.transforms - on_cpu.transforms).max() <= 1e-4
@@ -208,3 +219,86 @@ def test_piecewise_slice_on_card_matches_cpu_route(cuda):
     assert counts["warp_batch_matrix"] == counts["extract_blended_moments"] == 0
     on_cpu = MotionCorrector(model="piecewise", device="cpu", batch_size=4).correct(data.stack)
     assert np.sqrt(np.mean(np.sum((on_card.fields - on_cpu.fields) ** 2, -1))) <= 1e-3
+
+
+@pytest.mark.parametrize("offset", [False, True])
+def test_k9_matches_plain_bitwise(cuda, offset):
+    """Zero background and a camera offset, at a shape with partial
+    tiles in y and x."""
+    v = torch.as_tensor(make_drift_stack_3d(2, (20, 72, 88), seed=1).stack, device=cuda)
+    if offset:
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        v = v * 50.0 + 100.0 + 2.0 * torch.randn(v.shape, device=cuda, generator=gen)
+    v = v.contiguous()
+    before = cuda_build.launch_counts()["response_fields_3d"]
+    got = cuda_detect3d.response_fields_3d(v, smooth_sigma=2.0)
+    assert cuda_build.launch_counts()["response_fields_3d"] == before + 1
+    want = cuda_detect3d.response_fields_3d_plain(v, smooth_sigma=2.0)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert cuda_detect3d.response_fields_3d(v)[1] is None
+
+
+def test_k10_matches_plain_bitwise(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    padded = (torch.randn((2, 20, 60, 70), device=cuda, generator=gen) * 100.0).contiguous()
+    xyz = (torch.rand((2, 200, 3), device=cuda, generator=gen)
+           * torch.tensor([50.0, 40.0, 12.0], device=cuda)).contiguous()
+    before = cuda_build.launch_counts()["extract_blended_3d"]
+    got = cuda_patch3d.extract_blended_3d(padded, xyz, 8, 20)
+    assert cuda_build.launch_counts()["extract_blended_3d"] == before + 1
+    assert torch.equal(got, cuda_patch3d.extract_blended_3d_plain(padded, xyz, 8, 20))
+
+
+def _px3(a, b, shape):
+    """Largest displacement between two (T, 4, 4) stacks over the 9x9x9
+    control grid of a (D, H, W) volume, in pixels."""
+    pts = control_points(shape).astype(np.float64)
+
+    def ap(M):
+        return pts @ np.swapaxes(M[:, :3, :3], 1, 2).astype(np.float64) + M[:, None, :3, 3]
+
+    return float(np.abs(ap(a) - ap(b)).max())
+
+
+@pytest.fixture
+def rigid3d_case(cuda):
+    data = make_drift_stack_3d(6, (16, 64, 64), seed=2)
+    return data, dict(model="rigid3d", batch_size=2, max_keypoints=256)
+
+
+def test_rigid3d_slice_on_card_matches_cpu_route(rigid3d_case):
+    data, kw = rigid3d_case
+    cuda_build.reset_launches()
+    on_card = MotionCorrector(**kw).correct(data.stack)
+    counts = cuda_build.launch_counts()
+    assert counts["response_fields_3d"] == counts["extract_blended_3d"] == 4
+    assert sum(counts.values()) == 8
+    assert on_card.transforms.shape == (6, 4, 4)
+    on_cpu = MotionCorrector(device="cpu", **kw).correct(data.stack)
+    assert _px3(on_card.transforms, on_cpu.transforms, (16, 64, 64)) <= 1e-3
+    assert np.abs(on_card.diagnostics["n_inliers"].astype(int)
+                  - on_cpu.diagnostics["n_inliers"]).max() <= 2
+
+
+def test_rigid3d_warps_on_card_match_cpu(cuda, rigid3d_case):
+    """Pixels compared only under identical transforms: the bounded
+    volume warp and the gather rescue on the card against the same
+    functions on the CPU, for the ground-truth maps and for a rotation
+    beyond the bound (zeroed and flagged by the bounded warp)."""
+    data, kw = rigid3d_case
+    M = relative_transforms(data.transforms).astype(np.float32)
+    M[1, :3, :3] = np.array([[0.92, -0.39, 0.0], [0.39, 0.92, 0.0], [0.0, 0.0, 1.0]], np.float32)
+    vols = torch.as_tensor(data.stack)
+    Mt = torch.as_tensor(M)
+    scale = float(vols.abs().max())
+    out, ok = warp_field.warp_batch_rigid3d(vols.to(cuda), Mt.to(cuda), max_px=6)
+    want, want_ok = warp_field.warp_batch_rigid3d(vols, Mt, max_px=6)
+    assert ok.cpu().tolist() == want_ok.tolist()
+    assert not bool(want_ok[1]) and bool(want_ok[0])
+    assert float((out.cpu() - want).abs().max()) <= 1e-5 * scale
+    card = TorchBackend(CorrectorConfig(**kw)).rescue_warp(data.stack, {"transform": M})
+    cpu = TorchBackend(CorrectorConfig(**kw), device="cpu").rescue_warp(
+        data.stack, {"transform": M})
+    assert np.abs(card - cpu).max() <= 1e-5 * scale
+    assert np.abs(card[1]).max() > 0.0

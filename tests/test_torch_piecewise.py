@@ -265,7 +265,7 @@ def test_piecewise_config_carries_across():
     "kw",
     [
         {"model": "similarity"},
-        {"model": "rigid3d"},
+        {"model": "rigid3d", "sanitize_input": True},
         {"model": "homography", "warp": "separable"},
         {"model": "piecewise", "patch_model": "affine"},
         {"model": "piecewise", "warp": "pallas"},

@@ -113,6 +113,15 @@ def test_synthetic_and_metrics_copies_match():
         jmetrics.relative_transforms(a.transforms, 1),
         tmetrics.relative_transforms(b.transforms, 1),
     )
+    a3 = jsynthetic.make_drift_stack_3d(3, (8, 32, 32), seed=4)
+    b3 = tsynthetic.make_drift_stack_3d(3, (8, 32, 32), seed=4)
+    np.testing.assert_array_equal(a3.stack, b3.stack)
+    np.testing.assert_array_equal(a3.transforms, b3.transforms)
+    np.testing.assert_array_equal(a3.reference, b3.reference)
+    est3 = a3.transforms + np.float32(0.01)
+    assert jmetrics.transform_rmse(est3, a3.transforms, (8, 32, 32)) == tmetrics.transform_rmse(
+        est3, b3.transforms, (8, 32, 32)
+    )
 
 
 def test_config_carries_across():
@@ -129,7 +138,8 @@ def test_config_carries_across():
     [
         {"warm_start": True}, {"plan_buckets": ((128, 128),)},
         {"sanitize_input": True}, {"match_radius": 16.0}, {"n_octaves": 2},
-        {"quality_metrics": True}, {"mesh_devices": 2}, {"model": "rigid3d"},
+        {"quality_metrics": True}, {"mesh_devices": 2},
+        {"model": "rigid3d", "warm_start": True},
         {"model": "similarity"}, {"match_precision": "float32"}, {"template_iters": 1},
         {"template_update_every": 8}, {"mesh": object()}, {"warp": "separable"},
     ],
@@ -154,7 +164,7 @@ def test_cpu_route_never_counts_launches(drift):
     cuda_build.reset_launches()
     kcmc_tpu_torch.MotionCorrector(device="cpu", batch_size=4).correct(drift.stack[:4])
     assert set(cuda_build.launch_counts().values()) == {0}
-    assert len(cuda_build.launch_counts()) == 8
+    assert len(cuda_build.launch_counts()) == 10
 
 
 def test_port_imports_neither_jax_nor_kcmc_tpu():
@@ -181,8 +191,9 @@ def test_port_imports_neither_jax_nor_kcmc_tpu():
     )
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
-    assert len(names) >= 24
-    for mod in ("ops.piecewise", "ops.cuda_warp_field", "ops.cuda_patch", "ops.dispatch"):
+    assert len(names) >= 28
+    for mod in ("ops.piecewise", "ops.cuda_warp_field", "ops.cuda_patch", "ops.dispatch",
+                "ops.detect3d", "ops.describe3d", "ops.cuda_detect3d", "ops.cuda_patch3d"):
         assert "kcmc_tpu_torch." + mod in names
     src = open(os.path.join(REPO, "chip_smoke.py")).read()
     assert "import jax" not in src and "from kcmc_tpu " not in src
