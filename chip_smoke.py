@@ -10,7 +10,7 @@ line is printed:
 
 1. device: requires a CUDA card; prints nvidia-smi's name and power
    limit;
-2. build: compiles every CUDA kernel (K1-K10) from
+2. build: compiles every CUDA kernel (K1-K11) from
    kcmc_tpu_torch/csrc (one nvcc per source, in parallel);
 3. kernels: each kernel against its plain PyTorch version on the card
    at the main paths' shapes, then CUDA-event times of kernel, plain
@@ -46,6 +46,16 @@ line is printed:
      own keypoints within 1e-5 relative (both are bit-identical in
      practice; the phase line says so); K10's bytes count the union of
      the slabs this run's keypoints read;
+   - pyramid path (kernels_pyramid; similarity, n_octaves=3 at 512^2:
+     octaves of 512, 344 and 232 px, K=176 each): K1 as above at 344^2
+     and 232^2 (32 octave frames each) and, with B=2, at 2048^2 (the
+     width where the reference runs K1's TPU kernel as column panels);
+     K6 bit-identical (patches, moments, bins) at K=176 on 344^2; K11
+     (the raw integer-origin patch cut, which no path of either package
+     launches: its e2e launch count is 0) bit-identical at B=32, K=512,
+     P=28 on (32, 540, 540) padded blur at the translation path's
+     keypoint origins, and at K=13; K11's bytes count the union of the
+     windows read;
 4. e2e: MotionCorrector(model="translation").correct() on a 1000-frame
    512x512 drift stack (config 1 of BASELINE.json), launch counters
    reset just before: transform RMSE <= 0.05 px, every frame warp_ok,
@@ -74,12 +84,21 @@ line is printed:
    sizing: frames // 8): transform RMSE on a 9x9x9 control grid <= 0.05
    px, launches K9 = K10 = 17 (16 batches and the reference volume) and
    no other kernel; volumes the bounded volume warp flags are rescued
-   through the trilinear gather and counted, beside gt_beyond_warp_bound.
+   through the trilinear gather and counted, beside gt_beyond_warp_bound;
+9. e2e_pyramid: MotionCorrector(model="similarity", n_octaves=3).correct()
+   on the JAX package's bench.py pyramid row (64 frames of 512x512
+   similarity drift tiled to 1000, batch 32): RMSE <= 0.05 px, launches
+   K1 = K6 = 131 (3 octaves of the reference, then per batch 3 octaves
+   and the single-scale fine pass: 3 + 32 x 4) and no other kernel; the
+   separable warp is plain torch (the reference has no Pallas kernel
+   there); frames it flags (rotation beyond max_shear_px = 8) skip the
+   fine pass and are rescued through the gather warp, counted beside
+   gt_beyond_warp_bound; mean coarse_n_matches beside n_matches.
 
 The line before the last holds the kernels table; the last line is
 {"ok": true, "device": {...}}.
 
-    python3 chip_smoke.py --profile [translation|affine|homography|piecewise|rigid3d]
+    python3 chip_smoke.py --profile [translation|affine|homography|piecewise|rigid3d|pyramid]
 
 instead runs the device and build phases and then profiles six batches
 (32 frames; 8 volumes for rigid3d) of that config's batch program (host
@@ -111,6 +130,9 @@ CFG2_SCENE = dict(model="affine", max_drift=10.0, seed=0, n_blobs=12000,
 CFG4_SCENE = dict(model="homography", max_drift=10.0, seed=0)
 # config 5 of BASELINE.json: bench.py's rigid3d row at --size 512
 VOL_SHAPE = (32, 256, 256)
+# the JAX package's bench.py pyramid row: ("similarity", {"n_octaves": 3})
+PYRAMID = dict(n_octaves=3)
+PYRAMID_SCENE = dict(model="similarity", max_drift=10.0, seed=0)
 
 
 def emit(obj) -> None:
@@ -783,10 +805,90 @@ def phase_kernels_volumes() -> tuple[list[dict], dict]:
     return rows, extra
 
 
+def phase_kernels_pyramid() -> tuple[list[dict], dict]:
+    """K1 and K6 at the pyramid path's octave shapes, K1 at 2048^2, and
+    K11 (no path launches it) at the translation path's shapes."""
+    from kcmc_tpu_torch.ops import cuda_patch
+    from kcmc_tpu_torch.ops import describe as D
+    from kcmc_tpu_torch.ops.detect import detect_keypoints_batch
+    from kcmc_tpu_torch.ops.patterns import PATCH_RADIUS, ROT_RADIUS
+    from kcmc_tpu_torch.ops.pyramid import build_pyramid, per_octave_k
+
+    B = 32
+    stack, _ = tiled_stack(B, PYRAMID_SCENE)
+    octs = build_pyramid(torch.as_tensor(stack, device="cuda").contiguous(), 3, 1.5)
+    K = per_octave_k(512, 3)[1]
+    extra = {"k1_err": {}, "octave_sizes": [list(o.frames.shape[1:]) for o in octs],
+             "per_octave_k": K}
+    for oc in octs[1:]:
+        extra["k1_err"]["x".join(map(str, oc.frames.shape[1:]))] = _check_k1(oc.frames)
+    extra["k1_err"]["2048x2048"] = _check_k1(_frames(2, (2048, 2048), seed=20))
+
+    # K6 at K=176 on the 344^2 octave, on the octave's own keypoints
+    fr = octs[1].frames
+    kps, smooth = detect_keypoints_batch(fr, max_keypoints=K, threshold=1e-4, smooth_sigma=2.0)
+    mu = smooth.mean(dim=(1, 2), keepdim=True)
+    padded6 = D.edge_pad((smooth - mu).to(torch.bfloat16), ROT_RADIUS + 1).contiguous()
+    P6 = 2 * ROT_RADIUS + 2
+    pb, m10, m01 = cuda_patch.extract_blended(padded6, kps.xy.contiguous(), P6, with_moments=True)
+    wpb, w10, w01 = cuda_patch.extract_blended_plain(padded6, kps.xy, P6, with_moments=True)
+    if not (torch.equal(pb.view(torch.int16), wpb.view(torch.int16))
+            and torch.equal(m10, w10) and torch.equal(m01, w01)
+            and torch.equal(D._quantize_bins(torch.atan2(m01, m10)),
+                            D._quantize_bins(torch.atan2(w01, w10)))):
+        raise AssertionError("K6: not bit-identical to its plain version at K=176 on 344x344")
+    extra["k6_octave_mean_valid_keypoints"] = float(kps.valid.sum(dim=1).float().mean())
+    del octs, fr, smooth, padded6, pb, wpb
+
+    # K11 extract_patches: the translation path's P=28 windows of its
+    # padded float32 blur at its own keypoints' integer origins
+    frames = _frames(B, (512, 512), seed=1)
+    Kt, P = 512, 2 * PATCH_RADIUS + 2
+    kps, smooth = detect_keypoints_batch(frames, max_keypoints=Kt, threshold=1e-4,
+                                         smooth_sigma=2.0)
+    padded = D.edge_pad(smooth, PATCH_RADIUS + 1).contiguous()
+    org = torch.floor(kps.xy).to(torch.int32) + 1
+    ox, oy = org[..., 0].contiguous(), org[..., 1].contiguous()
+    for k in (Kt, 13):
+        a, b = oy[:, :k].contiguous(), ox[:, :k].contiguous()
+        if not torch.equal(cuda_patch.extract_patches(padded, a, b, P),
+                           cuda_patch.extract_patches_plain(padded, a, b, P)):
+            raise AssertionError(f"K11: not bit-identical to its plain version at K={k}")
+    Bp, Hp, Wp = padded.shape
+    ar = torch.arange(P, device="cuda")
+    lin = ((torch.arange(B, device="cuda")[:, None, None, None] * Hp
+            + oy.long()[..., None, None] + ar[:, None]) * Wp
+           + ox.long()[..., None, None] + ar[None, :])  # (B, K, P, P)
+    read = torch.zeros(Bp * Hp * Wp, dtype=torch.bool, device="cuda")
+    read[lin.reshape(-1)] = True
+    n_read = int(read.sum())
+    extra["k11_input_pixels_read"] = n_read
+    extra["k11_vs_take_equal"] = torch.equal(torch.take(padded, lin),
+                                             cuda_patch.extract_patches(padded, oy, ox, P))
+    del read
+    n_out = B * Kt * P * P
+    b11, by11 = bound_ms(n_read * 4 + 2 * B * Kt * 4 + n_out * 4, 0)
+    row = {
+        "name": "extract_patches", "route": "cuda",
+        "source": "kcmc_tpu_torch/csrc/patches.cu",
+        "replaces": "kcmc_tpu/ops/pallas_patch.py:1102",
+        "max_abs_err": 0.0,
+        "ms": event_ms(lambda: cuda_patch.extract_patches(padded, oy, ox, P), 20),
+        "plain_ms": event_ms(lambda: cuda_patch.extract_patches_plain(padded, oy, ox, P), 3, 1),
+        "bound_ms": b11, "bound_by": by11,
+        "library_ms": event_ms(lambda: torch.take(padded, lin), 20),
+    }
+    extra["library"] = {"extract_patches": "torch.take with a precomputed (B, K, P, P) "
+                        "int64 index (index build not timed)"}
+    extra["e2e_launches"] = {"extract_patches": "0 on every path: no path of kcmc_tpu or "
+                             "of the port calls it"}
+    return [row], extra
+
+
 ZERO = {"detect_response": 0, "extract_blended": 0, "warp_translation": 0,
         "moment_maps": 0, "binned_select_rows": 0, "extract_blended_moments": 0,
         "warp_batch_matrix": 0, "warp_batch_field": 0, "response_fields_3d": 0,
-        "extract_blended_3d": 0}
+        "extract_blended_3d": 0, "extract_patches": 0}
 WANT_LAUNCHES = {
     "translation": {**ZERO, "detect_response": 33, "extract_blended": 33,
                     "warp_translation": 64},
@@ -797,9 +899,12 @@ WANT_LAUNCHES = {
     "piecewise": {**ZERO, "detect_response": 33, "extract_blended": 33,
                   "warp_batch_field": 160},
     "rigid3d": {**ZERO, "response_fields_3d": 17, "extract_blended_3d": 17},
+    # reference: 3 octaves; each of the 32 batches: 3 octaves + the fine pass
+    "pyramid": {**ZERO, "detect_response": 3 + 32 * 4, "extract_blended_moments": 3 + 32 * 4},
 }
 PHASE = {"translation": "e2e", "affine": "e2e_affine", "homography": "e2e_homography",
-         "rigid": "e2e_homography", "piecewise": "e2e_piecewise", "rigid3d": "e2e_rigid3d"}
+         "rigid": "e2e_homography", "piecewise": "e2e_piecewise", "rigid3d": "e2e_rigid3d",
+         "pyramid": "e2e_pyramid"}
 
 
 def path_input(model: str, n_frames: int):
@@ -818,13 +923,17 @@ def path_input(model: str, n_frames: int):
     if model == "rigid3d":
         # bench.py's config-5 row: batch min(32, 8)
         return (*volume_stack(n_frames), MotionCorrector(model="rigid3d", batch_size=8))
+    if model == "pyramid":
+        return (*tiled_stack(n_frames, PYRAMID_SCENE),
+                MotionCorrector(model="similarity", **PYRAMID))
     return (*tiled_stack(n_frames, {**CFG4_SCENE, "model": model}), MotionCorrector(model=model))
 
 
 def _gt_beyond_bound(stack, gt_rel, mc) -> int:
-    """Frames whose ground-truth map the path's bounded warp (K7, or the
-    rigid3d volume warp) zeroes and flags: the rescues the scene itself
-    calls for (run after the launch counters are read)."""
+    """Frames whose ground-truth map the path's bounded warp (K7, the
+    separable chain's shear bound, or the rigid3d volume warp) zeroes
+    and flags: the rescues the scene itself calls for (run after the
+    launch counters are read)."""
     warp = mc.backend._resolve_batch_warp(stack.shape[1:])
     B = mc.config.batch_size
     n = 0
@@ -866,8 +975,12 @@ def phase_e2e(smi: str, model: str, n_frames: int = 1000) -> dict[str, int]:
         finite = np.isfinite(res.transforms).all()
     rescued = int(np.sum(res.diagnostics["warp_rescued"]))
     extra = {}
-    if model in ("affine", "homography", "rigid", "rigid3d"):
+    if model in ("affine", "homography", "rigid", "rigid3d", "pyramid"):
         extra["gt_beyond_warp_bound"] = _gt_beyond_bound(stack, relative_transforms(gt), mc)
+    if model == "pyramid":
+        extra["mean_coarse_matches"] = float(np.mean(res.diagnostics["coarse_n_matches"]))
+        extra["config"] = {"model": "similarity", **PYRAMID, "octave_scale": mc.config.octave_scale,
+                           "max_shear_px": mc.backend._shear_bound_px(stack.shape[1:])}
     if model == "rigid3d":
         extra["volumes_per_s"] = len(stack) / seconds
         extra["volume_shape"] = list(stack.shape[1:])
@@ -984,7 +1097,8 @@ def main() -> int:
     rows = phase_kernels()
     for phase, fn in (("kernels_affine", phase_kernels_affine),
                       ("kernels_fields", phase_kernels_fields),
-                      ("kernels_volumes", phase_kernels_volumes)):
+                      ("kernels_volumes", phase_kernels_volumes),
+                      ("kernels_pyramid", phase_kernels_pyramid)):
         new_rows, extra = fn()
         rows += new_rows
         emit({"phase": phase, **extra, "checked": [r["name"] for r in new_rows],
@@ -992,7 +1106,7 @@ def main() -> int:
     frames = {"rigid": 128, "rigid3d": 125}
     by_path = {m: phase_e2e(smi, m, frames.get(m, 1000))
                for m in ("translation", "affine", "homography", "rigid", "piecewise",
-                         "rigid3d")}
+                         "rigid3d", "pyramid")}
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in by_path.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,5 +1,5 @@
-"""The PyTorch execution backend: the translation, matrix-model,
-piecewise and rigid3d batch programs.
+"""The PyTorch execution backend: the translation, matrix-model
+(single-scale or pyramid), piecewise and rigid3d batch programs.
 
 Counterpart of `kcmc_tpu/backends/jax_backend.py` for the slices the
 port covers — the 2D `core` of `_build_local_2d` and the 3D one of
@@ -10,6 +10,12 @@ port covers — the 2D `core` of `_build_local_2d` and the 3D one of
     rigid, affine, homography: K1 -> selection -> oriented describe (K6
         and the binned selection below K=2048; K4, bins, K2, K5 from
         there on) -> match -> consensus -> K7 warp -> polish -> K7 re-warp
+    similarity: as rigid, through the separable shear/scale warp
+    n_octaves > 1 (2D): the detect + describe stage on every octave of
+        the scale pyramid, merged in base coordinates; for the matrix
+        models then the coarse-to-fine refine (jax_backend.py:1155-1208):
+        warp by the coarse estimate, detect + describe single-scale,
+        match and consensus again, compose coarse @ fine
     piecewise:   K1 -> selection -> K2 upright describe -> match ->
         per-patch field estimate -> K8 warp -> field_polish passes of
         correlation polish, each followed by a K8 re-warp
@@ -52,6 +58,7 @@ from kcmc_tpu_torch.ops.piecewise import correlation_polish, estimate_field, ups
 from kcmc_tpu_torch.ops.polish import polish_transforms
 from kcmc_tpu_torch.ops.warp import warp_batch, warp_batch_with_ok, warp_frame_flow, warp_volume
 from kcmc_tpu_torch.ops.warp_field import warp_batch_rigid3d
+from kcmc_tpu_torch.ops.warp_separable import warp_batch_affine
 from kcmc_tpu_torch.utils import prng
 from kcmc_tpu_torch.utils.device import resolve_device, set_full_precision
 
@@ -91,8 +98,9 @@ class TorchBackend:
 
     # -- reference ---------------------------------------------------------
 
-    def _detect_describe(self, frames: torch.Tensor):
-        """(Keypoints, desc) of a (B, H, W) frame batch or, for rigid3d, a
+    def _detect_describe(self, frames: torch.Tensor, multi_scale: bool = True):
+        """(Keypoints, desc) of a (B, H, W) frame batch (through the scale
+        pyramid when n_octaves > 1 and `multi_scale`) or, for rigid3d, a
         (B, D, H, W) volume batch (K9 and K10; the reference's window
         sigma and Harris k of 3D detection, border <= min(D, H, W) // 4)."""
         cfg = self.config
@@ -118,6 +126,9 @@ class TorchBackend:
             blur_sigma=cfg.blur_sigma,
             cand_tile=cfg.cand_tile,
             oriented=cfg.resolved_oriented(),
+            n_octaves=cfg.n_octaves,
+            octave_scale=cfg.octave_scale,
+            multi_scale=multi_scale,
         )
 
     # -- warp policy -------------------------------------------------------
@@ -142,8 +153,10 @@ class TorchBackend:
 
     def _resolve_batch_warp(self, shape):
         """fn(frames (B, H, W), transforms (B, 3, 3)) -> (corrected, ok):
-        the gather warp for warp="jnp", else K3 for translation and K7
-        with max_px = _matrix_resid_px(shape) for the matrix models (the
+        the gather warp for warp="jnp"; the separable chain for
+        similarity or warp="separable" (shear bound _shear_bound_px,
+        0 for translation); else K3 for translation and K7 with max_px =
+        _matrix_resid_px(shape) for rigid, affine and homography (the
         reference's accelerator choices; `unsupported()` refuses every
         other policy). For rigid3d volumes and (B, 4, 4) maps: the
         bounded volume warp with max_px = max_flow_px, or the gather
@@ -155,9 +168,13 @@ class TorchBackend:
                     return warp_volume(vols, transforms), ok
                 return gather
             return functools.partial(warp_batch_rigid3d, max_px=self.config.max_flow_px)
+        model = self.config.model
         if self.config.warp == "jnp":
             return warp_batch_with_ok
-        if self.config.model == "translation":
+        if self.config.warp == "separable" or model == "similarity":
+            shear = 0 if model == "translation" else self._shear_bound_px(shape)
+            return functools.partial(warp_batch_affine, shear_px=shear, with_ok=True)
+        if model == "translation":
             return warp_translation
         return functools.partial(warp_batch_matrix, max_px=self._matrix_resid_px(shape))
 
@@ -175,8 +192,9 @@ class TorchBackend:
         return functools.partial(warp_batch_field, max_px=self.config.max_flow_px)
 
     def prepare_reference(self, ref_frame) -> dict:
-        """Keypoints and descriptors of the (H, W) reference frame or
-        (D, H, W) reference volume, through the batch program's kernels:
+        """Keypoints and descriptors of the (H, W) reference frame (every
+        octave's, merged, when n_octaves > 1) or (D, H, W) reference
+        volume, through the batch program's kernels:
         {"xy" (K, 2 or 3), "desc" (K, N_WORDS) int64, "valid" (K,),
         "frame"}. (The JAX package prepares a 3D reference through its
         jnp route; on the CPU the port's plain versions reproduce it.)"""
@@ -187,7 +205,8 @@ class TorchBackend:
     def reference_from_numpy(self, ref: dict) -> dict:
         """A prepared reference from numpy arrays (e.g. one prepared by
         kcmc_tpu: desc as uint32 words, xy (K, 2) or, for rigid3d,
-        (K, 3)) as this backend's tensors."""
+        (K, 3); any K, such as a pyramid reference's n_octaves x
+        per-octave slots) as this backend's tensors."""
         dev = self.device
         return {
             "xy": torch.as_tensor(np.array(ref["xy"], np.float32), device=dev),
@@ -261,9 +280,8 @@ class TorchBackend:
             "rms_residual": fres.rms_residual,
         }
 
-    def _matrix_tail(self, frames, kps, desc, ref, keys) -> dict:
-        """Match, consensus, bounded warp and the transform polish loop
-        (rigid3d has no polish, jax_backend.py:1323)."""
+    def _register(self, kps, desc, ref, keys) -> dict:
+        """Match and consensus of a batch against the reference."""
         cfg = self.config
         with stage("match_consensus"):
             res, n_matches = fused_match_consensus(
@@ -274,8 +292,38 @@ class TorchBackend:
                 refine_iters=cfg.refine_iters, score_cap=cfg.score_cap,
                 budget_rungs=cfg.budget_rungs, early_exit_frac=cfg.early_exit_frac,
             )
-        M = res.transform.contiguous()
+        return {
+            "transform": res.transform.contiguous(),
+            "n_keypoints": kps.valid.sum(dim=1).to(torch.int32),
+            "n_matches": n_matches,
+            "n_inliers": res.n_inliers,
+            "rms_residual": res.rms_residual,
+        }
+
+    def _matrix_tail(self, frames, kps, desc, ref, keys) -> dict:
+        """Match, consensus, the pyramid's coarse-to-fine refine, bounded
+        warp and the transform polish loop (rigid3d has no polish,
+        jax_backend.py:1323)."""
+        cfg = self.config
         batch_warp = self._resolve_batch_warp(frames.shape[1:])
+        out = self._register(kps, desc, ref, keys)
+        if frames.dim() == 3 and cfg.n_octaves > 1 and cfg.pyramid_refine:
+            # warp by the coarse (multi-scale) estimate and register the
+            # residual single-scale, without a temporal seed; frames the
+            # bounded warp flagged keep the coarse estimate
+            with stage("refine"):
+                coarse = out["transform"]
+                with stage("warp"):
+                    corrected0, ok0 = batch_warp(frames, coarse)
+                with stage("detect_describe"):
+                    kps2, desc2 = self._detect_describe(corrected0, multi_scale=False)
+                fine_out = self._register(kps2, desc2, ref, prng.fold_in(keys, 1))
+                eye = torch.eye(3, dtype=coarse.dtype, device=coarse.device)
+                fine = torch.where(ok0[:, None, None], fine_out["transform"], eye)
+                fine_out["transform"] = torch.matmul(coarse, fine).contiguous()
+                fine_out["coarse_n_matches"] = out["n_matches"]
+                out = fine_out
+        M = out["transform"]
         with stage("warp"):
             corrected, ok = batch_warp(frames, M)
         n_polish = 0 if cfg.model == "rigid3d" else int(cfg.transform_polish)
@@ -289,23 +337,16 @@ class TorchBackend:
                 M = torch.where(ok[:, None, None], newM, M).contiguous()
             with stage("warp"):
                 corrected, ok = batch_warp(frames, M)
-        return {
-            "transform": M,
-            "corrected": corrected,
-            "warp_ok": ok,
-            "n_keypoints": kps.valid.sum(dim=1).to(torch.int32),
-            "n_matches": n_matches,
-            "n_inliers": res.n_inliers,
-            "rms_residual": res.rms_residual,
-        }
+        return {**out, "transform": M, "corrected": corrected, "warp_ok": ok}
 
     def rescue_warp(self, frames, out: dict, ref: dict | None = None) -> np.ndarray:
         """Exact gather warp (plus the photometric polish, with `ref`)
-        for frames the bounded warp (K3, K7, K8 or the rigid3d volume
-        warp) flagged; updates out["transform"] in place so the exported
-        transforms match the rescued pixels. Piecewise frames are
-        re-warped from their field as it is, rigid3d volumes through the
-        trilinear gather, neither with a polish (jax_backend.py:1431)."""
+        for frames the bounded warp (K3, K7, K8, the separable chain or
+        the rigid3d volume warp) flagged; updates out["transform"] in
+        place so the exported transforms match the rescued pixels.
+        Piecewise frames are re-warped from their field as it is, rigid3d
+        volumes through the trilinear gather, neither with a polish
+        (jax_backend.py:1431)."""
         cfg = self.config
         fr = torch.as_tensor(np.asarray(frames, np.float32), device=self.device)
         if cfg.model == "piecewise":

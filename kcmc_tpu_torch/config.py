@@ -1,7 +1,8 @@
 """Pipeline configuration of the PyTorch port.
 
-The fields the ported slices (translation, rigid, affine, homography,
-piecewise and rigid3d) read, under the names and defaults of
+The fields the ported slices (translation, rigid, similarity, affine,
+homography, piecewise and rigid3d, single-scale or through the scale
+pyramid) read, under the names and defaults of
 `kcmc_tpu.config.CorrectorConfig`, so a JAX config carries across with
 `config_from_dict(dataclasses.asdict(cfg))`. Knobs the port does not
 implement are still declared: `unsupported()` names each non-default one
@@ -19,12 +20,15 @@ import dataclasses
 BINS_FIRST_MIN_K = 2048
 
 # Warp policies the port implements, per model: K3 (translation), K7
-# (matrix models), K8 (piecewise, "auto"), the bounded rigid3d volume warp
-# ("auto"), and the exact gather warp ("jnp") for every model.
+# (matrix models), the separable shear/scale chain (similarity, "auto";
+# translation, rigid and affine on request), K8 (piecewise, "auto"), the
+# bounded rigid3d volume warp ("auto"), and the exact gather warp ("jnp")
+# for every model.
 _WARPS = {
-    "translation": ("auto", "pallas", "jnp"),
-    "rigid": ("auto", "matrix", "jnp"),
-    "affine": ("auto", "matrix", "jnp"),
+    "translation": ("auto", "pallas", "separable", "jnp"),
+    "rigid": ("auto", "matrix", "separable", "jnp"),
+    "similarity": ("auto", "separable", "jnp"),
+    "affine": ("auto", "matrix", "separable", "jnp"),
     "homography": ("auto", "matrix", "jnp"),
     "piecewise": ("auto", "jnp"),
     "rigid3d": ("auto", "jnp"),
@@ -52,6 +56,8 @@ class CorrectorConfig:
     oriented: bool | None = None  # None => auto: off for translation
     blur_sigma: float = 2.0
     n_octaves: int = 1
+    octave_scale: float = 1.5
+    pyramid_refine: bool = True  # coarse-to-fine pass when n_octaves > 1
 
     # matching
     ratio: float = 0.85
@@ -101,6 +107,10 @@ class CorrectorConfig:
     mesh_devices: int = 0
 
     def __post_init__(self):
+        if self.model not in _WARPS:
+            raise ValueError(
+                f"unknown model {self.model!r}; available: {sorted(_WARPS)}"
+            )
         if self.blur_sigma <= 0.0:
             raise ValueError(f"blur_sigma must be positive, got {self.blur_sigma}")
         if self.harris_window_sigma <= 0.0:
@@ -141,8 +151,15 @@ class CorrectorConfig:
                 "patch_model must be one of translation/rigid/"
                 f"similarity/affine, got {self.patch_model!r}"
             )
-        if self.model == "rigid3d" and self.n_octaves > 1:
-            raise ValueError("n_octaves > 1 (scale pyramid) supports 2D models only")
+        if self.n_octaves < 1:
+            raise ValueError(f"n_octaves must be >= 1, got {self.n_octaves}")
+        if self.n_octaves > 1:
+            if not 1.0 < self.octave_scale <= 4.0:
+                raise ValueError(
+                    f"octave_scale must be in (1, 4], got {self.octave_scale}"
+                )
+            if self.model == "rigid3d":
+                raise ValueError("n_octaves > 1 (scale pyramid) supports 2D models only")
         if self.model == "rigid3d" and self.match_radius is not None:
             raise ValueError(
                 "match_radius (banded matching) supports 2D models only; "
@@ -178,8 +195,6 @@ class CorrectorConfig:
         """Non-default knobs the port does not implement yet, each with
         the ROADMAP.md queue-1 item that will port it."""
         out = []
-        if self.model not in _WARPS:
-            out.append(f"model={self.model!r} (ROADMAP queue 1 item 14)")
         if (self.model == "rigid3d"
                 and max(1, int(3.0 * self.blur_sigma + 0.5)) > K9_MAX_RADIUS):
             out.append(
@@ -188,12 +203,10 @@ class CorrectorConfig:
             )
         if self.model == "piecewise" and self.patch_model != "translation":
             out.append(
-                f"patch_model={self.patch_model!r} (ROADMAP queue 1 item 14)"
+                f"patch_model={self.patch_model!r} (ROADMAP queue 1 item 14b)"
             )
-        if self.n_octaves > 1:
-            out.append("n_octaves > 1 (ROADMAP queue 1 item 14)")
         if self.match_radius is not None:
-            out.append("match_radius (ROADMAP queue 1 item 14)")
+            out.append("match_radius (ROADMAP queue 1 item 14b)")
         if self.match_precision == "float32":
             out.append(
                 "match_precision='float32' unquantized describe route "
@@ -209,11 +222,12 @@ class CorrectorConfig:
             out.append("plan_buckets (ROADMAP queue 1 item 16)")
         if self.mesh_devices:
             out.append("mesh_devices (ROADMAP queue 1 item 17)")
-        if self.model in _WARPS and self.warp not in _WARPS[self.model]:
+        if self.warp not in _WARPS[self.model]:
             out.append(
                 f"warp={self.warp!r} for model={self.model!r}: the port has "
-                "K3, the matrix kernel K7, the field kernel K8, the rigid3d "
-                "volume warp and the gather warp (ROADMAP queue 1 item 14)"
+                "K3, the matrix kernel K7, the separable chain, the field "
+                "kernel K8, the rigid3d volume warp and the gather warp "
+                "(ROADMAP queue 1 item 14b)"
             )
         return out
 

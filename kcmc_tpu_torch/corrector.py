@@ -1,5 +1,6 @@
-"""`MotionCorrector` of the PyTorch port (translation, rigid, affine,
-homography, piecewise and rigid3d slices).
+"""`MotionCorrector` of the PyTorch port (translation, rigid, similarity,
+affine, homography, piecewise and rigid3d slices, single-scale or
+through the scale pyramid).
 
 Counterpart of the one-shot path of `kcmc_tpu/corrector.py`
 (`MotionCorrector.correct`): reference selection, fixed-size batches
@@ -114,9 +115,9 @@ class MotionCorrector:
         return n, batch, idx
 
     def _rescue_flagged(self, host: dict, batch: np.ndarray, n: int, ref: dict) -> None:
-        """Re-warp frames the bounded warp (K3, K7 or K8) zeroed (warp_ok
-        False) through the exact gather path, in place; `warp_rescued`
-        records which."""
+        """Re-warp frames the bounded warp (K3, K7, K8, the separable
+        chain or the rigid3d volume warp) zeroed (warp_ok False) through
+        the exact gather path, in place; `warp_rescued` records which."""
         ok = np.asarray(host["warp_ok"], bool)
         host["warp_rescued"] = ~ok
         if ok.all() or not self.config.rescue_warp:

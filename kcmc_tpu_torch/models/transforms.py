@@ -1,8 +1,8 @@
 """Geometric transform models as weighted closed-form solves
-(translation, rigid, affine, homography and rigid3d).
+(translation, rigid, similarity, affine, homography and rigid3d).
 
-Counterpart of `kcmc_tpu/models/transforms.py` for every family except
-similarity, batched over any leading axes instead of vmapped:
+Counterpart of `kcmc_tpu/models/transforms.py` for every family,
+batched over any leading axes instead of vmapped:
 
 * `solve(src, dst, w)`: (..., N, d) points and (..., N) weights ->
   (..., d+1, d+1) homogeneous matrices (d = 2, or 3 for rigid3d);
@@ -15,8 +15,6 @@ coincident samples) return the identity (`_guard`). The affine and
 homography solves run in float32 on Hartley-conditioned normal
 equations; on the card the backend turns TF32 off, so their small
 matmuls stay full float32 as the reference's Precision.HIGHEST does.
-The other models raise NotImplementedError naming the ROADMAP item that
-ports them.
 """
 
 from __future__ import annotations
@@ -96,6 +94,30 @@ def solve_rigid(src, dst, w) -> torch.Tensor:
     M[..., 0, 2] = cd[..., 0] - (c * cs[..., 0] - sn * cs[..., 1])
     M[..., 1, 2] = cd[..., 1] - (sn * cs[..., 0] + c * cs[..., 1])
     # norm ~ 0: coincident or weightless samples define no rotation
+    return _guard(M, (w.sum(dim=-1) > _MIN_MASS) & (norm > 1e-6))
+
+
+def solve_similarity(src, dst, w) -> torch.Tensor:
+    """Weighted 2D similarity (uniform scale, rotation, translation),
+    closed form (Umeyama): the rigid Procrustes rotation with scale =
+    |(a, b)| / sum w |src - c|^2."""
+    cs = _wmean(src, w)
+    cd = _wmean(dst, w)
+    s = src - cs[..., None, :]
+    d = dst - cd[..., None, :]
+    a = torch.sum(w * (s[..., 0] * d[..., 0] + s[..., 1] * d[..., 1]), dim=-1)
+    b = torch.sum(w * (s[..., 0] * d[..., 1] - s[..., 1] * d[..., 0]), dim=-1)
+    var_s = torch.clamp(torch.sum(w * (s[..., 0] ** 2 + s[..., 1] ** 2), dim=-1), min=_EPS)
+    norm = torch.clamp(torch.sqrt(a * a + b * b), min=_EPS)
+    scale = norm / var_s
+    c, sn = scale * (a / norm), scale * (b / norm)
+    M = _eye(c.shape, c.device)
+    M[..., 0, 0] = c
+    M[..., 0, 1] = -sn
+    M[..., 1, 0] = sn
+    M[..., 1, 1] = c
+    M[..., 0, 2] = cd[..., 0] - (c * cs[..., 0] - sn * cs[..., 1])
+    M[..., 1, 2] = cd[..., 1] - (sn * cs[..., 0] + c * cs[..., 1])
     return _guard(M, (w.sum(dim=-1) > _MIN_MASS) & (norm > 1e-6))
 
 
@@ -421,6 +443,9 @@ MODELS: dict[str, TransformModel] = {
         "translation", ndim=2, dof=2, min_samples=1, solve=solve_translation
     ),
     "rigid": TransformModel("rigid", ndim=2, dof=3, min_samples=2, solve=solve_rigid),
+    "similarity": TransformModel(
+        "similarity", ndim=2, dof=4, min_samples=2, solve=solve_similarity
+    ),
     "affine": TransformModel(
         "affine", ndim=2, dof=6, min_samples=3,
         solve=solve_affine, refine_solve=solve_affine_accurate,
@@ -437,9 +462,7 @@ MODELS: dict[str, TransformModel] = {
 
 
 def get_model(name: str) -> TransformModel:
+    # piecewise is handled at the pipeline level (ops/piecewise.py)
     if name not in MODELS:
-        raise NotImplementedError(
-            f"transform model {name!r} is not ported yet (ROADMAP.md queue 1 "
-            "item 14); the port has: " + ", ".join(sorted(MODELS))
-        )
+        raise ValueError(f"unknown transform model {name!r}; available: {sorted(MODELS)}")
     return MODELS[name]

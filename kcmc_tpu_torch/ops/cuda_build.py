@@ -29,6 +29,7 @@ SOURCES = {
     "moments": "moments.cu", "select": "select.cu",
     "warp_matrix": "warp_matrix.cu", "warp_field": "warp_field.cu",
     "detect3d": "detect3d.cu", "patch3d": "patch3d.cu",
+    "patches": "patches.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -39,7 +40,7 @@ LAUNCHES: dict[str, int] = {
     "detect_response": 0, "extract_blended": 0, "warp_translation": 0,
     "moment_maps": 0, "binned_select_rows": 0, "extract_blended_moments": 0,
     "warp_batch_matrix": 0, "warp_batch_field": 0, "response_fields_3d": 0,
-    "extract_blended_3d": 0,
+    "extract_blended_3d": 0, "extract_patches": 0,
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -1,5 +1,5 @@
-"""K2 and K6: per-keypoint patch cut + bilinear blend (+ ORB moments),
-and their plain versions.
+"""K2 and K6: per-keypoint patch cut + bilinear blend (+ ORB moments);
+K11: the raw patch cut at integer origins; and their plain versions.
 
 Counterpart of `kcmc_tpu/ops/pallas_patch.py::extract_blended` (and of
 its banded and slab layouts, which the kernel needs no separate route
@@ -15,6 +15,13 @@ float32 each: the radius-7 disc of the RAW window centred at window
 index (P - 2) // 2 + (frac >= 0.5), summed row-major in float64 (every
 product is exact) and rounded once. Kernel on a CUDA tensor, plain
 version on a CPU tensor; the two are bit-identical.
+
+Counterpart of `kcmc_tpu/ops/pallas_patch.py::extract_patches` (K11,
+csrc/patches.cu): `extract_patches(padded, oy, ox, P)` cuts (B, K, P, P)
+float32 windows of (B, Hp, Wp) float32 frames at (B, K) int32 origins,
+clamped to [0, Hp - P] x [0, Wp - P]. No path of the pipeline calls it
+(nor does one of the JAX package); its callers are its tests and
+chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -129,3 +136,54 @@ def extract_blended(padded: torch.Tensor, xy: torch.Tensor, P: int,
     cuda_build.check(rc, name)
     cuda_build.LAUNCHES[name] += 1
     return (out, m10, m01) if with_moments else out
+
+
+def extract_patches_plain(padded: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,
+                          P: int) -> torch.Tensor:
+    """Plain PyTorch version of K11: an index gather of the same pixels."""
+    B, Hp, Wp = padded.shape
+    y0 = torch.clamp(oy.long(), 0, Hp - P)
+    x0 = torch.clamp(ox.long(), 0, Wp - P)
+    ar = torch.arange(P, device=padded.device)
+    rows = (y0[..., None] + ar)[..., :, None]  # (B, K, P, 1)
+    cols = (x0[..., None] + ar)[..., None, :]  # (B, K, 1, P)
+    bidx = torch.arange(B, device=padded.device)[:, None, None, None]
+    return padded[bidx, rows, cols]
+
+
+def _patches_lib():
+    fn = cuda_build.load("patches").kcmc_extract_patches
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def extract_patches(padded: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,
+                    P: int) -> torch.Tensor:
+    """Raw (B, K, P, P) float32 patches of (B, Hp, Wp) float32 frames at
+    (B, K) int32 origins: patches[b, k, i, j] = padded[b, oy + i, ox + j]."""
+    require_tensor(padded, "padded", torch.float32, 3)
+    require_tensor(oy, "oy", torch.int32, 2)
+    require_tensor(ox, "ox", torch.int32, 2)
+    B, Hp, Wp = padded.shape
+    if oy.shape != ox.shape or oy.shape[0] != B:
+        raise ValueError(
+            f"oy and ox must both be (B, K) for B={B}, got {tuple(oy.shape)}, "
+            f"{tuple(ox.shape)}"
+        )
+    if not 1 <= P <= min(Hp, Wp):
+        raise ValueError(f"patch side P must be in [1, {min(Hp, Wp)}], got {P}")
+    if not kernel_route(padded, oy, ox):
+        return extract_patches_plain(padded, oy, ox, P)
+    K = oy.shape[1]
+    out = torch.empty((B, K, P, P), dtype=torch.float32, device=padded.device)
+    rc = _patches_lib()(
+        padded.data_ptr(), oy.data_ptr(), ox.data_ptr(), out.data_ptr(),
+        B, K, Hp, Wp, P, torch.cuda.current_stream().cuda_stream,
+    )
+    cuda_build.check(rc, "extract_patches")
+    cuda_build.LAUNCHES["extract_patches"] += 1
+    return out

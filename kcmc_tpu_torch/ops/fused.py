@@ -1,10 +1,11 @@
 """The detect->describe and match->consensus stages of the batch program.
 
-Counterpart of `kcmc_tpu/ops/fused.py` (single scale). PyTorch runs
-eagerly, so "fused" here means what the reference's traced region
-guarantees that matters for results: the blur K1 computes on the side
-feeds the describe stage directly, and the match and consensus of a
-whole batch run as batched tensor operations.
+Counterpart of `kcmc_tpu/ops/fused.py`, single scale and through the
+scale pyramid (ops/pyramid.py). PyTorch runs eagerly, so "fused" here
+means what the reference's traced region guarantees that matters for
+results: the blur K1 computes on the side feeds the describe stage
+directly, and the match and consensus of a whole batch run as batched
+tensor operations.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from kcmc_tpu_torch.models.transforms import TransformModel
 from kcmc_tpu_torch.ops.describe import describe_keypoints_batch
 from kcmc_tpu_torch.ops.detect import detect_keypoints_batch
 from kcmc_tpu_torch.ops.match import Matches, knn_match_impl
+from kcmc_tpu_torch.ops.pyramid import build_pyramid, merge_octave_keypoints, per_octave_k
 from kcmc_tpu_torch.ops.ransac import RansacResult, consensus_batch
 
 
@@ -30,26 +32,43 @@ def fused_detect_describe(
     blur_sigma: float,
     cand_tile: int,
     oriented: bool = False,
+    n_octaves: int = 1,
+    octave_scale: float = 1.5,
+    multi_scale: bool = True,
 ):
     """(Keypoints, desc) of a (B, H, W) float32 batch: K1 fields and
     blur, selection, then the upright describe route through K2 or,
     with `oriented`, the small-K route through K6 or (K >= 2048) the
-    bins-first route through K4, K2 and K5."""
-    kps, smooth = detect_keypoints_batch(
-        frames,
-        max_keypoints=max_keypoints,
-        threshold=detect_threshold,
-        nms_size=nms_size,
-        border=border,
-        harris_k=harris_k,
-        smooth_sigma=blur_sigma,
-        window_sigma=window_sigma,
-        cand_tile=cand_tile,
-    )
-    desc = describe_keypoints_batch(
-        frames, kps, blur_sigma=blur_sigma, smooth=smooth, oriented=oriented
-    )
-    return kps, desc
+    bins-first route through K4, K2 and K5. With `n_octaves > 1` and
+    `multi_scale`, the same stage runs on every octave of the pyramid at
+    `per_octave_k` keypoints and border min(border, min(H_o, W_o) // 4),
+    merged octave-major in base coordinates."""
+
+    def stage(fr, k, b):
+        kps, smooth = detect_keypoints_batch(
+            fr,
+            max_keypoints=k,
+            threshold=detect_threshold,
+            nms_size=nms_size,
+            border=b,
+            harris_k=harris_k,
+            smooth_sigma=blur_sigma,
+            window_sigma=window_sigma,
+            cand_tile=cand_tile,
+        )
+        desc = describe_keypoints_batch(
+            fr, kps, blur_sigma=blur_sigma, smooth=smooth, oriented=oriented
+        )
+        return kps, desc
+
+    if n_octaves <= 1 or not multi_scale:
+        return stage(frames, max_keypoints, border)
+    octs = build_pyramid(frames, n_octaves, octave_scale)
+    per = [
+        stage(oc.frames, k, min(border, min(oc.frames.shape[1:]) // 4))
+        for oc, k in zip(octs, per_octave_k(max_keypoints, n_octaves))
+    ]
+    return merge_octave_keypoints(per, octs)
 
 
 def match_to_reference(

@@ -279,13 +279,13 @@ def test_matrix_bounds_and_config_carry_across():
     "kw",
     [
         {"model": "rigid", "warp": "pallas"},
-        {"model": "affine", "max_keypoints": 4096, "oriented": None, "warp": "separable"},
+        {"model": "affine", "max_keypoints": 4096, "oriented": None, "match_radius": 16.0},
         {"model": "affine", "max_keypoints": 4096, "warp": "pallas"},
         {"model": "rigid3d", "template_iters": 1},
-        {"model": "similarity", "max_keypoints": 4096},
+        {"model": "similarity", "max_keypoints": 4096, "warp": "pallas"},
         {"model": "homography", "max_keypoints": 4096, "warp": "separable"},
         {"model": "translation", "warp": "matrix"},
-        {"model": "translation", "warp": "separable"},
+        {"model": "piecewise", "warp": "separable"},
     ],
 )
 def test_unported_affine_knobs_raise(kw):

@@ -27,9 +27,14 @@ from kcmc_tpu_torch.ops import (
     cuda_warp_field,
     cuda_warp_matrix,
     warp_field,
+    warp_separable,
 )
+from kcmc_tpu_torch.ops import describe as D
 from kcmc_tpu_torch.ops.describe import sel_rot
-from kcmc_tpu_torch.utils.metrics import control_points, relative_transforms
+from kcmc_tpu_torch.ops.detect import detect_keypoints_batch
+from kcmc_tpu_torch.ops.patterns import ROT_RADIUS
+from kcmc_tpu_torch.ops.pyramid import build_pyramid
+from kcmc_tpu_torch.utils.metrics import control_points, relative_transforms, transform_rmse
 from kcmc_tpu_torch.utils.synthetic import (
     make_drift_stack,
     make_drift_stack_3d,
@@ -92,7 +97,7 @@ def test_slice_on_card_matches_cpu_route(cuda):
         "detect_response": 3, "extract_blended": 3, "warp_translation": 4,
         "moment_maps": 0, "binned_select_rows": 0, "extract_blended_moments": 0,
         "warp_batch_matrix": 0, "warp_batch_field": 0, "response_fields_3d": 0,
-        "extract_blended_3d": 0,
+        "extract_blended_3d": 0, "extract_patches": 0,
     }
     on_cpu = MotionCorrector(device="cpu", batch_size=4).correct(data.stack)
     assert np.abs(on_card.transforms - on_cpu.transforms).max() <= 1e-4
@@ -302,3 +307,70 @@ def test_rigid3d_warps_on_card_match_cpu(cuda, rigid3d_case):
         data.stack, {"transform": M})
     assert np.abs(card - cpu).max() <= 1e-5 * scale
     assert np.abs(card[1]).max() > 0.0
+
+
+@pytest.mark.parametrize("K", [512, 13])
+def test_k11_matches_plain_bitwise(cuda, K):
+    """The raw patch cut at chip_smoke's shapes (32 frames of 540^2,
+    P=28) and at an odd K, origins past the contract clamped alike."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    padded = torch.randn((32, 540, 540), device=cuda, generator=gen).contiguous()
+    oy = torch.randint(0, 540 - 28 + 1, (32, K), device=cuda, generator=gen, dtype=torch.int32)
+    ox = torch.randint(0, 540 - 28 + 1, (32, K), device=cuda, generator=gen, dtype=torch.int32)
+    oy[0, 0], ox[0, 0] = 10_000, -5
+    before = cuda_build.launch_counts()["extract_patches"]
+    got = cuda_patch.extract_patches(padded, oy.contiguous(), ox.contiguous(), 28)
+    assert cuda_build.launch_counts()["extract_patches"] == before + 1
+    assert torch.equal(got, cuda_patch.extract_patches_plain(padded, oy, ox, 28))
+
+
+@pytest.mark.parametrize("shape,n", [((344, 344), 4), ((232, 232), 4), ((2048, 2048), 2)])
+def test_k1_at_octave_and_wide_shapes_bitwise(cuda, shape, n):
+    """K1 at the pyramid's octave sizes (not multiples of its 32-px
+    tile) and at 2048^2, where the reference runs column panels."""
+    fr = torch.as_tensor(_stack(n, shape).stack, device=cuda)
+    got = cuda_detect.detect_response(fr, smooth_sigma=2.0)
+    want = cuda_detect.detect_response_plain(fr, smooth_sigma=2.0)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_k6_at_octave_k176_bitwise(cuda):
+    """K6 on the 344^2 octave of 512^2 frames at its 176 keypoints."""
+    fr = torch.as_tensor(make_drift_stack(4, (512, 512), model="similarity", seed=0).stack,
+                         device=cuda)
+    oc = build_pyramid(fr, 3, 1.5)[1].frames
+    kps, smooth = detect_keypoints_batch(oc, max_keypoints=176, threshold=1e-4,
+                                         smooth_sigma=2.0)
+    mu = smooth.mean(dim=(1, 2), keepdim=True)
+    padded = D.edge_pad((smooth - mu).to(torch.bfloat16), ROT_RADIUS + 1).contiguous()
+    P = 2 * ROT_RADIUS + 2
+    got = cuda_patch.extract_blended(padded, kps.xy.contiguous(), P, with_moments=True)
+    want = cuda_patch.extract_blended_plain(padded, kps.xy, P, with_moments=True)
+    assert torch.equal(got[0].view(torch.int16), want[0].view(torch.int16))
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+def test_pyramid_slice_on_card_matches_cpu_route(cuda):
+    """similarity, n_octaves=3: K1 and K6 on the reference's three
+    octaves and on each batch's three octaves plus the fine pass, the
+    separable warp in plain torch; transforms within 1e-3 px of the CPU
+    route and identical counts. Pixels are compared under identical
+    transforms only: the separable warp on the card and on the CPU."""
+    data = make_drift_stack(8, (128, 128), model="similarity", seed=0)
+    kw = dict(model="similarity", n_octaves=3, batch_size=4)
+    cuda_build.reset_launches()
+    on_card = MotionCorrector(**kw).correct(data.stack)
+    counts = cuda_build.launch_counts()
+    assert counts["detect_response"] == counts["extract_blended_moments"] == 3 + 2 * 4
+    assert sum(counts.values()) == 2 * 11
+    on_cpu = MotionCorrector(device="cpu", **kw).correct(data.stack)
+    assert transform_rmse(on_card.transforms, on_cpu.transforms, (128, 128)) <= 1e-3
+    for k in ("n_keypoints", "n_matches", "coarse_n_matches", "n_inliers"):
+        np.testing.assert_array_equal(on_card.diagnostics[k], on_cpu.diagnostics[k])
+    fr = torch.as_tensor(data.stack)
+    M = torch.as_tensor(on_cpu.transforms)
+    out, ok = warp_separable.warp_batch_affine(fr.to(cuda), M.to(cuda), 8, with_ok=True)
+    want, want_ok = warp_separable.warp_batch_affine(fr, M, 8, with_ok=True)
+    assert ok.cpu().tolist() == want_ok.tolist()
+    assert float((out.cpu() - want).abs().max()) <= 1e-5 * float(fr.abs().max())

@@ -189,5 +189,14 @@ def test_translation_solver_guard_matches():
 
 
 def test_other_models_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_get_model("similarity")
+    """Every transform model of kcmc_tpu is ported; other names raise as
+    in the reference, and bad piecewise knobs fail validation."""
+    from kcmc_tpu.models.transforms import MODELS as J_MODELS
+    from kcmc_tpu_torch.models.transforms import MODELS as T_MODELS
+
+    assert set(T_MODELS) == set(J_MODELS)
+    for name in ("piecewise", "projective"):
+        with pytest.raises(ValueError):
+            t_get_model(name)
+        with pytest.raises(ValueError):
+            j_get_model(name)

@@ -264,7 +264,7 @@ def test_piecewise_config_carries_across():
 @pytest.mark.parametrize(
     "kw",
     [
-        {"model": "similarity"},
+        {"model": "similarity", "n_octaves": 3, "warm_start": True},
         {"model": "rigid3d", "sanitize_input": True},
         {"model": "homography", "warp": "separable"},
         {"model": "piecewise", "patch_model": "affine"},

@@ -137,11 +137,13 @@ def test_config_carries_across():
     "kw",
     [
         {"warm_start": True}, {"plan_buckets": ((128, 128),)},
-        {"sanitize_input": True}, {"match_radius": 16.0}, {"n_octaves": 2},
+        {"sanitize_input": True}, {"match_radius": 16.0},
+        {"model": "similarity", "n_octaves": 2, "match_radius": 16.0},
         {"quality_metrics": True}, {"mesh_devices": 2},
         {"model": "rigid3d", "warm_start": True},
-        {"model": "similarity"}, {"match_precision": "float32"}, {"template_iters": 1},
-        {"template_update_every": 8}, {"mesh": object()}, {"warp": "separable"},
+        {"model": "piecewise", "patch_model": "similarity"}, {"match_precision": "float32"},
+        {"template_iters": 1}, {"template_update_every": 8}, {"mesh": object()},
+        {"model": "homography", "warp": "separable"},
     ],
 )
 def test_unported_knobs_raise(kw):
@@ -164,7 +166,7 @@ def test_cpu_route_never_counts_launches(drift):
     cuda_build.reset_launches()
     kcmc_tpu_torch.MotionCorrector(device="cpu", batch_size=4).correct(drift.stack[:4])
     assert set(cuda_build.launch_counts().values()) == {0}
-    assert len(cuda_build.launch_counts()) == 10
+    assert len(cuda_build.launch_counts()) == 11
 
 
 def test_port_imports_neither_jax_nor_kcmc_tpu():
@@ -193,7 +195,8 @@ def test_port_imports_neither_jax_nor_kcmc_tpu():
     names = out.stdout.split()
     assert len(names) >= 28
     for mod in ("ops.piecewise", "ops.cuda_warp_field", "ops.cuda_patch", "ops.dispatch",
-                "ops.detect3d", "ops.describe3d", "ops.cuda_detect3d", "ops.cuda_patch3d"):
+                "ops.detect3d", "ops.describe3d", "ops.cuda_detect3d", "ops.cuda_patch3d",
+                "ops.pyramid", "ops.warp_separable"):
         assert "kcmc_tpu_torch." + mod in names
     src = open(os.path.join(REPO, "chip_smoke.py")).read()
     assert "import jax" not in src and "from kcmc_tpu " not in src
