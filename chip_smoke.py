@@ -26,10 +26,14 @@ line is printed:
      bit-identical (also at 1024x1024), K2 at P=32 on the 4368 sorted
      slots bit-identical, K5 bit-identical with the one-hot selection
      stack and within one bf16 ulp with a dense one (a sentinel bin
-     included), K7 within 1e-5 relative with identical ok flags at
-     max_px=18 (also at 1024x1024 and 2048x2048; a rotation beyond the
-     bound, a shift beyond +-128 px and M[2,2]=0 are zeroed and
-     flagged);
+     included), K7 bit-identical with identical ok flags at max_px=18
+     on config 2's affine ground-truth maps and on config 4's projective
+     ones (also at 1024x1024 and 2048x2048, affine and projective maps; a
+     rotation beyond the bound, a shift beyond +-128 px and M[2,2]=0 are
+     zeroed and flagged, a g = 1e-30 frame takes the division path); K7
+     is timed on both map kinds, each beside one grid_sample call on
+     the maps' dense grid (built before timing: the projective time is
+     in the phase line), and K5's achieved TFLOP/s is in the phase line;
    - config-4 and config-3 paths: K6 (K2 with in-kernel ORB moments) on
      the keypoints of 32 config-4 frames (K=512, P=32): patches
      bit-identical to its plain version and to K2, moments bit-identical,
@@ -109,6 +113,9 @@ the top device operations), for PERF.md's breakdown.
 from __future__ import annotations
 
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -152,6 +159,56 @@ def event_ms(fn, iters: int, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def graph_ms(fn, reps: int = 20, iters: int = 10) -> float:
+    """Mean milliseconds per call of fn replayed from a CUDA graph of
+    `reps` calls: device time without the host's launch gaps (event_ms
+    includes them where a call's host time exceeds its device time)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (iters * reps)
+
+
+def sass_counts(lib, opcodes=("FCHK", "HGMMA")) -> dict | None:
+    """Per kernel of the built library `lib`, its SASS instructions of
+    each opcode (cuobjdump -sass): FCHK is an IEEE division's slow-path
+    check, one per division sequence; HGMMA a warpgroup MMA. None where
+    cuobjdump is missing."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts: dict[str, dict[str, int]] = {}
+    kernel = None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            m = re.search(r"\d([A-Za-z_]+_kernel)", ln)
+            kernel = m.group(1) if m else ln.split()[-1]
+            counts[kernel] = dict.fromkeys(opcodes, 0)
+        elif kernel is not None:
+            words = ln.replace(";", " ").split()
+            for op in opcodes:
+                counts[kernel][op] += sum(w == op or w.startswith(op + ".") for w in words)
+    return counts
 
 
 def bound_ms(n_bytes: float, n_ops: float, rate: float = F32_FLOPS) -> tuple[float, str]:
@@ -242,7 +299,10 @@ def phase_build() -> None:
 
     t0 = time.perf_counter()
     info = cuda_build.build()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "libs": info})
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "libs": info,
+          # IEEE division slow-path checks (one per division sequence) and
+          # warpgroup MMAs in the SASS of K7 and K5
+          "sass": {n: sass_counts(cuda_build.target(n)) for n in ("warp_matrix", "select")}})
 
 
 def _frames(n, shape, seed):
@@ -383,14 +443,46 @@ def phase_kernels() -> list[dict]:
 
 
 def _check_k7(frames, M, max_px: int, what: str) -> float:
+    """K7 bit-identical to its plain version, ok flags included."""
     from kcmc_tpu_torch.ops import cuda_warp_matrix
 
     out, ok = cuda_warp_matrix.warp_batch_matrix(frames, M, max_px=max_px)
     ref, ref_ok = cuda_warp_matrix.warp_batch_matrix_plain(frames, M, max_px)
-    e = float((out - ref).abs().max())
-    if e > TOL * float(ref.abs().max()) or not torch.equal(ok, ref_ok):
-        raise AssertionError(f"K7: error {e} or ok flags differ at {what}")
-    return e
+    if not torch.equal(out, ref) or not torch.equal(ok, ref_ok):
+        e = float((out - ref).abs().max())
+        raise AssertionError(f"K7: not bit-identical (max error {e}) or ok flags differ at {what}")
+    return 0.0
+
+
+def _grid_sample_ms(frames, M) -> tuple[float, float]:
+    """One grid_sample call (bilinear, zeros, align_corners) on the
+    maps' dense source grid, which is built before timing: (eager ms,
+    CUDA-graph ms)."""
+    B, H, W = frames.shape
+    ys = torch.arange(H, device="cuda", dtype=torch.float32)[:, None].expand(H, W)
+    xs = torch.arange(W, device="cuda", dtype=torch.float32)[None, :].expand(H, W)
+
+    def c(i, j):
+        return M[:, i, j, None, None]
+
+    den = c(2, 0) * xs + c(2, 1) * ys + c(2, 2)
+    sx = (c(0, 0) * xs + c(0, 1) * ys + c(0, 2)) / den
+    sy = (c(1, 0) * xs + c(1, 1) * ys + c(1, 2)) / den
+    grid = torch.stack([sx * (2.0 / (W - 1)) - 1.0, sy * (2.0 / (H - 1)) - 1.0], dim=-1)
+
+    def call():
+        return torch.nn.functional.grid_sample(
+            frames[:, None], grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True)
+    return event_ms(call, 20), graph_ms(call)
+
+
+def _projective_maps(n, shape, seed, persp=2e-6):
+    """_affine_maps with a perspective row (g, h) of size ~persp."""
+    M = _affine_maps(n, shape, seed, rot=0.005)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    M[:, 2, :2] = (torch.rand((n, 2), device="cuda", generator=g) - 0.5) * (2 * persp)
+    return M.contiguous()
 
 
 def _affine_maps(n, shape, seed, rot=0.05, shear=0.02, shift=10.0):
@@ -512,12 +604,14 @@ def phase_kernels_affine() -> tuple[list[dict], dict]:
                        + B * Kp * V * 2, flops5, BF16_TC_FLOPS)
     rows2d = flat.reshape(B * Kp, L)
     lib5 = event_ms(lambda: torch.matmul(rows2d, sel[0]), 10)
+    ms5 = event_ms(lambda: cuda_select.binned_select_rows(flat, ibin, sel, 16), 20)
+    extra["k5_tflops"] = flops5 / (ms5 * 1e-3) / 1e12
     rows.append({
         "name": "binned_select_rows", "route": "cuda",
         "source": "kcmc_tpu_torch/csrc/select.cu",
         "replaces": "kcmc_tpu/ops/pallas_patch.py:1169",
         "max_abs_err": 0.0,
-        "ms": event_ms(lambda: cuda_select.binned_select_rows(flat, ibin, sel, 16), 20),
+        "ms": ms5,
         "plain_ms": event_ms(
             lambda: cuda_select.binned_select_rows_plain(flat, ibin, sel, 16), 3, 1),
         "bound_ms": b5, "bound_by": by5, "library_ms": lib5,
@@ -525,7 +619,8 @@ def phase_kernels_affine() -> tuple[list[dict], dict]:
     del pb, flat, rows2d, dense, got, want, gd, wd
 
     # K7 warp_batch_matrix at max_px = _matrix_resid_px(512^2) = 18 on
-    # config 2's ground-truth maps, three of them out of its envelope
+    # config 2's ground-truth maps (affine: the exact affine branch), three
+    # of them out of its envelope, and on config 4's projective ones
     backend = TorchBackend(CorrectorConfig(model="affine", **CFG2), device="cuda")
     mpx = backend._matrix_resid_px((H, W))
     gt_rel = gt @ np.linalg.inv(gt[0])
@@ -539,26 +634,28 @@ def phase_kernels_affine() -> tuple[list[dict], dict]:
                                  c - c * np.sin(th) - c * np.cos(th)])
     Mx[2, 0, 2] = 140.5  # beyond +-PAD
     Mx[3, 2, 2] = 0.0  # degenerate
+    Mx[4, 2, 0] = 1e-30  # projective by a hair: the division path
     out, ok = cuda_warp_matrix.warp_batch_matrix(frames, Mx.contiguous(), max_px=mpx)
     err7 = max(err7, _check_k7(frames, Mx.contiguous(), mpx, "512x512, out of envelope"))
     if ok[1:4].any() or float(out[1:4].abs().max()) != 0.0 or not bool(ok[0]):
         raise AssertionError("K7: frames out of the envelope must be zeroed and flagged")
+    stack4, gt4 = tiled_stack(B, CFG4_SCENE)
+    frames4 = torch.as_tensor(stack4, device="cuda").contiguous()
+    M4 = torch.as_tensor((gt4 @ np.linalg.inv(gt4[0])).astype(np.float32),
+                         device="cuda").contiguous()
+    mpx4 = TorchBackend(CorrectorConfig(model="homography"), device="cuda")._matrix_resid_px((H, W))
+    err7 = max(err7, _check_k7(frames4, M4, mpx4, "512x512, config 4 projective"))
     for side, n in ((1024, 8), (2048, 2)):
         fr = _frames(n, (side, side), seed=side)
         mp = backend._matrix_resid_px((side, side))
         err7 = max(err7, _check_k7(fr, _affine_maps(n, (side, side), side, rot=0.005),
                                    mp, f"{side}x{side}"))
+        err7 = max(err7, _check_k7(fr, _projective_maps(n, (side, side), side + 1),
+                                   mp, f"{side}x{side}, projective"))
         del fr
     px = B * H * W
     b7, by7 = bound_ms(2 * px * 4 + M.numel() * 4 + B, px * 126)
-    ys = torch.arange(H, device="cuda", dtype=torch.float32)[:, None].expand(H, W)
-    xs = torch.arange(W, device="cuda", dtype=torch.float32)[None, :].expand(H, W)
-    sx = M[:, 0, 0, None, None] * xs + M[:, 0, 1, None, None] * ys + M[:, 0, 2, None, None]
-    sy = M[:, 1, 0, None, None] * xs + M[:, 1, 1, None, None] * ys + M[:, 1, 2, None, None]
-    grid = torch.stack([sx * (2.0 / (W - 1)) - 1.0, sy * (2.0 / (H - 1)) - 1.0], dim=-1)
-    lib7 = event_ms(lambda: torch.nn.functional.grid_sample(
-        frames[:, None], grid, mode="bilinear", padding_mode="zeros",
-        align_corners=True), 20)
+    lib7 = _grid_sample_ms(frames, M)
     rows.append({
         "name": "warp_batch_matrix", "route": "cuda",
         "source": "kcmc_tpu_torch/csrc/warp_matrix.cu",
@@ -567,9 +664,29 @@ def phase_kernels_affine() -> tuple[list[dict], dict]:
         "ms": event_ms(lambda: cuda_warp_matrix.warp_batch_matrix(frames, M, max_px=mpx), 20),
         "plain_ms": event_ms(
             lambda: cuda_warp_matrix.warp_batch_matrix_plain(frames, M, mpx), 3, 1),
-        "bound_ms": b7, "bound_by": by7, "library_ms": lib7,
+        "bound_ms": b7, "bound_by": by7, "library_ms": lib7[0],
     })
+    # device time without launch gaps (CUDA-graph replay), and the same
+    # kernel on config 4's projective maps (the division path)
+    lib7p = _grid_sample_ms(frames4, M4)
+    k7p = lambda: cuda_warp_matrix.warp_batch_matrix(frames4, M4, max_px=mpx4)  # noqa: E731
+    extra["k7_graph_ms"] = {
+        "affine": graph_ms(lambda: cuda_warp_matrix.warp_batch_matrix(frames, M, max_px=mpx)),
+        "affine_library": lib7[1], "projective": graph_ms(k7p), "projective_library": lib7p[1]}
+    extra["k7_projective"] = {
+        "maps": "config 4 ground truth, 32 frames of 512x512", "max_px": mpx4,
+        "ms": event_ms(k7p, 20),
+        "plain_ms": event_ms(
+            lambda: cuda_warp_matrix.warp_batch_matrix_plain(frames4, M4, mpx4), 3, 1),
+        "bound_ms": b7, "library_ms": lib7p[0],
+    }
+    extra["k7_ok_frames"] = {
+        "affine": int(cuda_warp_matrix.warp_batch_matrix(frames, M, mpx)[1].sum()),
+        "projective": int(cuda_warp_matrix.warp_batch_matrix(frames4, M4, mpx4)[1].sum())}
+    del frames4, stack4
     extra["k7_max_px"] = mpx
+    extra["library"] = {"warp_batch_matrix": "grid_sample (bilinear, zeros) on the maps' "
+                        "dense source grid, built before timing"}
     extra["bound_rates"] = {"moment_maps": "float32 67 TFLOP/s",
                             "binned_select_rows": "bf16 tensor 989 TFLOP/s",
                             "warp_batch_matrix": "float32 67 TFLOP/s"}

@@ -66,7 +66,9 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str) -> Path:
+def target(name: str) -> Path:
+    """Path of the built library for `name`, named by a hash of its
+    source, the shared headers and the flags."""
     # the shared headers are part of every library's hash
     src = (CSRC / SOURCES[name]).read_bytes() + b"".join(
         p.read_bytes() for p in sorted(CSRC.glob("*.cuh"))
@@ -78,14 +80,15 @@ def _target(name: str) -> Path:
 def build(names=None) -> dict[str, dict]:
     """Compile the named libraries (default: all) that are not built
     yet, one `nvcc` process each, started together. Returns, per name,
-    {"seconds", "cached", "ptxas": [register/smem lines]}; raises with
-    the compiler output if any build fails."""
+    {"seconds", "cached", "ptxas": [register, shared-memory, spill,
+    warning and performance-note lines]}; raises with the compiler
+    output if any build fails."""
     names = list(SOURCES) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
     for name in names:
-        out = _target(name)
+        out = target(name)
         if out.exists():
             BUILD_INFO.setdefault(
                 name, {"seconds": 0.0, "cached": True, "ptxas": []}
@@ -112,7 +115,8 @@ def build(names=None) -> dict[str, dict]:
             "cached": False,
             "ptxas": [
                 ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "Compiling entry" in ln
+                if any(w in ln.lower() for w in (
+                    "registers", "compiling entry", "spill", "warning", "performance"))
             ],
         }
     if failed:
@@ -124,7 +128,7 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for `name`, building it first if needed."""
     lib = _LIBS.get(name)
     if lib is None:
-        out = _target(name)
+        out = target(name)
         if not out.exists():
             build([name])
         lib = ctypes.CDLL(str(out))

@@ -62,10 +62,10 @@ def binned_select_rows(flat, ibin, sel, align: int):
         )
     if not kernel_route(flat, ibin, sel):
         return binned_select_rows_plain(flat, ibin, sel, align)
-    if align != 16 or V % 8 or sel.data_ptr() % 16:
+    if align != 16 or V % 8 or sel.data_ptr() % 16 or flat.data_ptr() % 16:
         raise ValueError(
             "the K5 kernel takes align=16, V a multiple of 8 and a 16-byte "
-            f"aligned sel (got align={align}, V={V})"
+            f"aligned flat and sel (got align={align}, V={V})"
         )
     out = torch.empty((B, Kp, V), dtype=torch.bfloat16, device=flat.device)
     rc = _lib()(

@@ -103,13 +103,16 @@ def warp_batch_matrix_plain(frames: torch.Tensor, transforms: torch.Tensor, max_
 
 
 def _lib():
-    fn = cuda_build.load("warp_matrix").kcmc_warp_batch_matrix
+    lib = cuda_build.load("warp_matrix")
+    fn, words = lib.kcmc_warp_batch_matrix, lib.kcmc_warp_batch_matrix_scratch
     if fn.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
         fn.argtypes = [p, p, p, p, p, i, i, i, i, p]
         fn.restype = ctypes.c_int
-    return fn
+        words.argtypes = [i, i, i]
+        words.restype = ctypes.c_longlong
+    return fn, words
 
 
 def warp_batch_matrix(frames: torch.Tensor, transforms: torch.Tensor, max_px: int = 16):
@@ -126,10 +129,12 @@ def warp_batch_matrix(frames: torch.Tensor, transforms: torch.Tensor, max_px: in
     B, H, W = frames.shape
     out = torch.empty_like(frames)
     ok = torch.empty((B,), dtype=torch.bool, device=frames.device)
-    maxr = torch.empty((B,), dtype=torch.int32, device=frames.device)
-    rc = _lib()(
+    fn, words = _lib()
+    # per frame: its flags and one residual maximum per kernel block
+    scratch = torch.empty((words(B, H, W),), dtype=torch.int32, device=frames.device)
+    rc = fn(
         frames.data_ptr(), transforms.data_ptr(), out.data_ptr(), ok.data_ptr(),
-        maxr.data_ptr(), B, H, W, max_px, torch.cuda.current_stream().cuda_stream,
+        scratch.data_ptr(), B, H, W, max_px, torch.cuda.current_stream().cuda_stream,
     )
     cuda_build.check(rc, "warp_batch_matrix")
     cuda_build.LAUNCHES["warp_batch_matrix"] += 1

@@ -374,3 +374,99 @@ def test_pyramid_slice_on_card_matches_cpu_route(cuda):
     want, want_ok = warp_separable.warp_batch_affine(fr, M, 8, with_ok=True)
     assert ok.cpu().tolist() == want_ok.tolist()
     assert float((out.cpu() - want).abs().max()) <= 1e-5 * float(fr.abs().max())
+
+
+def _k5_holds(flat, ibin, cuda):
+    """K5 against its plain version: bit-identical with the one-hot
+    selection stack, within one bf16 ulp with a dense one (float32 sums
+    in another order)."""
+    sel = sel_rot(cuda)
+    before = cuda_build.launch_counts()["binned_select_rows"]
+    got = cuda_select.binned_select_rows(flat, ibin, sel, 16)
+    assert cuda_build.launch_counts()["binned_select_rows"] == before + 1
+    want = cuda_select.binned_select_rows_plain(flat, ibin, sel, 16)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    dense = torch.randn(sel.shape, device=cuda, generator=gen).to(torch.bfloat16)
+    gd = cuda_select.binned_select_rows(flat, ibin, dense, 16).float()
+    wd = cuda_select.binned_select_rows_plain(flat, ibin, dense, 16).float()
+    mag = torch.maximum(gd.abs(), wd.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp(min=1e-30))) - 7)
+    assert bool(((gd - wd).abs() <= ulp + 1e-5 * wd.abs().max()).all())
+
+
+@pytest.mark.parametrize("pattern", ["every_block", "one_bin"])
+@pytest.mark.parametrize("Kp", [16, 48, 144, 4368])
+def test_k5_tiles_and_bin_passes(cuda, Kp, pattern):
+    """Kp of 1, 3, 9 and 273 row blocks (tail tiles of 1, 3, 1 and 1 row
+    blocks); bins that change at every row block (every tile takes one
+    pass per row block, the sentinel 16 among them) or one bin
+    throughout (one pass)."""
+    gen = torch.Generator(device=cuda).manual_seed(Kp)
+    n = Kp // 16
+    flat = torch.randn((2, Kp, 961), device=cuda, generator=gen).to(torch.bfloat16)
+    if pattern == "every_block":
+        ibin = (torch.arange(2 * n, device=cuda).reshape(2, n) * 7) % 17
+    else:
+        ibin = torch.full((2, n), 5, device=cuda)
+    _k5_holds(flat, ibin.to(torch.int32).contiguous(), cuda)
+
+
+def test_k5_sentinel_batch_of_one(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    flat = torch.randn((1, 144, 961), device=cuda, generator=gen).to(torch.bfloat16)
+    ibin = torch.tensor([[16, 0, 0, 3, 3, 3, 16, 15, 2]], dtype=torch.int32, device=cuda)
+    _k5_holds(flat, ibin, cuda)
+
+
+def _k7_maps(n, shape, seed):
+    """Affine maps about the centre (config 2's range), then: projective,
+    g = 1e-30, h = -1e-30, a negative M[2, 2], a rotation beyond the
+    residual bound, a centre shift beyond +-PAD and M[2, 2] = 0."""
+    g = np.random.default_rng(seed)
+    H, W = shape
+    c = np.array([(W - 1) / 2.0, (H - 1) / 2.0])
+    M = np.tile(np.eye(3), (n, 1, 1))
+    for i in range(n):
+        th = g.uniform(-0.005, 0.005)
+        A = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+        A = A @ (np.eye(2) + g.uniform(-0.002, 0.002, (2, 2)))
+        M[i, :2, :2] = A
+        M[i, :2, 2] = g.uniform(-6, 6, 2) + c - A @ c
+    M[1, 2, :2] = [2e-6, -1.5e-6]
+    M[2, 2, 0] = 1e-30
+    M[3, 2, 1] = -1e-30
+    M[4] *= -1.0
+    th = 0.1
+    M[5, :2, :2] = [[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]]
+    M[5, :2, 2] = c - M[5, :2, :2] @ c
+    M[6, 0, 2] += 140.5
+    M[7, 2, 2] = 0.0
+    return M.astype(np.float32)
+
+
+@pytest.mark.parametrize("shape", [(120, 344), (96, 232), (80, 1000), (40, 2048)])
+def test_k7_mixed_batch_bitwise(cuda, shape):
+    """Affine and projective frames in one batch (the exact affine branch
+    and the division path side by side), the g = 1e-30 frames on the
+    division path, and frames out of the envelope zeroed and flagged,
+    at the pyramid's widths and at 1000 and 2048."""
+    gen = torch.Generator(device=cuda).manual_seed(shape[1])
+    fr = torch.randn((9,) + shape, device=cuda, generator=gen)
+    M = torch.as_tensor(_k7_maps(9, shape, shape[1]), device=cuda)
+    out, ok = cuda_warp_matrix.warp_batch_matrix(fr, M, max_px=12)
+    want, want_ok = cuda_warp_matrix.warp_batch_matrix_plain(fr, M, 12)
+    assert ok.tolist() == want_ok.tolist()
+    assert want_ok[[0, 1, 2, 3, 4, 8]].all() and not want_ok[5:8].any()
+    assert float(out[5:8].abs().max()) == 0.0
+    assert torch.equal(out, want)
+
+
+def test_k5_rejects_unaligned_rows(cuda):
+    """The kernel copies each row's k-slices in 16-byte chunks aligned
+    down from the row's start, so `flat` itself must be 16-byte aligned."""
+    base = torch.zeros((16 * 961 + 1,), dtype=torch.bfloat16, device=cuda)
+    flat = base[1:].view(1, 16, 961)
+    ibin = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="aligned flat"):
+        cuda_select.binned_select_rows(flat, ibin, sel_rot(cuda), 16)
