@@ -1,7 +1,8 @@
 // Shared by the bounded warp kernels K7 (warp_matrix.cu) and K8
-// (warp_field.cu): explicitly rounded float arithmetic, a defined float ->
-// int conversion, and the TPU kernels' tap-window rule for a two-tap
-// linear interpolation.
+// (warp_field.cu): explicitly rounded float arithmetic (both), a defined
+// float -> int conversion and the TPU kernels' tap-window rule for a
+// two-tap linear interpolation (K7; every tap of a frame K8 warps lies
+// inside the window).
 //
 // The TPU kernels resample a bounded residual as sums of 2 max_px + 2
 // masked shifted views (pallas_warp_field.py:151-175, :394-411): with

@@ -24,7 +24,7 @@ from kcmc_tpu_torch.ops import cuda_build
 from kcmc_tpu_torch.ops.patterns import WINDOW_SIGMA
 from kcmc_tpu_torch.utils.device import kernel_route, require_tensor
 
-HALO = 16  # staged halo of the kernel's tiles; the filters' reach must fit
+MAX_REACH = 16  # the largest filter reach K1 accepts (the TPU kernel's halo)
 _SM = (0.25, 0.5, 0.25)  # Sobel smoothing taps (correlation form)
 _DF = (0.5, 0.0, -0.5)  # Sobel difference taps (correlation form)
 
@@ -65,9 +65,9 @@ def _check_reach(nms_size, window_sigma, smooth_sigma):
     if smooth_sigma is not None and smooth_sigma <= 0.0:
         raise ValueError(f"smooth_sigma must be positive, got {smooth_sigma}")
     reach = _reach(nms_size, window_sigma, smooth_sigma)
-    if reach > HALO:
+    if reach > MAX_REACH:
         raise ValueError(
-            f"filter reach {reach} exceeds the detect kernel's halo ({HALO})"
+            f"filter reach {reach} exceeds the detect kernel's limit ({MAX_REACH})"
         )
 
 

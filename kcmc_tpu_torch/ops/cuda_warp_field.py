@@ -133,7 +133,7 @@ def _lib():
         p = ctypes.c_void_p
         i = ctypes.c_int
         f = ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, f, f, i, p]
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, f, f, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -155,10 +155,9 @@ def warp_batch_field(frames: torch.Tensor, fields: torch.Tensor, max_px: int = 6
         return warp_batch_field_plain(frames, fields, max_px)
     out = torch.empty_like(frames)
     ok = torch.empty((B,), dtype=torch.bool, device=frames.device)
-    scal = torch.empty((B, 3), dtype=torch.float32, device=frames.device)
     rc = _lib()(
         frames.data_ptr(), fields.data_ptr(), out.data_ptr(), ok.data_ptr(),
-        scal.data_ptr(), B, H, W, gh, gw, float(np.float32(gh / H)),
+        B, H, W, gh, gw, float(np.float32(gh / H)),
         float(np.float32(gw / W)), max_px, torch.cuda.current_stream().cuda_stream,
     )
     cuda_build.check(rc, "warp_batch_field")

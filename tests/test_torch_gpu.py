@@ -470,3 +470,68 @@ def test_k5_rejects_unaligned_rows(cuda):
     ibin = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="aligned flat"):
         cuda_select.binned_select_rows(flat, ibin, sel_rot(cuda), 16)
+
+
+def _k1_frames(n, shape, seed):
+    """Noise with a flat quarter in the second frame (NMS ties, zero fits)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    fr = torch.randn((n,) + shape, device="cuda", generator=gen)
+    fr[1, : shape[0] // 2, : shape[1] // 2] = 0.0
+    return fr
+
+
+@pytest.mark.parametrize("shape", [(7, 9), (33, 65), (232, 232), (2048, 2048)])
+@pytest.mark.parametrize("smooth_sigma", [None, 2.0])
+@pytest.mark.parametrize("window_sigma", [1.2, 1.5, 2.5])
+@pytest.mark.parametrize("nms_size", [3, 5, 7])
+def test_k1_parameter_grid_bitwise(cuda, nms_size, window_sigma, smooth_sigma, shape):
+    """K1 over its radii (window 4, 5, 8; blur none or 6; NMS reach 1-3),
+    on frames smaller than one tile, widths that are not multiples of 4
+    (the 4-byte staging path) and tiles on every frame edge."""
+    fr = _k1_frames(2, shape, seed=shape[1] + nms_size)
+    kw = dict(nms_size=nms_size, window_sigma=window_sigma, smooth_sigma=smooth_sigma)
+    before = cuda_build.launch_counts()["detect_response"]
+    got = cuda_detect.detect_response(fr, **kw)
+    assert cuda_build.launch_counts()["detect_response"] == before + 1
+    want = cuda_detect.detect_response_plain(fr, **kw)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_k1_unaligned_frames_bitwise(cuda):
+    """A frame batch that starts 4 bytes past a 16-byte boundary takes
+    the 4-byte staging path at a width that is a multiple of 4."""
+    flat = _k1_frames(2, (96, 160), seed=3).reshape(-1)
+    buf = torch.empty(flat.numel() + 1, device="cuda")
+    buf[1:] = flat
+    fr = buf[1:].view(2, 96, 160)
+    assert fr.is_contiguous() and fr.data_ptr() % 16 == 4
+    for g, w in zip(cuda_detect.detect_response(fr, smooth_sigma=2.0),
+                    cuda_detect.detect_response_plain(fr, smooth_sigma=2.0)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("shape,grid,mp", [
+    ((96, 120), (78, 78), 4),   # more cells than rows; a frame narrower than one strip
+    ((203, 72), (8, 8), 6),     # 203 rows: the 32-row strips do not divide H
+    ((61, 300), (6, 5), 18),    # canvas rows far outside each strip
+])
+def test_k8_strips_bitwise(cuda, shape, grid, mp):
+    """K8 bit-identical with one launch per call, ok flags included, on
+    fields inside the envelope and one frame beyond each bound."""
+    gen = torch.Generator(device="cuda").manual_seed(shape[0])
+    fr = torch.randn((4,) + shape, device="cuda", generator=gen)
+    amp = mp - 1.5
+    f = (torch.rand((4,) + grid + (2,), device="cuda", generator=gen) - 0.5) * (2 * amp)
+    f[1] += torch.tensor([2.0, -1.0], device="cuda")
+    f[2, 0] += mp + 1.0  # residual beyond the bound
+    f[3] += 300.0  # mean beyond +-PAD
+    f = f.contiguous()
+    before = cuda_build.launch_counts()["warp_batch_field"]
+    out, ok = cuda_warp_field.warp_batch_field(fr, f, max_px=mp)
+    assert cuda_build.launch_counts()["warp_batch_field"] == before + 1
+    want, want_ok = cuda_warp_field.warp_batch_field_plain(fr, f, mp)
+    assert ok.tolist() == want_ok.tolist() == [True, True, False, False]
+    assert float(out[2:].abs().max()) == 0.0
+    assert torch.equal(out, want)

@@ -22,10 +22,12 @@ import pytest
 import torch
 
 from kcmc_tpu_torch.ops import cuda_warp_matrix
+from kcmc_tpu_torch.ops.cuda_detect import _DF, _SM, detect_response_plain, gauss_taps
 from kcmc_tpu_torch.ops.cuda_select import binned_select_rows_plain
+from kcmc_tpu_torch.ops.cuda_warp_field import warp_batch_field_plain
 from kcmc_tpu_torch.ops.cuda_warp_matrix import matrix_scalars, warp_batch_matrix_plain
 from kcmc_tpu_torch.ops.describe import RUN_ALIGN, sel_rot
-from kcmc_tpu_torch.ops.warp_field import smap
+from kcmc_tpu_torch.ops.warp_field import floor_int, smap
 
 # M[2, 2] of the affine maps: unit, negative, tiny but sound, and
 # degenerate (|M[2, 2]| <= 1e-6: the map is used unnormalized)
@@ -157,3 +159,314 @@ def test_k5_tile_passes_match_plain(pattern, B, Kp):
     mag = torch.maximum(gd.abs(), wd.abs())
     ulp = torch.exp2(torch.floor(torch.log2(mag.clamp(min=1e-30))) - 7)
     assert bool(((gd - wd).abs() <= ulp + 1e-5 * wd.abs().max()).all())
+
+
+# ---------------------------------------------------------------------------
+# K1 (csrc/detect.cu): one block per TH x TW output tile stages the tile and
+# a halo of the reach the parameters imply, and computes each stage only on
+# the region the next one reads (blur on the tile, gradients and products on
+# the tile +- e, window sums and response on the tile +- m). The emulation
+# below runs that decomposition tile by tile in the kernel's operation order
+# and must equal detect_response_plain bit for bit on all four outputs.
+
+K1_TILE = (32, 64)  # (TH, TW) of csrc/detect.cu
+
+
+def _chain(v, taps, dim, n):
+    """One tap chain along `dim`: acc = t0 v[0:n], then += t_i v[i:i+n]."""
+    acc = taps[0] * v.narrow(dim, 0, n)
+    for i in range(1, len(taps)):
+        acc = acc + taps[i] * v.narrow(dim, i, n)
+    return acc
+
+
+def k1_tiles(frames, nms_size, window_sigma, smooth_sigma, harris_k=0.04, tile=K1_TILE):
+    """K1's per-tile stages on shrinking regions, assembled into frames."""
+    B, H, W = frames.shape
+    th, tw = tile
+    g = gauss_taps(window_sigma)
+    s = gauss_taps(smooth_sigma) if smooth_sigma is not None else None
+    gr, sr = len(g) // 2, (len(s) // 2 if s else 0)
+    lo, hi = -((nms_size - 1) // 2), nms_size // 2
+    m = max(-lo, hi, 1)
+    e = m + gr
+    h = max(sr, e + 1)
+    hx = (h + 3) & ~3
+    big = max(h, hx)
+    padded = torch.nn.functional.pad(frames, (big, big + tw, big, big + th))
+    ninf = torch.tensor(-float("inf"))
+    outs = [torch.empty_like(frames) for _ in range(4 if s else 3)]
+    for ty0 in range(0, H, th):
+        for tx0 in range(0, W, tw):
+            def stage(r0, r1, c0, c1):  # frame pixels of tile rows/cols [r0, r1) x [c0, c1)
+                return padded[:, big + ty0 + r0:big + ty0 + r1, big + tx0 + c0:big + tx0 + c1]
+
+            ys = torch.arange(-e, th + e)[:, None] + ty0
+            xs = torch.arange(-e, tw + e)[None, :] + tx0
+            real = (ys >= 0) & (ys < H) & (xs >= 0) & (xs < W)  # on G
+            gx = _chain(_chain(stage(-e - 1, th + e + 1, -e - 1, tw + e + 1), _SM, 1, th + 2 * e),
+                        _DF, 2, tw + 2 * e)
+            gy = _chain(_chain(stage(-e - 1, th + e + 1, -e - 1, tw + e + 1), _SM, 2, tw + 2 * e),
+                        _DF, 1, th + 2 * e)
+            gx = torch.where(real, gx, torch.zeros(()))
+            gy = torch.where(real, gy, torch.zeros(()))
+            win = [_chain(_chain(p, g, 1, th + 2 * m), g, 2, tw + 2 * m)
+                   for p in (gx * gx, gx * gy, gy * gy)]  # on T +- m
+            ixx, ixy, iyy = win
+            tr = ixx + iyy
+            resp = (ixx * iyy - ixy * ixy) - harris_k * tr * tr
+            rreal = real[e - m:e + th + m, e - m:e + tw + m]
+            neg = torch.where(rreal, resp, ninf)
+            rmax = neg[:, m:m + th]
+            for d in range(lo, hi + 1):
+                if d:
+                    rmax = torch.fmax(rmax, neg[:, m + d:m + d + th])
+            cmax = rmax[:, :, m:m + tw]
+            for d in range(lo, hi + 1):
+                if d:
+                    cmax = torch.fmax(cmax, rmax[:, :, m + d:m + d + tw])
+            v = resp[:, m:m + th, m:m + tw]
+            rc = torch.where(rreal, resp, torch.zeros(()))
+
+            def fit(p, q, c=rc[:, m:m + th, m:m + tw]):
+                d1 = 0.5 * (p - q)
+                d2 = p - 2.0 * c + q
+                return torch.clamp(torch.where(d2.abs() > 1e-8, -d1 / d2, torch.zeros(())),
+                                   -0.5, 0.5)
+
+            tile_out = [torch.where(v >= cmax, v, ninf),
+                        fit(rc[:, m:m + th, m + 1:m + 1 + tw], rc[:, m:m + th, m - 1:m - 1 + tw]),
+                        fit(rc[:, m + 1:m + 1 + th, m:m + tw], rc[:, m - 1:m - 1 + th, m:m + tw])]
+            if s:
+                tile_out.append(_chain(_chain(stage(-sr, th + sr, -sr, tw + sr), s, 1, th),
+                                       s, 2, tw))
+            nh, nw = min(th, H - ty0), min(tw, W - tx0)
+            for o, t in zip(outs, tile_out):
+                o[:, ty0:ty0 + nh, tx0:tx0 + nw] = t[:, :nh, :nw]
+    return tuple(outs)
+
+
+def _k1_frames(shape, seed):
+    rng = np.random.default_rng(seed)
+    fr = rng.normal(0.0, 1.0, (2,) + shape).astype(np.float32)
+    fr[1, : shape[0] // 2, : shape[1] // 2] = 0.0  # flat: NMS ties and zero fits
+    return torch.as_tensor(fr)
+
+
+@pytest.mark.parametrize("shape", [(7, 9), (33, 65), (232, 232)])
+@pytest.mark.parametrize("smooth_sigma", [None, 2.0])
+@pytest.mark.parametrize("window_sigma", [1.2, 1.5, 2.5])
+@pytest.mark.parametrize("nms_size", [3, 5, 7])
+def test_k1_tiles_match_plain(nms_size, window_sigma, smooth_sigma, shape):
+    fr = _k1_frames(shape, seed=shape[1] + nms_size)
+    want = detect_response_plain(fr, nms_size=nms_size, window_sigma=window_sigma,
+                                 smooth_sigma=smooth_sigma)
+    got = k1_tiles(fr, nms_size, window_sigma, smooth_sigma)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# K8 (csrc/warp_field.cu): a thread owns one column and K8_RPT output rows.
+# Where every row coordinate its strip can reach lies in two cell rows it
+# picks the cell row by one comparison (and, where those coordinates need
+# no clamp and every cell row has a successor, tests neither); otherwise it
+# caches the column-interpolated residual of K8_NCR cell rows from the
+# first the strip can reach (other rows from the cells directly). It
+# streams canvas rows, at most one new one and one output row per step,
+# keeping the two newest (an output row whose floor fell by two or more
+# recomputes its pair). The emulation runs every column of a strip at once
+# that way and must equal warp_batch_field_plain bit for bit, ok flags
+# included.
+
+K8_RPT, K8_NCR = 32, 8  # as in csrc/warp_field.cu
+
+
+def lerp_in(f, v0, v1):
+    """The two-tap lerp without the tap-window tests: an exact frame's
+    floors keep every tap inside the window."""
+    return (1.0 - f) * v0 + f * v1
+
+
+def k8_strips(frames, fields, mp, rpt=K8_RPT, ncr=K8_NCR):
+    """(corrected, ok, counts): counts of interior two-cell strips, other
+    two-cell strips, general strips, cell-row lookups served from the
+    cells directly and output rows whose canvas rows were recomputed."""
+    B, H, W = frames.shape
+    _, gh, gw, _ = fields.shape
+    rh, rw = float(np.float32(gh / H)), float(np.float32(gw / W))
+    out = torch.zeros_like(frames)
+    ok = torch.zeros(B, dtype=torch.bool)
+    counts = {"interior": 0, "two_cell": 0, "general": 0, "direct": 0, "refetch": 0}
+    xi = torch.arange(W)
+    xf = xi.to(torch.float32)
+    ucol = torch.clamp((xf + 0.5) * rw - 0.5, 0.0, gw - 1.0)
+    d0 = torch.floor(ucol).to(torch.int64)
+    has1 = d0 + 1 < gw
+    h0 = torch.clamp(1.0 - (ucol - d0.to(torch.float32)).abs(), min=0.0)
+    h1 = torch.clamp(1.0 - (ucol - (d0 + 1).to(torch.float32)).abs(), min=0.0)
+
+    def urow_raw(y):
+        return (y + 0.5) * rh - 0.5
+
+    def urow(y):
+        return torch.clamp(urow_raw(y), 0.0, gh - 1.0)
+
+    for b in range(B):
+        f = fields[b]
+        s = torch.zeros(2)
+        for c in range(gh):  # the per-block prologue: sequential row-major sums
+            for d in range(gw):
+                s = s + f[c, d]
+        t = torch.round(s / float(gh * gw))
+        bad = bool((~((f - t).abs() <= mp - 0.5)).any())
+        exact = not bad and bool((t.abs() <= 128).all())
+        ok[b] = exact
+        if not exact:
+            continue
+        res = f - t
+
+        def direct(c, ch):  # c: (W,) cell rows
+            a = res[c, d0, ch] * h0
+            return torch.where(has1, a + res[c, torch.clamp(d0 + 1, max=gw - 1), ch] * h1, a)
+
+        itx, ity = int(t[0]), int(t[1])
+        src = frames[b]
+        for y0 in range(0, H, rpt):
+            yend = min(y0 + rpt, H)
+            ulo = urow_raw(torch.tensor(float(y0 - 2 * mp - 2)))
+            uhi = urow_raw(torch.tensor(float(yend + 2 * mp + 1)))
+            clo = int(torch.floor(torch.clamp(ulo, 0.0, gh - 1.0)))
+            chi = int(torch.floor(torch.clamp(uhi, 0.0, gh - 1.0)))
+            two = chi <= clo + 1
+            # interior two-cell strips skip the clamp and the last-row test
+            interior = two and bool(ulo >= 0.0) and bool(uhi <= gh - 1.0) and clo + 2 < gh
+            urow_s = urow_raw if interior else urow
+            counts["interior" if interior else "two_cell" if two else "general"] += 1
+            ncache = min(min(chi + 1, gh - 1) - clo + 1, ncr)
+            cache = [[direct(torch.full((W,), clo + i), ch) for ch in (0, 1)]
+                     for i in range(ncache)]
+
+            def inner(c, ch):
+                k = c - clo
+                hit = (k >= 0) & (k < ncache)
+                counts["direct"] += int((~hit).sum())
+                got = direct(c, ch)
+                for i in range(ncache):
+                    got = torch.where(k == i, cache[i][ch], got)
+                return got
+
+            def interp(u, ch):  # u (W,) row coordinates
+                if two:  # the cell row by one comparison
+                    hi = u >= clo + 1
+                    c0 = clo + hi.to(torch.int64)
+                    c0f = clo + torch.where(hi, 1.0, 0.0)  # cA or cA + 1, exactly
+                    get = lambda c: direct(torch.clamp(c, max=gh - 1), ch)  # noqa: E731
+                else:
+                    c0f = torch.floor(u)
+                    c0 = c0f.to(torch.int64)
+                    get = lambda c: inner(torch.clamp(c, max=gh - 1), ch)  # noqa: E731
+                w0 = torch.clamp(1.0 - (u - c0f).abs(), min=0.0)
+                w1 = torch.clamp(1.0 - (u - (c0f + 1.0)).abs(), min=0.0)
+                a = w0 * get(c0)
+                if interior:
+                    return a + w1 * get(c0 + 1)
+                return torch.where(c0 + 1 >= gh, a, a + w1 * get(c0 + 1))
+
+            def canvas(yb):  # yb (W,) int64
+                ybf = yb.to(torch.float32)
+                yc = ybf
+                for _ in range(2):
+                    yc = ybf - interp(urow_s(yc), 1)
+                mxi, fx = floor_int(interp(urow_s(yc), 0), mp)
+                row = torch.clamp(yb + ity, 0, H - 1)
+                c0 = torch.clamp(xi + mxi + itx, 0, W - 1)
+                c1 = torch.clamp(xi + mxi + 1 + itx, 0, W - 1)
+                return lerp_in(fx, src[row, c0], src[row, c1])
+
+            def enter(y):
+                u = urow_s(y.to(torch.float32))
+                ry, rx = interp(u, 1), interp(u, 0)
+                myi, fy = floor_int(ry, mp)
+                return ry, rx, fy, y + myi
+
+            cols = torch.arange(W)
+            y = torch.full((W,), y0)
+            ry, rx, fy, a = enter(y)
+            nc, nlo = a.clone(), a.clone()
+            v1 = v0 = torch.zeros(W)  # canvas rows nc - 2 and nc - 1
+            while bool((y < yend).any()):
+                live = y < yend
+                need = live & (a + 1 >= nc)
+                jump = need & (a > nc)
+                nc, nlo = torch.where(jump, a, nc), torch.where(jump, a, nlo)
+                new = canvas(nc)
+                v1, v0 = torch.where(need, v0, v1), torch.where(need, new, v0)
+                nc = nc + need.to(torch.int64)
+                emit = live & (a + 1 < nc)
+                fast = (a == nc - 2) & (a >= nlo)
+                counts["refetch"] += int((emit & ~fast).sum())
+                c0 = torch.where(fast, v1, canvas(a))
+                c1 = torch.where(fast, v0, canvas(a + 1))
+                acc = lerp_in(fy, c0, c1)
+                sy = (y.to(torch.float32) + t[1]) + ry
+                sx = (xf + t[0]) + rx
+                inb = (sy >= 0.0) & (sy <= H - 1.0) & (sx >= 0.0) & (sx <= W - 1.0)
+                val = torch.where(inb, acc, torch.zeros(()))
+                out[b, y[emit], cols[emit]] = val[emit]
+                y = y + emit.to(torch.int64)
+                nry, nrx, nfy, na = enter(torch.clamp(y, max=H - 1))
+                ry, rx = torch.where(emit, nry, ry), torch.where(emit, nrx, rx)
+                fy, a = torch.where(emit, nfy, fy), torch.where(emit, na, a)
+    return out, ok, counts
+
+
+def _k8_case(name):
+    """(frames, fields, max_px, expected ok) of one emulation case."""
+    rng = np.random.default_rng(len(name))
+
+    def fields(n, grid, amp, mean=(0.0, 0.0)):
+        return (rng.uniform(-amp, amp, (n,) + grid + (2,)) + np.float32(mean)).astype(np.float32)
+
+    if name == "8x8":
+        H, W, f, mp = 256, 40, fields(3, (8, 8), 4.5, (3.3, -2.2)), 6
+    elif name == "6x5":
+        H, W, f, mp = 45, 40, fields(2, (6, 5), 4.6, (-7.4, 1.6)), 6
+    elif name == "78x78":  # more cells than rows: lookups beyond the cache
+        H, W, f, mp = 40, 36, fields(2, (78, 78), 2.8, (0.4, 12.3)), 4
+    elif name == "crossing":  # the fixed point runs across several strips
+        H, W, f, mp = 56, 24, fields(2, (4, 3), 16.5, (0.0, 0.3)), 18
+    else:  # an inf cell, a residual beyond the bound, a mean beyond +-PAD
+        H, W, mp = 24, 20, 6
+        f = fields(4, (5, 4), 3.0)
+        f[0, 2, 1, 0] = np.inf
+        f[1, 0, :] += 9.0
+        f[2] += 300.0
+    fr = rng.normal(0.0, 1.0, (f.shape[0], H, W)).astype(np.float32)
+    return torch.as_tensor(fr), torch.as_tensor(f), mp
+
+
+@pytest.mark.parametrize("name", ["8x8", "6x5", "78x78", "crossing", "out_of_envelope"])
+def test_k8_strips_match_plain(name):
+    fr, f, mp = _k8_case(name)
+    want, want_ok = warp_batch_field_plain(fr, f, mp)
+    got, ok, counts = k8_strips(fr, f, mp)
+    assert torch.equal(ok, want_ok)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if name == "out_of_envelope":
+        assert ok.tolist() == [False, False, False, True]
+    else:
+        assert bool(ok.all())
+    # cells as tall as config 3's keep every strip on the two-cell path
+    # (interior strips untested) and reuse the two newest canvas rows;
+    # shorter cells take the general path, whose cache holds every cell row
+    # the strip reaches unless there are more cells than rows, and steep
+    # residuals recompute some pairs
+    if name == "8x8":
+        assert counts["interior"] and counts["two_cell"] and not counts["general"]
+        assert not counts["refetch"]
+    if name in ("6x5", "crossing"):
+        assert counts["general"] and not counts["direct"] and counts["refetch"]
+    if name == "78x78":
+        assert counts["direct"] > 0
