@@ -11,7 +11,9 @@ line is printed:
 1. device: requires a CUDA card; prints nvidia-smi's name and power
    limit;
 2. build: compiles every CUDA kernel (K1-K11) from
-   kcmc_tpu_torch/csrc (one nvcc per source, in parallel);
+   kcmc_tpu_torch/csrc (one nvcc per source, in parallel); each
+   library's ptxas lines (registers, shared memory, spills of every
+   kernel; none, and `cached`, where the build cache held it);
 3. kernels: each kernel against its plain PyTorch version on the card
    at the main paths' shapes, then CUDA-event times of kernel, plain
    version and one-call PyTorch yardstick where there is one, and each
@@ -20,7 +22,7 @@ line is printed:
    - translation path (B=32, 512x512, K=512): K1's four fields
      bit-identical over whole frames, K2 bit-identical (also at
      2048x2048), K3 within 1e-5 relative with identical ok flags (also at
-     1024x1024); K1 is also timed under CUDA-graph replay;
+     1024x1024); K1 and K2 are also timed under CUDA-graph replay;
    - affine path (config 2: 32 frames of 512x512, K=4096, inputs from
      the bins-first route): K1 at nms 3 / window 1.2 as above (and
      timed), K4
@@ -37,26 +39,31 @@ line is printed:
      in the phase line), and K5's achieved TFLOP/s is in the phase line;
    - config-4 and config-3 paths: K6 (K2 with in-kernel ORB moments) on
      the keypoints of 32 config-4 frames (K=512, P=32): patches
-     bit-identical to its plain version and to K2, moments bit-identical,
-     bins identical (also at 2048x2048); K8 (the piecewise field warp) at
+     bit-identical to its plain version and to K2, moments identical by
+     bits, bins identical (also at 2048x2048), also timed under CUDA-graph
+     replay; K8 (the piecewise field warp) at
      512x512, B=32, on config 3's 8x8 fields with max_px=6, bit-identical
      with identical ok flags (a residual beyond the bound and a mean
      beyond +-128 px zeroed and flagged; also at 1024x1024 and at 200x160
      with a 6x5 grid); K8 and its grid_sample yardstick also timed under
      CUDA-graph replay;
    - config-5 path (kernels_volumes: 8 volumes of 32x256x256, K=512): K9
-     (3D structure tensor, Harris response and blur) within 1e-5 of
-     max|response| and of max|blur| on the zero-background scene and on a
-     camera-offset one (background 100 +- noise), also at an odd
-     24x200x136; K10 (trilinear 3D patches, Pz=8, Pxy=20) on the path's
-     own keypoints within 1e-5 relative (both are bit-identical in
-     practice; the phase line says so); K10's bytes count the union of
-     the slabs this run's keypoints read;
+     (3D structure tensor, Harris response and blur, one launch)
+     identical by bits to its plain version on both fields, on the
+     zero-background scene, on a camera-offset one (background 100 +-
+     noise) and at an odd 24x200x136; timed also under CUDA-graph replay;
+     its float32 issue floor is in the phase line (`issue_floor_ms`: its
+     operations, each one rounded instruction, at 33.5 T instructions/s); K10
+     (trilinear 3D patches, Pz=8, Pxy=20) on the path's own keypoints
+     within 1e-5 relative (bit-identical in practice; the phase line says
+     so); K10's bytes count the union of the slabs this run's keypoints
+     read;
    - pyramid path (kernels_pyramid; similarity, n_octaves=3 at 512^2:
      octaves of 512, 344 and 232 px, K=176 each): K1 as above at 344^2
      and 232^2 (32 octave frames each; timed) and, with B=2, at 2048^2 (the
      width where the reference runs K1's TPU kernel as column panels);
-     K6 bit-identical (patches, moments, bins) at K=176 on 344^2; K11
+     K6 bit-identical (patches, moments by bits, bins) at K=176 on 344^2,
+     and timed there; K11
      (the raw integer-origin patch cut, which no path of either package
      launches: its e2e launch count is 0) bit-identical at B=32, K=512,
      P=28 on (32, 540, 540) padded blur at the translation path's
@@ -127,6 +134,9 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores
+# float32 instructions/s: 67e12 counts a fused multiply-add as two
+# operations; an unfused multiply or add is one instruction of its own
+F32_ISSUE = F32_FLOPS / 2
 BF16_TC_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 TOL = 1e-5
 # config 2 of BASELINE.json, as the JAX package's bench.py defines it
@@ -190,10 +200,12 @@ def graph_ms(fn, reps: int = 20, iters: int = 10) -> float:
 
 
 def sass_counts(lib, opcodes=("FCHK", "HGMMA")) -> dict | None:
-    """Per kernel of the built library `lib`, its SASS instructions of
-    each opcode (cuobjdump -sass): FCHK is an IEEE division's slow-path
-    check, one per division sequence; HGMMA a warpgroup MMA. None where
-    cuobjdump is missing."""
+    """Per kernel of the built library `lib` (summed over a template's
+    instantiations), its SASS instructions of each opcode (cuobjdump
+    -sass): FCHK is an IEEE division's slow-path check, one per division
+    sequence; HGMMA a warpgroup MMA; MUFU.RCP a reciprocal, which a
+    runtime integer division also takes. None where cuobjdump is
+    missing."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
@@ -205,7 +217,8 @@ def sass_counts(lib, opcodes=("FCHK", "HGMMA")) -> dict | None:
         if "Function :" in ln:
             m = re.search(r"\d([A-Za-z_]+_kernel)", ln)
             kernel = m.group(1) if m else ln.split()[-1]
-            counts[kernel] = dict.fromkeys(opcodes, 0)
+            # every instantiation of a template kernel adds to its name
+            counts.setdefault(kernel, dict.fromkeys(opcodes, 0))
         elif kernel is not None:
             words = ln.replace(";", " ").split()
             for op in opcodes:
@@ -303,8 +316,10 @@ def phase_build() -> None:
     info = cuda_build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "libs": info,
           # IEEE division slow-path checks (one per division sequence) and
-          # warpgroup MMAs in the SASS of K7 and K5
-          "sass": {n: sass_counts(cuda_build.target(n)) for n in ("warp_matrix", "select")}})
+          # warpgroup MMAs in the SASS of K7 and K5; reciprocals (the
+          # runtime integer divisions) in K2/K6's
+          "sass": {**{n: sass_counts(cuda_build.target(n)) for n in ("warp_matrix", "select")},
+                   "patch": sass_counts(cuda_build.target("patch"), ("MUFU.RCP",))}})
 
 
 def _frames(n, shape, seed):
@@ -393,12 +408,15 @@ def phase_kernels() -> list[dict]:
     del big, pbig
     n_out = B * K * (P - 1) ** 2
     b2, by2 = bound_ms(padded.numel() * 2 + xy.numel() * 4 + n_out * 2, n_out * 9)
+
+    def k2_call():
+        return cuda_patch.extract_blended(padded, xy, P)
     rows.append({
         "name": "extract_blended", "route": "cuda",
         "source": "kcmc_tpu_torch/csrc/patch.cu",
         "replaces": "kcmc_tpu/ops/pallas_patch.py:524",
         "max_abs_err": err2,
-        "ms": event_ms(lambda: cuda_patch.extract_blended(padded, xy, P), 20),
+        "ms": event_ms(k2_call, 20), "graph_ms": graph_ms(k2_call),
         "plain_ms": event_ms(lambda: cuda_patch.extract_blended_plain(padded, xy, P), 3, 1),
         "bound_ms": b2, "bound_by": by2, "library_ms": None,
     })
@@ -737,7 +755,8 @@ def phase_kernels_fields() -> tuple[list[dict], dict]:
         if not (torch.equal(pb.view(torch.int16), wpb.view(torch.int16))
                 and torch.equal(pb.view(torch.int16), k2.view(torch.int16))):
             raise AssertionError(f"K6: patches not bit-identical to the plain version and K2 at {what}")
-        if not (torch.equal(m10, w10) and torch.equal(m01, w01)):
+        if not (torch.equal(m10.view(torch.int32), w10.view(torch.int32))
+                and torch.equal(m01.view(torch.int32), w01.view(torch.int32))):
             raise AssertionError(f"K6: moments not bit-identical to the plain version at {what}")
         if not torch.equal(D._quantize_bins(torch.atan2(m01, m10)),
                            D._quantize_bins(torch.atan2(w01, w10))):
@@ -750,12 +769,15 @@ def phase_kernels_fields() -> tuple[list[dict], dict]:
                  if dx * dx + dy * dy <= MOMENT_RADIUS ** 2)
     b6, by6 = bound_ms(padded.numel() * 2 + xy.numel() * 4 + n_out * 2 + 2 * B * K * 4,
                        n_out * 9 + B * K * 4 * n_disc)
+
+    def k6_call():
+        return cuda_patch.extract_blended(padded, xy, P, with_moments=True)
     rows.append({
         "name": "extract_blended_moments", "route": "cuda",
         "source": "kcmc_tpu_torch/csrc/patch.cu",
         "replaces": "kcmc_tpu/ops/pallas_patch.py:524",
         "max_abs_err": 0.0,
-        "ms": event_ms(lambda: cuda_patch.extract_blended(padded, xy, P, with_moments=True), 20),
+        "ms": event_ms(k6_call, 20), "graph_ms": graph_ms(k6_call),
         "plain_ms": event_ms(
             lambda: cuda_patch.extract_blended_plain(padded, xy, P, with_moments=True), 3, 1),
         "bound_ms": b6, "bound_by": by6, "library_ms": None,
@@ -852,31 +874,32 @@ def phase_kernels_volumes() -> tuple[list[dict], dict]:
     offset = (vols * 50.0 + 100.0
               + 2.0 * torch.randn(vols.shape, device="cuda", generator=gen)).contiguous()
     odd = (torch.rand((2, 24, 200, 136), device="cuda", generator=gen) * 10.0).contiguous()
-    extra = {"k9_bitwise": {}}
+    extra = {}
     rows = []
 
-    # K9 response_fields_3d: response and blur against the plain version
-    err9 = 0.0
+    # K9 response_fields_3d: response and blur identical by bits to the
+    # plain version's
     for what, v in (("zero_background", vols), ("camera_offset", offset), ("24x200x136", odd)):
         got = cuda_detect3d.response_fields_3d(v, smooth_sigma=2.0)
         want = cuda_detect3d.response_fields_3d_plain(v, smooth_sigma=2.0)
         torch.cuda.synchronize()
         for g, w, field in zip(got, want, ("response", "blur")):
-            e = float((g - w).abs().max())
-            if e > TOL * float(w.abs().max()):
-                raise AssertionError(f"K9: {field} error {e} exceeds {TOL} x max at {what}")
-            err9 = max(err9, e)
-        extra["k9_bitwise"][what] = all(torch.equal(g, w) for g, w in zip(got, want))
+            if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                e = float((g - w).abs().max())
+                raise AssertionError(f"K9: {field} not bit-identical (max error {e}) at {what}")
     del offset, odd
     n_vox = B * D * H * W
-    b9, by9 = bound_ms(3 * n_vox * 4, n_vox * structure_ops_per_voxel(
-        len(gauss_taps(1.5)), len(gauss_taps(2.0))))
+    ops9 = structure_ops_per_voxel(len(gauss_taps(1.5)), len(gauss_taps(2.0)))
+    b9, by9 = bound_ms(3 * n_vox * 4, n_vox * ops9)
+
+    def k9_call():
+        return cuda_detect3d.response_fields_3d(vols, smooth_sigma=2.0)
     rows.append({
         "name": "response_fields_3d", "route": "cuda",
         "source": "kcmc_tpu_torch/csrc/detect3d.cu",
         "replaces": "kcmc_tpu/ops/pallas_detect3d.py:206",
-        "max_abs_err": err9,
-        "ms": event_ms(lambda: cuda_detect3d.response_fields_3d(vols, smooth_sigma=2.0), 10),
+        "max_abs_err": 0.0,
+        "ms": event_ms(k9_call, 10), "graph_ms": graph_ms(k9_call, reps=10, iters=5),
         "plain_ms": event_ms(
             lambda: cuda_detect3d.response_fields_3d_plain(vols, smooth_sigma=2.0), 2, 1),
         "bound_ms": b9, "bound_by": by9, "library_ms": None,
@@ -939,7 +962,10 @@ def phase_kernels_volumes() -> tuple[list[dict], dict]:
             lambda: cuda_patch3d.extract_blended_3d_plain(padded, xyz, PZ, PXY), 3, 1),
         "bound_ms": b10, "bound_by": by10, "library_ms": event_ms(lib_call, 20),
     })
-    extra["bound_rates"] = {"response_fields_3d": "float32 67 TFLOP/s",
+    # each operation one rounded instruction: the float32 issue rate
+    extra["issue_floor_ms"] = {"response_fields_3d": n_vox * ops9 / F32_ISSUE * 1e3}
+    extra["bound_rates"] = {"response_fields_3d": "float32 67 TFLOP/s (issue floor: 33.5 T "
+                                                   "instructions/s, one per rounded operation)",
                             "extract_blended_3d": "float32 67 TFLOP/s"}
     extra["library"] = {
         "response_fields_3d": "none: no one call computes the windowed 3D structure tensor",
@@ -977,15 +1003,21 @@ def phase_kernels_pyramid() -> tuple[list[dict], dict]:
     mu = smooth.mean(dim=(1, 2), keepdim=True)
     padded6 = D.edge_pad((smooth - mu).to(torch.bfloat16), ROT_RADIUS + 1).contiguous()
     P6 = 2 * ROT_RADIUS + 2
-    pb, m10, m01 = cuda_patch.extract_blended(padded6, kps.xy.contiguous(), P6, with_moments=True)
-    wpb, w10, w01 = cuda_patch.extract_blended_plain(padded6, kps.xy, P6, with_moments=True)
+    xy6 = kps.xy.contiguous()
+    pb, m10, m01 = cuda_patch.extract_blended(padded6, xy6, P6, with_moments=True)
+    wpb, w10, w01 = cuda_patch.extract_blended_plain(padded6, xy6, P6, with_moments=True)
     if not (torch.equal(pb.view(torch.int16), wpb.view(torch.int16))
-            and torch.equal(m10, w10) and torch.equal(m01, w01)
+            and torch.equal(m10.view(torch.int32), w10.view(torch.int32))
+            and torch.equal(m01.view(torch.int32), w01.view(torch.int32))
             and torch.equal(D._quantize_bins(torch.atan2(m01, m10)),
                             D._quantize_bins(torch.atan2(w01, w10)))):
         raise AssertionError("K6: not bit-identical to its plain version at K=176 on 344x344")
     extra["k6_octave_mean_valid_keypoints"] = float(kps.valid.sum(dim=1).float().mean())
-    del octs, fr, smooth, padded6, pb, wpb
+
+    def k6_call():
+        return cuda_patch.extract_blended(padded6, xy6, P6, with_moments=True)
+    extra["k6_344x344_k176_ms"] = {"event_ms": event_ms(k6_call, 20), "graph_ms": graph_ms(k6_call)}
+    del octs, fr, smooth, padded6, pb, wpb, xy6
 
     # K11 extract_patches: the translation path's P=28 windows of its
     # padded float32 blur at its own keypoints' integer origins
@@ -1258,8 +1290,9 @@ def main() -> int:
         r["launches"] = sum(c[r["name"]] for c in by_path.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    more = ("graph_ms",)  # the rows that have it
     print(smi, flush=True)
-    emit({"kernels": [{k: r[k] for k in keys} for r in rows]})
+    emit({"kernels": [{k: r[k] for k in keys + more if k in keys or k in r} for r in rows]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -12,9 +12,10 @@ evaluation contracts the blend into (csrc/patch.cu). Reads past the
 padded frame clamp to its edge. With `with_moments` (K6, the small-K
 oriented route) it also returns the ORB moments (m10, m01), (B, K)
 float32 each: the radius-7 disc of the RAW window centred at window
-index (P - 2) // 2 + (frac >= 0.5), summed row-major in float64 (every
-product is exact) and rounded once. Kernel on a CUDA tensor, plain
-version on a CPU tensor; the two are bit-identical.
+index (P - 2) // 2 + (frac >= 0.5), in float64 (every product is
+exact): each disc column summed in row order, the column sums added by a
+fixed pairwise tree, rounded once (`_moments_plain`). Kernel on a CUDA
+tensor, plain version on a CPU tensor; the two are bit-identical.
 
 Counterpart of `kcmc_tpu/ops/pallas_patch.py::extract_patches` (K11,
 csrc/patches.cu): `extract_patches(padded, oy, ox, P)` cuts (B, K, P, P)
@@ -34,6 +35,8 @@ from kcmc_tpu_torch.ops import cuda_build
 from kcmc_tpu_torch.ops.patterns import MOMENT_RADIUS
 from kcmc_tpu_torch.utils.device import kernel_route, require_tensor
 
+MOMENT_SLOTS = 16  # K6's disc columns (2 * MOMENT_RADIUS + 1), padded to a power of two
+
 
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """float32 fma(a, b, c), rounded once: the float64 product of two
@@ -51,25 +54,32 @@ def _origins(xy: torch.Tensor):
 
 
 def _moments_plain(patch: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor):
-    """(m10, m01) of raw (B, K, P, P) windows: K6's float64 row-major
-    sums over the disc, rounded once."""
+    """(m10, m01) of raw (B, K, P, P) windows in K6's order: each column
+    dx of the disc summed in float64 in row order into slot dx + r of
+    MOMENT_SLOTS (the slots no column fills hold +0.0), the slots added
+    pairwise, (i, i + h) for h = 8, 4, 2, 1, and rounded once to float32."""
     P = patch.shape[-1]
     mr = MOMENT_RADIUS
     c = (P - 2) // 2
     cy = c + (fy >= 0.5).long()
     cx = c + (fx >= 0.5).long()
     flat = patch.reshape(patch.shape[:-2] + (P * P,))
-    sx = torch.zeros(fx.shape, dtype=torch.float64, device=patch.device)
-    sy = torch.zeros_like(sx)
-    for dy in range(-mr, mr + 1):
-        for dx in range(-mr, mr + 1):
+    slots = torch.zeros(fx.shape + (2, MOMENT_SLOTS), dtype=torch.float64,
+                        device=patch.device)
+    for dx in range(-mr, mr + 1):
+        for dy in range(-mr, mr + 1):
             if dx * dx + dy * dy > mr * mr:
                 continue
             idx = ((cy + dy) * P + cx + dx)[..., None]
             v = torch.gather(flat, -1, idx)[..., 0].double()
-            sx = sx + v * float(dx)
-            sy = sy + v * float(dy)
-    return sx.float(), sy.float()
+            slots[..., 0, dx + mr] += v * float(dx)
+            slots[..., 1, dx + mr] += v * float(dy)
+    h = MOMENT_SLOTS // 2
+    while h:
+        slots = slots[..., :h] + slots[..., h:2 * h]
+        h //= 2
+    m = slots[..., 0].float()
+    return m[..., 0], m[..., 1]
 
 
 def extract_blended_plain(padded: torch.Tensor, xy: torch.Tensor, P: int,

@@ -535,3 +535,65 @@ def test_k8_strips_bitwise(cuda, shape, grid, mp):
     assert ok.tolist() == want_ok.tolist() == [True, True, False, False]
     assert float(out[2:].abs().max()) == 0.0
     assert torch.equal(out, want)
+
+
+def _k9_vols(shape, seed):
+    """Two volumes, the second with a flat corner (zero gradients)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    v = torch.randn((2,) + shape, device="cuda", generator=gen)
+    v[1, : shape[0] // 2, : shape[1] // 2] = 0.0
+    return v.contiguous()
+
+
+@pytest.mark.parametrize("shape", [(4, 40, 56), (24, 200, 136)])
+@pytest.mark.parametrize("sr", [None, 1, 3, 5, 6])
+@pytest.mark.parametrize("gr", [1, 3, 5, 6])
+def test_k9_radius_grid_bitwise(cuda, gr, sr, shape):
+    """K9 over its window and blur radii (blur off too, and blur radii
+    below and above gr + 1), on volumes shallower than the window and
+    whose H and W are no multiples of the tile: one launch, both fields
+    bit-identical (by bits, so +0.0 and -0.0 too)."""
+    v = _k9_vols(shape, seed=shape[1] + gr)
+    ws, ss = gr / 3.0, (None if sr is None else sr / 3.0)
+    before = cuda_build.launch_counts()["response_fields_3d"]
+    got = cuda_detect3d.response_fields_3d(v, window_sigma=ws, smooth_sigma=ss)
+    assert cuda_build.launch_counts()["response_fields_3d"] == before + 1
+    want = cuda_detect3d.response_fields_3d_plain(v, window_sigma=ws, smooth_sigma=ss)
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    if sr is None:
+        assert got[1] is None
+    else:
+        assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("K", [1, 13, 300])
+@pytest.mark.parametrize("P", [16, 28, 32, 64])
+def test_k2_k6_patch_sizes_bitwise(cuda, P, K):
+    """K2 and K6 (P >= 17) at the specialised sides and the general one,
+    on an odd Wp, a frame batch 2 bytes past a 16-byte boundary, K not a
+    multiple of the keypoints per block, keypoints in the edge-clamped
+    band and windows of +0.0 and -0.0: patches as bf16 bits, K6's
+    patches equal to K2's, moments by bits."""
+    gen = torch.Generator(device=cuda).manual_seed(P * 1000 + K)
+    B, Hp, Wp = 2, 150, 211
+    flat = torch.randn(B * Hp * Wp + 1, device=cuda, generator=gen).to(torch.bfloat16)
+    padded = flat[1:].view(B, Hp, Wp)
+    padded[0, :40] = 0.0
+    padded[1, :40] = -0.0
+    assert padded.is_contiguous() and padded.data_ptr() % 16 == 2
+    xy = (torch.rand((B, K, 2), device=cuda, generator=gen)
+          * torch.tensor([Wp + 2.0 * P, Hp + 2.0 * P], device=cuda) - P).contiguous()
+    xy[0, 0] = torch.tensor([5.5, 3.25], device=cuda)  # a window from the zero band
+    before = cuda_build.launch_counts()["extract_blended"]
+    k2 = cuda_patch.extract_blended(padded, xy, P)
+    assert cuda_build.launch_counts()["extract_blended"] == before + 1
+    assert torch.equal(k2.view(torch.int16),
+                       cuda_patch.extract_blended_plain(padded, xy, P).view(torch.int16))
+    if P < 17:
+        return
+    got = cuda_patch.extract_blended(padded, xy, P, with_moments=True)
+    want = cuda_patch.extract_blended_plain(padded, xy, P, with_moments=True)
+    assert torch.equal(got[0].view(torch.int16), want[0].view(torch.int16))
+    assert torch.equal(got[0].view(torch.int16), k2.view(torch.int16))
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))

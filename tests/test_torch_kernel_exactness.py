@@ -15,6 +15,10 @@ distinct bin in which the row blocks of other bins multiply zero rows.
 Here that decomposition, in float32, must equal
 `binned_select_rows_plain` bit for bit with the describe route's
 one-hot selection stack, and within one bf16 ulp with a dense one.
+
+K1, K8, K9 and K6 are emulated below in the structure of their kernels
+(tiles, strips, the x-march, the moment lanes), each bit for bit
+against its plain version.
 """
 
 import numpy as np
@@ -23,11 +27,24 @@ import torch
 
 from kcmc_tpu_torch.ops import cuda_warp_matrix
 from kcmc_tpu_torch.ops.cuda_detect import _DF, _SM, detect_response_plain, gauss_taps
+from kcmc_tpu_torch.ops.cuda_detect3d import _harris3, response_fields_3d_plain
+from kcmc_tpu_torch.ops.cuda_patch import MOMENT_SLOTS, _moments_plain
 from kcmc_tpu_torch.ops.cuda_select import binned_select_rows_plain
 from kcmc_tpu_torch.ops.cuda_warp_field import warp_batch_field_plain
 from kcmc_tpu_torch.ops.cuda_warp_matrix import matrix_scalars, warp_batch_matrix_plain
 from kcmc_tpu_torch.ops.describe import RUN_ALIGN, sel_rot
 from kcmc_tpu_torch.ops.warp_field import floor_int, smap
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """The emulations run thousands of small tensor ops, which torch's
+    intra-op threads only slow down when several test processes share
+    the host; every op here is elementwise, so the bits are the same."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 # M[2, 2] of the affine maps: unit, negative, tiny but sound, and
 # degenerate (|M[2, 2]| <= 1e-6: the map is used unnormalized)
@@ -470,3 +487,237 @@ def test_k8_strips_match_plain(name):
         assert counts["general"] and not counts["direct"] and counts["refetch"]
     if name == "78x78":
         assert counts["direct"] > 0
+
+
+# ---------------------------------------------------------------------------
+# K9 (csrc/detect3d.cu): a block owns TZ x TY (z, y) output points of one
+# volume and marches x. Its input streams through a ring of 2 XB x-slices
+# of the (z, y) region plus a halo of max(GR + 1, SR), in bricks of XB
+# slices (brick k + 1 issued at step k XB + 2 over the slots of brick
+# k - 1). At step s the products of slice s - 1 are formed once on the
+# tile +- GR (zero outside the volume) and windowed along z (into the
+# buffer of the slice's parity); slice s - 2 is windowed along y for the
+# tile's rows and shifted into the x window's 2 GR + 1 registers (the
+# output that has taken t taps in register t; register 0 starts one,
+# register 2 GR completes one and forms its response); after the last
+# slice, zero slices add the trailing padding taps. The blur takes
+# slice s along z and y into a ring of 24 slices; once slice 8 m + 7 + SR
+# is in, it windows slices 8 m - SR .. 8 m + 7 + SR along x into the
+# outputs 8 m .. 8 m + 7. The emulation runs that march for every tile
+# at once and must equal response_fields_3d_plain bit for bit.
+
+K9_TILE = (16, 32)  # (TZ, TY) of csrc/detect3d.cu
+K9_XB = 8  # x-slices of a brick; the input ring holds two
+K9_XQ, K9_NXR = 8, 24  # x-blur outputs of an item; y-blurred slices kept bricks
+
+
+def k9_march(vols, window_sigma, smooth_sigma, harris_k=0.005, tile=K9_TILE):
+    """(resp, smooth or None) of (B, D, H, W) volumes by K9's x-march."""
+    B, D, H, W = vols.shape
+    g = gauss_taps(window_sigma)
+    gr, n = len(g) // 2, len(g)
+    sw = gauss_taps(smooth_sigma) if smooth_sigma is not None else ()
+    sr, nb = len(sw) // 2, len(sw)
+    tz, ty = tile
+    hz = max(gr + 1, sr)
+    nz, ny = -(-D // tz), -(-H // ty)
+    xb_end = -(-W // K9_XQ) * K9_XQ - 1 + sr
+    s_end = max(W + gr + 1, xb_end) if sr else W + gr + 1
+    ns = 2 * K9_XB
+    # every tile's region with its halo, x from brick -1 on, zero outside
+    nx = (s_end // K9_XB + 3) * K9_XB
+    big = torch.zeros(B, nz * tz + 2 * hz, ny * ty + 2 * hz, nx)
+    big[:, hz:hz + D, hz:hz + H, K9_XB:K9_XB + W] = vols
+    reg = torch.stack([big[:, iz * tz:iz * tz + tz + 2 * hz, iy * ty:iy * ty + ty + 2 * hz]
+                       for iz in range(nz) for iy in range(ny)], 1)
+    reg = reg.reshape(-1, tz + 2 * hz, ty + 2 * hz, nx)
+    T = reg.shape[0]
+    z0 = torch.tensor([iz * tz for iz in range(nz) for _ in range(ny)]).repeat(B)
+    y0 = torch.tensor([iy * ty for _ in range(nz) for iy in range(ny)]).repeat(B)
+    zs = z0[:, None, None] - gr + torch.arange(tz + 2 * gr)[None, :, None]
+    ys = y0[:, None, None] - gr + torch.arange(ty + 2 * gr)[None, None, :]
+    inside = (zs >= 0) & (zs < D) & (ys >= 0) & (ys < H)  # the product region
+
+    ring = torch.zeros(T, ns, tz + 2 * hz, ty + 2 * hz)
+
+    def load_brick(k):
+        for xi in range(K9_XB):
+            x = k * K9_XB + xi
+            ring[:, x % ns] = reg[..., K9_XB + x] if 0 <= x < W else 0.0
+
+    load_brick(-1)
+    load_brick(0)
+    acc = torch.zeros(T, 6, n, tz, ty)
+    bring = torch.zeros(T, K9_NXR, tz, ty)
+    resp = torch.zeros(T, tz, ty, W)
+    smooth = torch.zeros(T, tz, ty, -(-W // K9_XQ) * K9_XQ)
+    zwin = [None, None]  # z-windowed slices by parity
+    zero = torch.zeros(())
+    for s in range(s_end + 1):
+        sp, sx = s - 1, s - 2
+        live = 0 <= sp < W
+        if s % K9_XB == 2:
+            load_brick(s // K9_XB + 1)
+        if sr and s < W:
+            o = hz - sr
+            bz = _chain(ring[:, s % ns, o:o + tz + 2 * sr, o:o + ty + 2 * sr], sw, 1, tz)
+        if live:
+            o = hz - gr
+            rz, ry = slice(o, o + tz + 2 * gr), slice(o, o + ty + 2 * gr)
+            c, m, p = ring[:, sp % ns], ring[:, (sp - 1) % ns], ring[:, s % ns]
+            gx = 0.5 * (p[:, rz, ry] - m[:, rz, ry])
+            gy = 0.5 * (c[:, rz, o + 1:o + 1 + ty + 2 * gr] - c[:, rz, o - 1:o - 1 + ty + 2 * gr])
+            gz = 0.5 * (c[:, o + 1:o + 1 + tz + 2 * gr, ry] - c[:, o - 1:o - 1 + tz + 2 * gr, ry])
+            gx, gy, gz = (torch.where(inside, v, zero) for v in (gx, gy, gz))
+            prods = torch.stack([gx * gx, gy * gy, gz * gz, gx * gy, gx * gz, gy * gz], 1)
+            zwin[sp % 2] = _chain(prods, g, 2, tz)
+        if sr:
+            bring[:, s % K9_NXR] = _chain(bz, sw, 2, ty) if s < W else 0.0
+        if sx >= 0:
+            yv = _chain(zwin[sx % 2], g, 3, ty) if sx < W else torch.zeros(T, 6, tz, ty)
+            for t in range(n - 1, 0, -1):
+                acc[:, :, t] = acc[:, :, t - 1] + g[t] * yv
+            acc[:, :, 0] = g[0] * yv
+            x = sx - gr
+            if 0 <= x < W:
+                resp[..., x] = _harris3(*acc[:, :, n - 1].unbind(1), harris_k)
+        if sr and s >= K9_XQ - 1 + sr and (s - sr) % K9_XQ == K9_XQ - 1:
+            x0 = s - sr - (K9_XQ - 1)
+            slices = torch.stack([bring[:, (x0 - sr + i) % K9_NXR]
+                                  for i in range(K9_XQ + 2 * sr)], -1)
+            smooth[..., x0:x0 + K9_XQ] = _chain(slices, sw, 3, K9_XQ)
+
+    def assemble(f):
+        f = f.reshape(B, nz, ny, tz, ty, W).permute(0, 1, 3, 2, 4, 5)
+        return f.reshape(B, nz * tz, ny * ty, W)[:, :D, :H].contiguous()
+
+    return assemble(resp), (assemble(smooth[..., :W]) if sr else None)
+
+
+def _k9_volumes(shape, seed):
+    rng = np.random.default_rng(seed)
+    v = rng.normal(0.0, 1.0, (3,) + shape).astype(np.float32)
+    v[1, : shape[0] // 2, : shape[1] // 2] = 0.0  # flat: zero gradients, zero sums
+    # products that underflow to +0.0 and -0.0, and a corner of negative
+    # subnormals whose blur terms round to -0.0: sums whose sign of zero
+    # depends on every padding tap
+    v[2] *= np.float32(1e-24)
+    v[2, : shape[0] // 2, :, : shape[2] // 2] = -np.float32(1e-45)
+    return torch.as_tensor(v)
+
+
+@pytest.mark.parametrize("shape", [(5, 9, 11), (12, 33, 47), (20, 72, 88)])
+@pytest.mark.parametrize("sr", [None, 1, 3, 5, 6])
+@pytest.mark.parametrize("gr", [1, 3, 5, 6])
+def test_k9_march_matches_plain(gr, sr, shape):
+    ws, ss = gr / 3.0, (None if sr is None else sr / 3.0)
+    assert len(gauss_taps(ws)) == 2 * gr + 1
+    assert sr is None or len(gauss_taps(ss)) == 2 * sr + 1
+    vols = _k9_volumes(shape, seed=shape[2] + gr)
+    want = response_fields_3d_plain(vols, window_sigma=ws, smooth_sigma=ss)
+    got = k9_march(vols, ws, ss)
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    if sr is None:
+        assert got[1] is None and want[1] is None
+    else:
+        assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# K6 (csrc/patch.cu): the lane of a window column (two columns for P > 32)
+# sums the disc terms of its column in float64 as the rows pass; the 15
+# column sums go to slot dx + 7 of 16 (slot 15 holds +0.0) and lane i
+# adds lane i ^ h for h = 8, 4, 2, 1 (__shfl_xor_sync); lane 0 rounds once.
+# The emulation must equal _moments_plain bit for bit. On realistic
+# windows every order gives the same float64 sums (all exact); where two
+# column sums near 2^59 cancel beside small ones the order shows, and a
+# tree in another order must differ.
+
+
+def k6_lane_moments(patch, fx, fy, tree=(8, 4, 2, 1)):
+    """(m10, m01) of raw (B, K, P, P) windows as K6's lanes form them."""
+    P = patch.shape[-1]
+    mr = 7
+    cc = (P - 2) // 2
+    cy = cc + (fy >= 0.5).long()
+    cx = cc + (fx >= 0.5).long()
+    dx = (torch.arange(P) - cx[..., None]).double()  # (B, K, P) per window column
+    cols = torch.zeros(patch.shape[:-2] + (P, 2), dtype=torch.float64)
+    for r in range(P):
+        dy = (r - cy).double()[..., None]
+        v = patch[..., r, :].double()
+        disc = (dx.abs() <= mr) & (dx * dx + dy * dy <= mr * mr)
+        cols[..., 0] = torch.where(disc, cols[..., 0] + v * dx, cols[..., 0])
+        cols[..., 1] = torch.where(disc, cols[..., 1] + v * dy, cols[..., 1])
+    lanes = torch.zeros(patch.shape[:-2] + (MOMENT_SLOTS, 2), dtype=torch.float64)
+    idx = (cx[..., None] - mr + torch.arange(2 * mr + 1))[..., None].expand(
+        patch.shape[:-2] + (2 * mr + 1, 2))
+    lanes[..., :2 * mr + 1, :] = torch.gather(cols, -2, idx)
+    lane = torch.arange(MOMENT_SLOTS)
+    for h in tree:
+        lanes = lanes + lanes[..., lane ^ h, :]
+    m = lanes[..., 0, :].float()
+    return m[..., 0], m[..., 1]
+
+
+def _k6_rowmajor(patch, fx, fy):
+    """The moments' earlier order: one float64 sum over the disc, row-major."""
+    P = patch.shape[-1]
+    cc = (P - 2) // 2
+    cy = cc + (fy >= 0.5).long()
+    cx = cc + (fx >= 0.5).long()
+    flat = patch.reshape(patch.shape[:-2] + (P * P,))
+    sx = torch.zeros(fx.shape, dtype=torch.float64)
+    sy = torch.zeros_like(sx)
+    for dy in range(-7, 8):
+        for dx in range(-7, 8):
+            if dx * dx + dy * dy <= 49:
+                v = torch.gather(flat, -1, ((cy + dy) * P + cx + dx)[..., None])[..., 0].double()
+                sx, sy = sx + v * float(dx), sy + v * float(dy)
+    return sx.float(), sy.float()
+
+
+def _k6_windows(case, P, seed):
+    rng = np.random.default_rng(seed)
+    shape = (2, 24, P, P)
+    if case == "normal":
+        w = rng.normal(0.0, 1.0, shape)
+    elif case == "all_zero":
+        w = np.zeros(shape)
+    elif case == "sign_mixed":
+        w = rng.choice([-1.0, 1.0], shape) * 2.0 ** rng.integers(-12, 6, shape)
+    elif case == "signed_zero":
+        w = rng.choice([-0.0, 0.0, -1.0, 1.0], shape, p=[0.4, 0.4, 0.1, 0.1])
+    else:  # "wide": on the centre row, columns dx = -7 and +1 cancel to 0 in
+        # m10 (slots 0 and 8) beside small terms float64 rounds away next to them
+        w = rng.normal(0.0, 1.0, shape)
+    fx = rng.uniform(0.0, 1.0, shape[:2]).astype(np.float32)
+    fy = rng.uniform(0.0, 1.0, shape[:2]).astype(np.float32)
+    if case == "wide":
+        cc = (P - 2) // 2
+        for b, k in np.ndindex(*shape[:2]):
+            cy, cx = cc + int(fy[b, k] >= 0.5), cc + int(fx[b, k] >= 0.5)
+            w[b, k, cy, cx - 7] = 2.0 ** 56
+            w[b, k, cy, cx + 1] = 7.0 * 2.0 ** 56
+    patch = torch.as_tensor(w.astype(np.float32)).to(torch.bfloat16).float()
+    return patch, torch.as_tensor(fx), torch.as_tensor(fy)
+
+
+@pytest.mark.parametrize("P", [32, 64])
+@pytest.mark.parametrize("case", ["normal", "all_zero", "sign_mixed", "signed_zero", "wide"])
+def test_k6_lane_moments_match_plain(case, P):
+    patch, fx, fy = _k6_windows(case, P, seed=P + len(case))
+    want = _moments_plain(patch, fx, fy)
+    got = k6_lane_moments(patch, fx, fy)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    if case == "wide":
+        # the data tells the orders apart: another tree gives other bits
+        other = k6_lane_moments(patch, fx, fy, tree=(1, 2, 4, 8))
+        assert any(not torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(other, want))
+        return
+    old = _k6_rowmajor(patch, fx, fy)
+    scale = max(float(old[0].abs().max()), float(old[1].abs().max()))
+    for a, b in zip(got, old):
+        assert float((a - b).abs().max()) <= 1e-6 * scale
