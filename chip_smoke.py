@@ -26,7 +26,10 @@ line is printed:
    - affine path (config 2: 32 frames of 512x512, K=4096, inputs from
      the bins-first route): K1 at nms 3 / window 1.2 as above (and
      timed), K4
-     bit-identical (also at 1024x1024), K2 at P=32 on the 4368 sorted
+     identical by bits (also at 1024x1024 and at an odd 3x230x301 of
+     +-0.0 with a constant region; timed also under CUDA-graph replay, and
+     beside one fill of its two output maps, `k4_fill_ms`: the card's
+     write rate on the same bytes), K2 at P=32 on the 4368 sorted
      slots bit-identical, K5 bit-identical with the one-hot selection
      stack and within one bf16 ulp with a dense one (a sentinel bin
      included), K7 bit-identical with identical ok flags at max_px=18
@@ -54,10 +57,12 @@ line is printed:
      noise) and at an odd 24x200x136; timed also under CUDA-graph replay;
      its float32 issue floor is in the phase line (`issue_floor_ms`: its
      operations, each one rounded instruction, at 33.5 T instructions/s); K10
-     (trilinear 3D patches, Pz=8, Pxy=20) on the path's own keypoints
-     within 1e-5 relative (bit-identical in practice; the phase line says
-     so); K10's bytes count the union of the slabs this run's keypoints
-     read;
+     (trilinear 3D patches, Pz=8, Pxy=20) identical by bits on the path's
+     own keypoints, and on keypoints in and around the clamped band at
+     (8, 20), (5, 13) and (16, 33) (the last two the general
+     instantiation); timed also under CUDA-graph replay and beside one
+     fill of its output (`k10_fill_ms`); K10's bytes count the union of
+     the slabs this run's keypoints read;
    - pyramid path (kernels_pyramid; similarity, n_octaves=3 at 512^2:
      octaves of 512, 344 and 232 px, K=176 each): K1 as above at 344^2
      and 232^2 (32 octave frames each; timed) and, with B=2, at 2048^2 (the
@@ -211,12 +216,21 @@ def sass_counts(lib, opcodes=("FCHK", "HGMMA")) -> dict | None:
         return None
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
+    def kernel_name(ln: str) -> str:
+        # the mangled name's length-prefixed source name ending in _kernel
+        # (the length's digits may follow other digits: a hash, a scope)
+        for m in re.finditer(r"\d+", ln):
+            for k in range(len(m.group())):
+                name = ln[m.end():m.end() + int(m.group()[k:])]
+                if name.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*", name):
+                    return name
+        return ln.split()[-1]
+
     counts: dict[str, dict[str, int]] = {}
     kernel = None
     for ln in sass.splitlines():
         if "Function :" in ln:
-            m = re.search(r"\d([A-Za-z_]+_kernel)", ln)
-            kernel = m.group(1) if m else ln.split()[-1]
+            kernel = kernel_name(ln)
             # every instantiation of a template kernel adds to its name
             counts.setdefault(kernel, dict.fromkeys(opcodes, 0))
         elif kernel is not None:
@@ -317,9 +331,10 @@ def phase_build() -> None:
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "libs": info,
           # IEEE division slow-path checks (one per division sequence) and
           # warpgroup MMAs in the SASS of K7 and K5; reciprocals (the
-          # runtime integer divisions) in K2/K6's
+          # runtime integer divisions) in K2/K6's, K4's and K10's
           "sass": {**{n: sass_counts(cuda_build.target(n)) for n in ("warp_matrix", "select")},
-                   "patch": sass_counts(cuda_build.target("patch"), ("MUFU.RCP",))}})
+                   **{n: sass_counts(cuda_build.target(n), ("MUFU.RCP",))
+                      for n in ("patch", "moments", "patch3d")}}})
 
 
 def _frames(n, shape, seed):
@@ -553,16 +568,24 @@ def phase_kernels_affine() -> tuple[list[dict], dict]:
     padded = D.edge_pad((smooth - mu).to(torch.bfloat16), r + 1).contiguous()
     rows = []
 
-    # K4 moment_maps: bit-identical at (32, 544, 544) and at 1024x1024
+    # K4 moment_maps: identical by bits at (32, 544, 544), at 1024x1024
+    # and at an odd 3x230x301 of +-0.0 with a constant region (partial
+    # tiles on both axes)
     gen = torch.Generator(device="cuda").manual_seed(11)
     big = torch.randn((2, 1024 + 2 * (r + 1), 1024 + 2 * (r + 1)), device="cuda",
                       generator=gen).to(torch.bfloat16)
-    for p_in, what in ((padded, "config 2"), (big, "1024x1024")):
+    odd = torch.randn((3, 230, 301), device="cuda", generator=gen)
+    odd = torch.where(odd.abs() < 1.0, torch.copysign(torch.zeros_like(odd), odd), odd)
+    odd[1] = -0.0
+    odd[2, :100, :150] = 2.5
+    for p_in, what in ((padded, "config 2"), (big, "1024x1024"),
+                       (odd.to(torch.bfloat16), "3x230x301 signed zeros")):
         got = cuda_moments.moment_maps(p_in)
         want = cuda_moments.moment_maps_plain(p_in)
-        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        if not all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                   for g, w in zip(got, want)):
             raise AssertionError(f"K4: not bit-identical to its plain version at {what}")
-    del big
+    del big, odd
     n_map = B * (padded.shape[1] - 14) * (padded.shape[2] - 14)
     widths = sorted({w for w, _ in band_structure()})
     ops_px = sum(6 * w for w in widths) + len(band_structure()) + 2 * 14
@@ -578,12 +601,15 @@ def phase_kernels_affine() -> tuple[list[dict], dict]:
     m10, m01 = cuda_moments.moment_maps(padded)
     extra["k4_vs_conv_max_abs"] = float(max((lib_maps[:, 0] - m10).abs().max(),
                                             (lib_maps[:, 1] - m01).abs().max()))
+    # the card's write rate on K4's outputs: one fill of both maps (72 MB)
+    extra["k4_fill_ms"] = event_ms(lambda: (m10.zero_(), m01.zero_()), 20)
     rows.append({
         "name": "moment_maps", "route": "cuda",
         "source": "kcmc_tpu_torch/csrc/moments.cu",
         "replaces": "kcmc_tpu/ops/pallas_patch.py:1276",
         "max_abs_err": 0.0,
         "ms": event_ms(lambda: cuda_moments.moment_maps(padded), 20),
+        "graph_ms": graph_ms(lambda: cuda_moments.moment_maps(padded)),
         "plain_ms": event_ms(lambda: cuda_moments.moment_maps_plain(padded), 3, 1),
         "bound_ms": b4, "bound_by": by4, "library_ms": lib4,
     })
@@ -911,13 +937,23 @@ def phase_kernels_volumes() -> tuple[list[dict], dict]:
     xyz = kps.xy.contiguous()
     got = cuda_patch3d.extract_blended_3d(padded, xyz, PZ, PXY)
     want = cuda_patch3d.extract_blended_3d_plain(padded, xyz, PZ, PXY)
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError("K10: not bit-identical to its plain version at config 5")
     err10 = float((got - want).abs().max())
-    if err10 > TOL * float(want.abs().max()):
-        raise AssertionError(f"K10: error {err10} exceeds {TOL} x max")
-    extra["k10_bitwise"] = torch.equal(got, want)
+    # keypoints in the clamped band (negative, and past every far edge) and
+    # inside, at the path's size and at two of the general instantiation
+    Bp, Dp, Hp, Wp = padded.shape
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    span = torch.tensor([Wp + 16.0, Hp + 16.0, Dp + 12.0], device="cuda")
+    edge = (torch.rand((B, 64, 3), device="cuda", generator=gen) * span - 8.0).contiguous()
+    for pz, pxy in ((PZ, PXY), (5, 13), (16, 33)):
+        g10 = cuda_patch3d.extract_blended_3d(padded, edge, pz, pxy)
+        w10 = cuda_patch3d.extract_blended_3d_plain(padded, edge, pz, pxy)
+        if not torch.equal(g10.view(torch.int32), w10.view(torch.int32)):
+            raise AssertionError(f"K10: not bit-identical at ({pz}, {pxy}), clamped band")
+    del g10, w10
     extra["k10_mean_valid_keypoints"] = float(kps.valid.sum(dim=1).float().mean())
     # distinct input voxels: the union of the slabs these keypoints read
-    Bp, Dp, Hp, Wp = padded.shape
     org = torch.floor(xyz).long() + 1
     zi = (org[..., 2, None] + torch.arange(PZ, device="cuda")).clamp(0, Dp - 1)
     yi = (org[..., 1, None] + torch.arange(PXY, device="cuda")).clamp(0, Hp - 1)
@@ -931,6 +967,8 @@ def phase_kernels_volumes() -> tuple[list[dict], dict]:
     extra["k10_input_voxels_read"] = n_read
     del read, flat
     n_out = got.numel()
+    # the card's write rate on K10's output: one fill of it (41 MB)
+    extra["k10_fill_ms"] = event_ms(lambda: got.zero_(), 20)
     lerps = PZ * (PXY - 1) * PXY + PZ * (PXY - 1) ** 2 + (PZ - 1) * (PXY - 1) ** 2
     b10, by10 = bound_ms(n_read * 4 + xyz.numel() * 4 + n_out * 4,
                          B * K * (lerps * 3 + 6))
@@ -958,6 +996,7 @@ def phase_kernels_volumes() -> tuple[list[dict], dict]:
         "replaces": "kcmc_tpu/ops/pallas_patch.py:1033",
         "max_abs_err": err10,
         "ms": event_ms(lambda: cuda_patch3d.extract_blended_3d(padded, xyz, PZ, PXY), 20),
+        "graph_ms": graph_ms(lambda: cuda_patch3d.extract_blended_3d(padded, xyz, PZ, PXY)),
         "plain_ms": event_ms(
             lambda: cuda_patch3d.extract_blended_3d_plain(padded, xyz, PZ, PXY), 3, 1),
         "bound_ms": b10, "bound_by": by10, "library_ms": event_ms(lib_call, 20),

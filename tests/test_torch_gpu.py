@@ -597,3 +597,50 @@ def test_k2_k6_patch_sizes_bitwise(cuda, P, K):
     assert torch.equal(got[0].view(torch.int16), k2.view(torch.int16))
     for g, w in zip(got[1:], want[1:]):
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.parametrize("shape", [(15, 15), (16, 600), (230, 301), (544, 544), (1038, 1038)])
+@pytest.mark.parametrize("B", [1, 33])
+def test_k4_shapes_bitwise(cuda, B, shape):
+    """K4 from a 1x1 map to 1024^2, partial tiles on both axes, B past 32;
+    the last frame of +-0.0 with a constant region: both maps by bits, one
+    counted launch."""
+    gen = torch.Generator(device=cuda).manual_seed(B * 10000 + shape[1])
+    f = torch.randn((B,) + shape, device=cuda, generator=gen)
+    z = torch.where(f[-1].abs() < 1.0, torch.copysign(torch.zeros_like(f[-1]), f[-1]), f[-1])
+    z[: shape[0] // 2, : shape[1] // 2] = 1.75
+    f[-1] = z
+    padded = f.to(torch.bfloat16)
+    before = cuda_build.launch_counts()["moment_maps"]
+    got = cuda_moments.moment_maps(padded)
+    assert cuda_build.launch_counts()["moment_maps"] == before + 1
+    want = cuda_moments.moment_maps_plain(padded)
+    for g, w in zip(got, want):
+        assert g.shape == (B, shape[0] - 14, shape[1] - 14)
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.parametrize("thin", [False, True])
+@pytest.mark.parametrize("K", [1, 13, 512])
+@pytest.mark.parametrize("Pz,Pxy", [(8, 20), (2, 2), (5, 13), (16, 33)])
+def test_k10_sizes_bitwise(cuda, Pz, Pxy, K, thin):
+    """K10 at the template size and three general ones; keypoints inside,
+    at negative coordinates and past every far edge; a padded volume
+    thinner than a slab (Dp < Pz); patches by bits, one counted launch."""
+    gen = torch.Generator(device=cuda).manual_seed(Pz * 1000 + Pxy * 10 + K)
+    B = 2
+    Dp = max(Pz - 1, 1) if thin else 3 * Pz + 5
+    Hp, Wp = 2 * Pxy + 11, 3 * Pxy + 7
+    padded = torch.randn((B, Dp, Hp, Wp), device=cuda, generator=gen) * 100.0
+    padded[1, :, : Hp // 2] = -0.0
+    span = torch.tensor([Wp + 2.0 * Pxy, Hp + 2.0 * Pxy, Dp + 2.0 * Pz], device=cuda)
+    lo = torch.tensor([Pxy, Pxy, Pz], device=cuda, dtype=torch.float32)
+    xyz = torch.rand((B, K, 3), device=cuda, generator=gen) * span - lo
+    xyz[0, 0] = torch.tensor([Wp / 2 - Pxy / 2, Hp / 2 - Pxy / 2, 0.5], device=cuda)
+    xyz[1, -1] = torch.tensor([Wp - 0.25, -2.5, Dp + 0.75], device=cuda)
+    xyz = xyz.contiguous()
+    before = cuda_build.launch_counts()["extract_blended_3d"]
+    got = cuda_patch3d.extract_blended_3d(padded, xyz, Pz, Pxy)
+    assert cuda_build.launch_counts()["extract_blended_3d"] == before + 1
+    want = cuda_patch3d.extract_blended_3d_plain(padded, xyz, Pz, Pxy)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

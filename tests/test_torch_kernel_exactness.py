@@ -28,7 +28,9 @@ import torch
 from kcmc_tpu_torch.ops import cuda_warp_matrix
 from kcmc_tpu_torch.ops.cuda_detect import _DF, _SM, detect_response_plain, gauss_taps
 from kcmc_tpu_torch.ops.cuda_detect3d import _harris3, response_fields_3d_plain
-from kcmc_tpu_torch.ops.cuda_patch import MOMENT_SLOTS, _moments_plain
+from kcmc_tpu_torch.ops.cuda_moments import band_structure, moment_maps_plain
+from kcmc_tpu_torch.ops.cuda_patch import MOMENT_SLOTS, _fma, _moments_plain
+from kcmc_tpu_torch.ops.cuda_patch3d import extract_blended_3d_plain
 from kcmc_tpu_torch.ops.cuda_select import binned_select_rows_plain
 from kcmc_tpu_torch.ops.cuda_warp_field import warp_batch_field_plain
 from kcmc_tpu_torch.ops.cuda_warp_matrix import matrix_scalars, warp_batch_matrix_plain
@@ -721,3 +723,221 @@ def test_k6_lane_moments_match_plain(case, P):
     scale = max(float(old[0].abs().max()), float(old[1].abs().max()))
     for a, b in zip(got, old):
         assert float((a - b).abs().max()) <= 1e-6 * scale
+
+
+# ---------------------------------------------------------------------------
+# K4 (csrc/moments.cu): a block stages the TH + 14 input rows of a TH x TW
+# output tile (+0.0 past the frame), forms each row's sums once per (row,
+# column, width) -- sx_0, (sx_w, hx_w) for w = 3..6 and hx_7, a negative dx
+# subtracting |dx| * v -- and then accumulates each output's 27 band steps
+# from +0.0 in BANDS order, skipping width 0's two +0.0 adds to m10. The
+# emulation runs every tile at once and must equal moment_maps_plain bit
+# for bit.
+
+K4_TILE = (50, 16)  # (TH, TW) of csrc/moments.cu
+
+
+def k4_tiles(padded, tile=K4_TILE):
+    """(m10, m01) of a (B, Hp, Wp) bf16 batch as K4's blocks form them."""
+    TH, TW = tile
+    mr = 7
+    B, Hp, Wp = padded.shape
+    Hm, Wm = Hp - 2 * mr, Wp - 2 * mr
+    nti, ntj = -(-Hm // TH), -(-Wm // TW)
+    canvas = torch.zeros(B, nti * TH + 2 * mr, ntj * TW + 16)
+    canvas[:, :Hp, :Wp] = padded.float()
+    tiles = canvas.unfold(1, TH + 2 * mr, TH).unfold(2, TW + 16, TW)  # (B, ti, tj, RH, TW+16)
+
+    def v(dx):
+        return tiles[..., mr + dx: mr + dx + TW]
+
+    def box(w):
+        s = torch.zeros_like(v(0))
+        for dx in range(-w, w + 1):
+            s = s + v(dx)
+        return s
+
+    def moment(w):
+        h = torch.zeros_like(v(0))
+        for k in range(w, 0, -1):
+            h = h - (v(-k) if k == 1 else float(k) * v(-k))
+        for k in range(1, w + 1):
+            h = h + (v(k) if k == 1 else float(k) * v(k))
+        return h
+
+    sx = {0: torch.zeros_like(v(0)) + v(0), **{w: box(w) for w in (3, 4, 5, 6)}}
+    hx = {w: moment(w) for w in (3, 4, 5, 6, 7)}
+
+    def row(s, dy):  # staged rows li + dy + 7 of the tile's TH output rows
+        return s[..., mr + dy: mr + dy + TH, :]
+
+    a10 = torch.zeros(B, nti, ntj, TH, TW)
+    a01 = torch.zeros_like(a10)
+    for w, dy in band_structure():
+        if w:
+            a10 = a10 + row(hx[w], dy)
+        if dy:
+            a01 = (a01.double() + float(dy) * row(sx[w], dy).double()).float()
+
+    def assemble(m):
+        return m.permute(0, 1, 3, 2, 4).reshape(B, nti * TH, ntj * TW)[:, :Hm, :Wm]
+
+    return assemble(a10), assemble(a01)
+
+
+def _k4_frames(case, shape, seed):
+    rng = np.random.default_rng(seed)
+    f = rng.normal(0.0, 1.0, (3,) + shape).astype(np.float32)
+    if case == "signed_zero":
+        f = rng.choice([-0.0, 0.0, -1.5, 0.75], f.shape, p=[0.45, 0.45, 0.05, 0.05])
+        f[1] = -0.0  # every tap -0.0
+        f[2, : shape[0] // 2] = 0.0
+    else:
+        f[1, : shape[0] // 2, : shape[1] // 2] = 3.25  # a constant region
+        f[2] *= 2.0 ** rng.integers(-20, 20, shape)
+    return torch.as_tensor(f.astype(np.float32)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", [(15, 15), (37, 53), (151, 59)])
+@pytest.mark.parametrize("case", ["normal", "signed_zero"])
+def test_k4_tiles_match_plain(case, shape):
+    """At 15x15 (a 1x1 map), 37x53, and 151x59: a map of 137x45, past
+    two tiles on both axes with partial tiles."""
+    padded = _k4_frames(case, shape, seed=shape[1] + len(case))
+    want = moment_maps_plain(padded)
+    got = k4_tiles(padded)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# K10 (csrc/patch3d.cu): a warp per keypoint marches its slab plane by plane
+# and row by row; each yb (rows y, y + 1) and xb (columns x, x + 1) is
+# formed once, the previous plane's xb waits for the z-lerp, and a keypoint
+# whose slab lies inside the padded volume reads without clamps. Outputs
+# go, in the run's order, to a ring of 2048 floats at slot (mis + p) & 2047
+# (mis: the run's offset in floats from 16-byte alignment), and 16-byte
+# pieces leave after every second plane ((8, 20)) or once 32 pieces wait
+# (the general instantiation), whole pieces by bulk copy and the head and
+# tail piece float by float. The emulation runs that march for every keypoint at once,
+# with each run's alignment as a 16-byte-aligned output tensor gives it,
+# must store every output exactly once and equal extract_blended_3d_plain
+# bit for bit.
+
+K10_RING = 2048  # floats of a warp's output ring in csrc/patch3d.cu
+K10_SIZES = (8, 20)  # the (Pz, Pxy) of the template instantiation
+
+
+def k10_march(padded, xyz, Pz, Pxy):
+    """(B, K, Pz-1, Pxy-1, Pxy-1) float32 patches as K10's warps form them."""
+    B, Dp, Hp, Wp = padded.shape
+    K = xyz.shape[1]
+    N = B * K
+    Pb = Pxy - 1
+    n_out = (Pz - 1) * Pb * Pb
+    fl = torch.floor(xyz)
+    frac = xyz - fl
+    fx, fy, fz = (frac[..., i].reshape(N, 1) for i in range(3))
+    gx, gy, gz = 1.0 - fx, 1.0 - fy, 1.0 - fz
+    org = (fl.to(torch.int64) + 1).reshape(N, 3)
+    ox, oy, oz = org[:, 0], org[:, 1], org[:, 2]
+    inside = ((ox >= 0) & (oy >= 0) & (oz >= 0) & (ox <= Wp - Pxy) & (oy <= Hp - Pxy)
+              & (oz <= Dp - Pz))
+    vol = padded.reshape(B, -1)
+    bidx = torch.arange(B).repeat_interleave(K)
+
+    def index(o, i, size):  # clamped only for keypoints outside
+        r = o[:, None] + i
+        c = r.clamp(0, size - 1)
+        assert torch.equal(r[inside], c[inside])
+        return torch.where(inside[:, None], r, c)
+
+    cols = index(ox, torch.arange(Pxy), Wp)  # (N, Pxy)
+
+    def plane(z):
+        zz = index(oz, torch.tensor([z]), Dp)  # (N, 1)
+        yy = index(oy, torch.arange(Pxy), Hp)  # (N, Pxy)
+        flat = ((zz * Hp + yy)[:, :, None] * Wp + cols[:, None, :])
+        return vol[bidx[:, None, None], flat]  # (N, Pxy rows, Pxy columns)
+
+    mis = (torch.arange(N) * n_out) % 4  # the run's offset from 16-byte alignment
+    ring = torch.full((N, K10_RING), float("nan"))
+    out = torch.full((N, n_out), float("nan"))
+    stores = torch.zeros((N, n_out), dtype=torch.int64)
+    done, flushed = 0, torch.zeros(N, dtype=torch.int64)
+    # the oldest ring position still needed: unflushed outputs, or the whole
+    # pieces of the last flush, which the copy engine may still be reading
+    # until the next flush waits for it
+    held = torch.zeros(N, dtype=torch.int64)
+    rows = torch.arange(N)[:, None]
+
+    def flush(last, due=None):
+        nonlocal flushed, held
+        end = (mis + n_out + 3) // 4 if last else (mis + done) // 4
+        if due is not None:  # the warps whose own test is due
+            end = torch.where(due, end, flushed)
+        v0 = torch.maximum(flushed, (mis + 3) // 4)
+        v1 = torch.minimum(end, (mis + n_out) // 4)
+        held = torch.where(end > flushed, 4 * torch.where(v1 > v0, v0, end), held)
+        span = int((end - flushed).max()) * 4
+        if span <= 0:
+            return
+        a = 4 * flushed[:, None] + torch.arange(span)
+        ok = (a < 4 * end[:, None]) & (a >= mis[:, None]) & (a < (mis + n_out)[:, None])
+        p = torch.where(ok, a - mis[:, None], 0)
+        r = rows.expand_as(a)[ok]
+        out[r, p[ok]] = ring[r, (a % K10_RING)[ok]]
+        stores[r, p[ok]] += 1
+        flushed = end
+
+    cur = plane(0)
+    xbp = [None] * Pb
+    for z in range(Pz):
+        nxt = plane(z + 1) if z + 1 < Pz else None
+        for y in range(Pb):
+            yb = _fma(fy, cur[:, y + 1], gy * cur[:, y])  # (N, Pxy)
+            xb = _fma(gx, yb[:, :-1], fx * yb[:, 1:])  # (N, Pb)
+            if z > 0:
+                # the row's slots hold nothing still needed
+                assert int((mis + done + Pb - held).max()) <= K10_RING
+                slot = (mis[:, None] + done + torch.arange(Pb)) % K10_RING
+                ring[rows, slot] = _fma(gz, xbp[y], fz * xb)
+                done += Pb
+                if (Pz, Pxy) == K10_SIZES:
+                    if y == Pb - 1 and z % 2 == 0:
+                        flush(False)
+                else:
+                    flush(False, due=(mis + done) // 4 - flushed >= 32)
+            xbp[y] = xb
+        cur = nxt
+    flush(True)
+    assert bool((stores == 1).all())  # every output stored exactly once
+    return out.reshape(B, K, Pz - 1, Pb, Pb)
+
+
+def _k10_case(Pz, Pxy, K, thin, seed):
+    rng = np.random.default_rng(seed)
+    shape = (2, 5 if thin else 3 * Pz, 2 * Pxy + 3, 2 * Pxy + 7)
+    vol = rng.normal(0.0, 10.0, shape).astype(np.float32)
+    vol[1, :, : shape[2] // 2] = -0.0
+    lo = -np.array([Pxy + 2.0, Pxy + 2.0, Pz + 2.0])
+    hi = np.array([shape[3], shape[2], shape[1]]) + 2.0
+    xyz = rng.uniform(lo, hi, (2, K, 3)).astype(np.float32)
+    # a slab well inside, negative coordinates, and beyond each far edge
+    xyz[0, 0] = [shape[3] / 2 - Pxy / 2, shape[2] / 2 - Pxy / 2, 0.25]
+    xyz[0, -1] = [-3.5, -0.75, -1.5]
+    xyz[1, -1] = [shape[3] - 1.25, shape[2] + 0.5, shape[1] - 0.5]
+    return torch.as_tensor(vol), torch.as_tensor(xyz)
+
+
+@pytest.mark.parametrize("thin", [False, True])
+@pytest.mark.parametrize("K", [1, 13])
+@pytest.mark.parametrize("Pz,Pxy", [(8, 20), (2, 2), (5, 13), (16, 33)])
+def test_k10_march_matches_plain(Pz, Pxy, K, thin):
+    """At the template size and three general ones, with clamped
+    keypoints, an odd K and a volume thinner than a slab (Dp = 5)."""
+    padded, xyz = _k10_case(Pz, Pxy, K, thin, seed=Pz * 100 + Pxy + K)
+    want = extract_blended_3d_plain(padded, xyz, Pz, Pxy)
+    got = k10_march(padded, xyz, Pz, Pxy)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
