@@ -113,6 +113,31 @@ line is printed:
    fine pass and are rescued through the gather warp, counted beside
    gt_beyond_warp_bound; mean coarse_n_matches beside n_matches.
 
+The seven runs above pass rescue_escalate=False, so their digits compare
+across PRs. Then the routes of the step-3 slice, each with its own
+launch counts:
+10. e2e_banded: config 2 (1000 frames) through the banded matcher,
+    match_radius = the largest ground-truth displacement of the reference
+    keypoints, rounded up, plus 2 px (printed); RMSE <= 0.05 px, the
+    config-2 launches, mean matches and peak memory beside the dense
+    line's;
+11. e2e_escalate_affine, e2e_escalate_pyramid: config 2 and the pyramid
+    row at the defaults: the out-of-bound escalation must trip once (its
+    frame and the batch that tripped it printed); the batches after it
+    take the warp="jnp" backend, so K7 launches only before it; RMSE <=
+    0.05 px;
+12. e2e_homography_separable (config 4 scene, 128 frames; K1/K6 5, no
+    K7), e2e_translation_matrix (config 1 scene, 128 frames; K1/K2 5, K7
+    8, no K3), e2e_rigid3d_wide_blur (config 5 scene, blur_sigma=3.0,
+    16 volumes: K10 3, no K9, the plain detection route): RMSE <= 0.05
+    px; e2e_piecewise_affine (config 3, patch_model="affine", 128
+    frames: field RMSE <= 0.15 px, K8 20); e2e_piecewise_wide_grid
+    (config 3 scene, an 80x80 grid, 64 frames in batches of 8: the flow
+    route, no K8; its pixels within TOL of max|frame| of the same route
+    on the CPU on the run's fields, and within WIDE_GRID_GATHER_LIMIT of
+    the gather warp of the same fields (the reference's own flow route's
+    figures); the dense-flow RMSE against the truth printed).
+
 The line before the last holds the kernels table; the last line is
 {"ok": true, "device": {...}}.
 
@@ -127,6 +152,7 @@ the top device operations), for PERF.md's breakdown.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import shutil
@@ -144,6 +170,14 @@ F32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores
 F32_ISSUE = F32_FLOPS / 2
 BF16_TC_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 TOL = 1e-5
+# e2e_piecewise_wide_grid: the flow route's gap to the gather warp of the
+# same fields, as shares of max|frame| (max) and of the frames' RMS
+# (RMS), away from an 8-px border. The reference's own flow route
+# (kcmc_tpu.ops.warp_field.warp_batch_flow, on the CPU) gives 0.4700 and
+# 0.1257 on this phase's fields: the two-pass split's O(|r| |grad r|)
+# term on 6.4-px cells whose field gradient passes 1 px/px. The limits
+# are those figures rounded up.
+WIDE_GRID_GATHER_LIMIT = {"max": 0.5, "rms": 0.15}
 # config 2 of BASELINE.json, as the JAX package's bench.py defines it
 # (CONFIG_ROWS["affine@2k"], _build_stack)
 CFG2 = dict(max_keypoints=4096, nms_size=3, harris_window_sigma=1.2, cand_tile=4)
@@ -1125,26 +1159,45 @@ PHASE = {"translation": "e2e", "affine": "e2e_affine", "homography": "e2e_homogr
          "pyramid": "e2e_pyramid"}
 
 
-def path_input(model: str, n_frames: int):
+_STACKS: dict = {}
+
+
+def _cached(key, make):
+    """A scene's stack, made once per run (phases share config 2's)."""
+    if key not in _STACKS:
+        _STACKS[key] = make()
+    return _STACKS[key]
+
+
+def path_input(model: str, n_frames: int, **overrides):
     """(stack, ground truth, corrector) of a model's cell: ground-truth
-    transforms, or for piecewise the untiled 64-frame data."""
+    transforms, or for piecewise the untiled 64-frame data. The
+    corrector's config is the cell's with `overrides`; the out-of-bound
+    escalation is off unless an override turns it on, so the cells
+    compare across PRs."""
     from kcmc_tpu_torch import MotionCorrector
     from kcmc_tpu_torch.utils.synthetic import make_drift_stack
 
+    kw = {"rescue_escalate": False, **overrides}
     if model == "translation":
-        data = make_drift_stack(n_frames=n_frames, shape=(512, 512), model="translation", seed=0)
-        return data.stack, data.transforms, MotionCorrector(model="translation")
+        data = _cached(("translation", n_frames), lambda: make_drift_stack(
+            n_frames=n_frames, shape=(512, 512), model="translation", seed=0))
+        return data.stack, data.transforms, MotionCorrector(model="translation", **kw)
     if model == "affine":
-        return (*tiled_stack(n_frames, CFG2_SCENE), MotionCorrector(model="affine", **CFG2))
+        return (*_cached(("affine", n_frames), lambda: tiled_stack(n_frames, CFG2_SCENE)),
+                MotionCorrector(model="affine", **{**CFG2, **kw}))
     if model == "piecewise":
-        return (*config3_stack(n_frames), MotionCorrector(model="piecewise"))
+        return (*_cached(("piecewise", n_frames), lambda: config3_stack(n_frames)),
+                MotionCorrector(model="piecewise", **kw))
     if model == "rigid3d":
         # bench.py's config-5 row: batch min(32, 8)
-        return (*volume_stack(n_frames), MotionCorrector(model="rigid3d", batch_size=8))
+        return (*_cached(("rigid3d", n_frames), lambda: volume_stack(n_frames)),
+                MotionCorrector(model="rigid3d", **{"batch_size": 8, **kw}))
     if model == "pyramid":
-        return (*tiled_stack(n_frames, PYRAMID_SCENE),
-                MotionCorrector(model="similarity", **PYRAMID))
-    return (*tiled_stack(n_frames, {**CFG4_SCENE, "model": model}), MotionCorrector(model=model))
+        return (*_cached(("pyramid", n_frames), lambda: tiled_stack(n_frames, PYRAMID_SCENE)),
+                MotionCorrector(model="similarity", **{**PYRAMID, **kw}))
+    return (*_cached((model, n_frames), lambda: tiled_stack(
+        n_frames, {**CFG4_SCENE, "model": model})), MotionCorrector(model=model, **kw))
 
 
 def _gt_beyond_bound(stack, gt_rel, mc) -> int:
@@ -1162,24 +1215,58 @@ def _gt_beyond_bound(stack, gt_rel, mc) -> int:
     return n
 
 
-def phase_e2e(smi: str, model: str, n_frames: int = 1000) -> dict[str, int]:
-    """One n_frames correct() of the model's cell, counters reset just
-    before it and read just after."""
+def counted_run(mc, stack):
+    """A warm-up correct() of one batch, then the timed correct() of the
+    stack with the launch counters set to 0 just before it and read just
+    after: (result, seconds, launches, RuntimeWarning texts)."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        mc.correct(stack[:mc.config.batch_size])  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    mc.backend.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        res = mc.correct(stack)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = mc.backend.launch_counts()
+    return res, seconds, launches, [str(w.message) for w in rec if w.category is RuntimeWarning]
+
+
+def e2e_line(smi, phase, model, stack, res, seconds, launches, metric, err, extra) -> dict:
+    line = {
+        "phase": phase, "model": model,
+        "frames": len(stack), "seconds": seconds, "frames_per_s": len(stack) / seconds,
+        metric: err, "warp_rescued": int(np.sum(res.diagnostics.get("warp_rescued", 0))),
+        **extra, "launches": launches,
+        "mean_keypoints": float(np.mean(res.diagnostics["n_keypoints"])),
+        "mean_matches": float(np.mean(res.diagnostics["n_matches"])),
+        "mean_inliers": float(np.mean(res.diagnostics["n_inliers"])),
+        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi,
+    }
+    emit(line)
+    if res.corrected.shape != stack.shape or not np.isfinite(res.corrected).all():
+        raise AssertionError(f"{phase}: corrected stack has the wrong shape or non-finite values")
+    return line
+
+
+def check_launches(phase, launches, want) -> None:
+    if launches != want:
+        raise AssertionError(f"{phase}: launch counts {launches} != {want}")
+
+
+def phase_e2e(smi: str, model: str, n_frames: int = 1000) -> dict:
+    """One n_frames correct() of the model's cell (escalation off)."""
     from kcmc_tpu_torch.utils.metrics import field_rmse, relative_transforms, transform_rmse
 
     t0 = time.perf_counter()
     stack, gt, mc = path_input(model, n_frames)
     t_data = time.perf_counter() - t0
-    mc.correct(stack[:mc.config.batch_size])  # warm-up: cuBLAS handles, allocator
-    torch.cuda.synchronize()
-
-    mc.backend.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    res = mc.correct(stack)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = mc.backend.launch_counts()
+    res, seconds, launches, _ = counted_run(mc, stack)
 
     if model == "piecewise":
         # bench.py's metric: the first 64 (untiled) frames' fields against
@@ -1191,7 +1278,6 @@ def phase_e2e(smi: str, model: str, n_frames: int = 1000) -> dict[str, int]:
         err = transform_rmse(res.transforms, relative_transforms(gt), stack.shape[1:])
         limit, metric = 0.05, "rmse_px"
         finite = np.isfinite(res.transforms).all()
-    rescued = int(np.sum(res.diagnostics["warp_rescued"]))
     extra = {}
     if model in ("affine", "homography", "rigid", "rigid3d", "pyramid"):
         extra["gt_beyond_warp_bound"] = _gt_beyond_bound(stack, relative_transforms(gt), mc)
@@ -1203,28 +1289,187 @@ def phase_e2e(smi: str, model: str, n_frames: int = 1000) -> dict[str, int]:
         extra["volumes_per_s"] = len(stack) / seconds
         extra["volume_shape"] = list(stack.shape[1:])
         extra["batch"] = mc.config.batch_size
-    emit({
-        "phase": PHASE[model], "model": model,
-        "frames": len(stack), "seconds": seconds, "frames_per_s": len(stack) / seconds,
-        metric: err, "warp_rescued": rescued, **extra, "launches": launches,
-        "mean_keypoints": float(np.mean(res.diagnostics["n_keypoints"])),
-        "mean_matches": float(np.mean(res.diagnostics["n_matches"])),
-        "mean_inliers": float(np.mean(res.diagnostics["n_inliers"])),
-        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "data_seconds": t_data, "card": smi,
-    })
-    if res.corrected.shape != stack.shape or not np.isfinite(res.corrected).all():
-        raise AssertionError(f"{model}: corrected stack has the wrong shape or non-finite values")
+    extra["data_seconds"] = t_data
+    line = e2e_line(smi, PHASE[model], model, stack, res, seconds, launches, metric, err, extra)
     if not finite or err > limit:
         raise AssertionError(f"{model}: {metric} {err} exceeds {limit}")
-    if model == "translation" and rescued:
-        raise AssertionError(f"e2e: {rescued} frames were not warp_ok")
+    if model == "translation" and line["warp_rescued"]:
+        raise AssertionError(f"e2e: {line['warp_rescued']} frames were not warp_ok")
     if model == "rigid":
         if not (launches["extract_blended_moments"] and launches["warp_batch_matrix"]):
             raise AssertionError(f"rigid: K6 and K7 must both launch, got {launches}")
-    elif launches != WANT_LAUNCHES[model]:
-        raise AssertionError(f"{model}: launch counts {launches} != {WANT_LAUNCHES[model]}")
-    return launches
+    else:
+        check_launches(model, launches, WANT_LAUNCHES[model])
+    return line
+
+
+def max_gt_displacement(mc, stack, gt) -> float:
+    """The largest displacement, in px, of the reference frame's
+    keypoints under the scene's ground-truth maps (reference -> frame)."""
+    from kcmc_tpu_torch.utils.metrics import relative_transforms
+
+    ref = mc.backend.prepare_reference(stack[0])
+    xy = ref["xy"][ref["valid"]].double().cpu().numpy()
+    rel = relative_transforms(gt)
+    pts = np.concatenate([xy, np.ones((len(xy), 1))], axis=1)
+    moved = np.einsum("tij,kj->tki", rel, pts)
+    moved = moved[..., :2] / moved[..., 2:]
+    return float(np.sqrt(((moved - xy[None]) ** 2).sum(-1)).max())
+
+
+def phase_e2e_banded(smi: str, dense: dict) -> dict:
+    """Config 2 through the banded matcher: match_radius = the scene's
+    largest ground-truth keypoint displacement, rounded up, plus 2 px;
+    escalation off, like the dense line printed beside it."""
+    from kcmc_tpu_torch.utils.metrics import relative_transforms, transform_rmse
+
+    stack, gt, mc = path_input("affine", 1000)
+    disp = max_gt_displacement(mc, stack, gt)
+    radius = float(math.ceil(disp) + 2)
+    stack, gt, mc = path_input("affine", 1000, match_radius=radius)
+    res, seconds, launches, _ = counted_run(mc, stack)
+    err = transform_rmse(res.transforms, relative_transforms(gt), stack.shape[1:])
+    geom = mc.backend._geometries[tuple(stack.shape[1:])]
+    line = e2e_line(smi, "e2e_banded", "affine", stack, res, seconds, launches, "rmse_px", err, {
+        "max_gt_displacement_px": disp, "match_radius": radius,
+        "geometry": {"tile": geom.tile, "sub": geom.sub, "cq": geom.cq, "csub": geom.csub,
+                     "n_win": geom.n_win},
+        "dense": {k: dense[k] for k in ("rmse_px", "mean_matches", "mean_inliers",
+                                        "peak_device_gb", "frames_per_s", "warp_rescued")},
+    })
+    if not np.isfinite(res.transforms).all() or err > 0.05:
+        raise AssertionError(f"e2e_banded: rmse_px {err} exceeds 0.05")
+    check_launches("e2e_banded", launches, WANT_LAUNCHES["affine"])
+    return line
+
+
+def phase_e2e_escalate(smi: str, model: str) -> dict:
+    """The cell at the defaults (escalation on): the policy must trip;
+    the batches after it take the warp="jnp" backend, so K7 launches only
+    before it (affine) and the detect and describe kernels throughout."""
+    from kcmc_tpu_torch.utils.metrics import relative_transforms, transform_rmse
+
+    stack, gt, mc = path_input(model, 1000, rescue_escalate=True)
+    res, seconds, launches, warned = counted_run(mc, stack)
+    err = transform_rmse(res.transforms, relative_transforms(gt), stack.shape[1:])
+    B = mc.config.batch_size
+    at = res.timing["warp_escalated_at"]
+    line = e2e_line(smi, f"e2e_escalate_{model}", model, stack, res, seconds, launches,
+                    "rmse_px", err, {
+                        "warp_escalated": res.timing["warp_escalated"],
+                        "escalated_at_frame": at,
+                        "tripped_by_batch": None if at is None else at // B - 1,
+                        "warning": warned})
+    if not res.timing["warp_escalated"] or len(warned) != 1:
+        raise AssertionError(f"e2e_escalate_{model}: the escalation did not trip once: {warned}")
+    if not np.isfinite(res.transforms).all() or err > 0.05:
+        raise AssertionError(f"e2e_escalate_{model}: rmse_px {err} exceeds 0.05")
+    want = dict(WANT_LAUNCHES[model])
+    if model == "affine":
+        want["warp_batch_matrix"] = 2 * (at // B)  # warp and polish re-warp per batch
+    check_launches(f"e2e_escalate_{model}", launches, want)
+    return line
+
+
+def phase_e2e_routes(smi: str) -> dict[str, dict]:
+    """The warps, patch models, grids and blurs this slice adds, each on
+    its config's scene (escalation off, so every batch takes the route)."""
+    from kcmc_tpu_torch.ops.piecewise import upsample_field
+    from kcmc_tpu_torch.ops.warp import warp_frame_flow
+    from kcmc_tpu_torch.ops.warp_field import warp_batch_flow
+    from kcmc_tpu_torch.utils.metrics import field_rmse, relative_transforms, transform_rmse
+
+    lines = {}
+
+    def matrix_case(phase, model, n, want, **kw):
+        stack, gt, mc = path_input(model, n, **kw)
+        res, seconds, launches, _ = counted_run(mc, stack)
+        err = transform_rmse(res.transforms, relative_transforms(gt), stack.shape[1:])
+        extra = {"config": kw}
+        if model != "rigid3d":
+            extra["gt_beyond_warp_bound"] = _gt_beyond_bound(stack, relative_transforms(gt), mc)
+        lines[phase] = e2e_line(smi, phase, model, stack, res, seconds, launches, "rmse_px",
+                                err, extra)
+        if not np.isfinite(res.transforms).all() or err > 0.05:
+            raise AssertionError(f"{phase}: rmse_px {err} exceeds 0.05")
+        check_launches(phase, launches, want)
+
+    matrix_case("e2e_homography_separable", "homography", 128,
+                {**ZERO, "detect_response": 5, "extract_blended_moments": 5}, warp="separable")
+    matrix_case("e2e_translation_matrix", "translation", 128,
+                {**ZERO, "detect_response": 5, "extract_blended": 5, "warp_batch_matrix": 8},
+                warp="matrix")
+    matrix_case("e2e_rigid3d_wide_blur", "rigid3d", 16,
+                {**ZERO, "extract_blended_3d": 3}, blur_sigma=3.0)
+
+    # config 3 with affine patch fits: field RMSE as the config-3 cell
+    stack, gt, mc = path_input("piecewise", 128, patch_model="affine")
+    res, seconds, launches, _ = counted_run(mc, stack)
+    err = field_rmse(res.fields[:len(gt.stack)], gt.fields - gt.fields[0])
+    lines["e2e_piecewise_affine"] = e2e_line(
+        smi, "e2e_piecewise_affine", "piecewise", stack, res, seconds, launches,
+        "field_rmse_px", err, {"config": {"patch_model": "affine"}})
+    if not np.isfinite(res.fields).all() or err > 0.15:
+        raise AssertionError(f"e2e_piecewise_affine: field_rmse_px {err} exceeds 0.15")
+    check_launches("e2e_piecewise_affine", launches, {
+        **ZERO, "detect_response": 5, "extract_blended": 5, "warp_batch_field": 4 * 5})
+
+    # an 80x80 grid (6400 cells, beyond K8's 6144): the flow route; batch
+    # 8, since the field estimate's hypothesis block is (B x 6400 cells x
+    # 32 hypotheses x 512 matches), 3.4 GB a tensor at B = 8
+    grid = (80, 80)
+    stack, gt, mc = path_input("piecewise", 64, patch_grid=grid, batch_size=8)
+    res, seconds, launches, _ = counted_run(mc, stack)
+    shape = tuple(stack.shape[1:])
+    # the fields' dense flows against the truth's (the grids differ)
+    est = upsample_field(torch.as_tensor(res.fields[:len(gt.stack)], device="cuda"), shape)
+    truth = upsample_field(torch.as_tensor(gt.fields - gt.fields[0], device="cuda"), shape)
+    flow_err = float(torch.sqrt(((est - truth) ** 2).sum(-1).mean()))
+    del est, truth
+    # the flow route's pixels: (a) the card's against the same route on
+    # the CPU, on the run's final fields (the CPU route is held to the
+    # reference's flow warp by tests/test_torch_routes.py), within TOL of
+    # max|frame| away from a 16-px border (where a last-place difference
+    # of the flow can move a sample across the frame edge); (b) against
+    # the gather warp of the same fields (warp="jnp"), within
+    # WIDE_GRID_GATHER_LIMIT
+    B = mc.config.batch_size
+    kept = ~res.diagnostics["warp_rescued"]
+    scale = float(np.abs(stack).max())
+    card_cpu, gather_max, sq, n_px = 0.0, 0.0, 0.0, 0
+    for i in range(0, len(stack), B):
+        k = kept[i:i + B]
+        fl = torch.as_tensor(res.fields[i:i + B])
+        fr = torch.as_tensor(stack[i:i + B])
+        cpu = warp_batch_flow(fr, upsample_field(fl, shape), max_px=mc.config.max_flow_px)[0]
+        d = np.abs(cpu.numpy() - res.corrected[i:i + B])[k][:, 16:-16, 16:-16]
+        card_cpu = max(card_cpu, float(d.max(initial=0.0)) / scale)
+        gather = warp_frame_flow(fr.cuda(), upsample_field(fl.cuda(), shape)).cpu().numpy()
+        g = (gather - res.corrected[i:i + B])[k][:, 8:-8, 8:-8]
+        gather_max = max(gather_max, float(np.abs(g).max(initial=0.0)) / scale)
+        sq += float((g.astype(np.float64) ** 2).sum())
+        n_px += g.size
+    gather_rms = float(np.sqrt(sq / max(n_px, 1)) / np.sqrt(np.mean(stack.astype(np.float64) ** 2)))
+    lines["e2e_piecewise_wide_grid"] = e2e_line(
+        smi, "e2e_piecewise_wide_grid", "piecewise", stack, res, seconds, launches,
+        "flow_rmse_px", flow_err, {"config": {"patch_grid": list(grid), "batch_size": B},
+                                   "route": mc.backend._resolve_field_warp(shape).__name__,
+                                   "card_vs_cpu_rel": card_cpu, "card_vs_cpu_limit": TOL,
+                                   "gather_gap_max_rel": gather_max,
+                                   "gather_gap_rms_rel": gather_rms,
+                                   "gather_gap_limit": WIDE_GRID_GATHER_LIMIT})
+    if not np.isfinite(res.fields).all():
+        raise AssertionError("e2e_piecewise_wide_grid: non-finite fields")
+    if card_cpu > TOL:
+        raise AssertionError(f"e2e_piecewise_wide_grid: the card's flow route is {card_cpu} "
+                             f"of max|frame| from the CPU's, over {TOL}")
+    if (gather_max > WIDE_GRID_GATHER_LIMIT["max"]
+            or gather_rms > WIDE_GRID_GATHER_LIMIT["rms"]):
+        raise AssertionError(f"e2e_piecewise_wide_grid: gap to the gather warp {gather_max} "
+                             f"(max), {gather_rms} (RMS) over {WIDE_GRID_GATHER_LIMIT}")
+    check_launches("e2e_piecewise_wide_grid", launches,
+                   {**ZERO, "detect_response": 9, "extract_blended": 9})
+    return lines
 
 
 def phase_profile(smi: str, model: str, n_batches: int = 6) -> None:
@@ -1322,11 +1567,15 @@ def main() -> int:
         emit({"phase": phase, **extra, "checked": [r["name"] for r in new_rows],
               "max_abs_err": {r["name"]: r["max_abs_err"] for r in new_rows}})
     frames = {"rigid": 128, "rigid3d": 125}
-    by_path = {m: phase_e2e(smi, m, frames.get(m, 1000))
+    by_path = {PHASE[m] + ("_rigid" if m == "rigid" else ""): phase_e2e(smi, m, frames.get(m, 1000))
                for m in ("translation", "affine", "homography", "rigid", "piecewise",
                          "rigid3d", "pyramid")}
+    by_path["e2e_banded"] = phase_e2e_banded(smi, by_path["e2e_affine"])
+    for m in ("affine", "pyramid"):
+        by_path[f"e2e_escalate_{m}"] = phase_e2e_escalate(smi, m)
+    by_path.update(phase_e2e_routes(smi))
     for r in rows:
-        r["launches"] = sum(c[r["name"]] for c in by_path.values())
+        r["launches"] = sum(line["launches"][r["name"]] for line in by_path.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     more = ("graph_ms",)  # the rows that have it

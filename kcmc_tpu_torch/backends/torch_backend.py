@@ -17,8 +17,10 @@ port covers — the 2D `core` of `_build_local_2d` and the 3D one of
         warp by the coarse estimate, detect + describe single-scale,
         match and consensus again, compose coarse @ fine
     piecewise:   K1 -> selection -> K2 upright describe -> match ->
-        per-patch field estimate -> K8 warp -> field_polish passes of
-        correlation polish, each followed by a K8 re-warp
+        per-patch field estimate (translation, rigid, similarity or
+        affine patch fits) -> K8 warp (the upsampled flow through
+        `warp_batch_flow` for grids K8 does not take) -> field_polish
+        passes of correlation polish, each followed by a re-warp
     rigid3d (T, D, H, W volumes): K9 response + blur -> 3x3x3 NMS and
         selection -> K10 trilinear patches -> match -> rigid3d consensus
         -> the bounded rigid3d volume warp; no polish (jax_backend.py:1305)
@@ -31,6 +33,15 @@ The stages of the batch program are named profiler ranges
 global frame index into `key(seed)`, so results do not depend on batch
 boundaries. Tensors live on `device`; on the card every kernel runs as
 CUDA, on the CPU as its plain version.
+
+With `match_radius` the dense match of every 2D path is the banded
+matcher (`ops/match_banded.py`): geometry once per frame shape, the
+reference bucketed once per batch, its Matches fed to the consensus,
+the field estimate and both passes of the pyramid.
+Other warps on request (`_resolve_batch_warp`): K7 for translation
+warp="matrix", the separable chain plus the projective residual for
+homography warp="separable"; a rigid3d blur radius above K9's takes the
+plain detection route (`ops/detect3d.py`).
 """
 
 from __future__ import annotations
@@ -45,7 +56,7 @@ from kcmc_tpu_torch.config import CorrectorConfig
 from kcmc_tpu_torch.models.transforms import get_model
 from kcmc_tpu_torch.ops import cuda_build
 from kcmc_tpu_torch.ops.cuda_warp import warp_translation
-from kcmc_tpu_torch.ops.cuda_warp_field import warp_batch_field
+from kcmc_tpu_torch.ops import cuda_warp_field
 from kcmc_tpu_torch.ops.cuda_warp_matrix import warp_batch_matrix
 from kcmc_tpu_torch.ops.describe3d import describe_keypoints_3d_batch
 from kcmc_tpu_torch.ops.detect3d import detect_keypoints_3d_batch
@@ -54,10 +65,15 @@ from kcmc_tpu_torch.ops.fused import (
     fused_match_consensus,
     match_to_reference,
 )
+from kcmc_tpu_torch.ops.match_banded import banded_match, build_banded_ref, make_geometry
 from kcmc_tpu_torch.ops.piecewise import correlation_polish, estimate_field, upsample_field
 from kcmc_tpu_torch.ops.polish import polish_transforms
 from kcmc_tpu_torch.ops.warp import warp_batch, warp_batch_with_ok, warp_frame_flow, warp_volume
-from kcmc_tpu_torch.ops.warp_field import warp_batch_rigid3d
+from kcmc_tpu_torch.ops.warp_field import (
+    warp_batch_flow,
+    warp_batch_homography,
+    warp_batch_rigid3d,
+)
 from kcmc_tpu_torch.ops.warp_separable import warp_batch_affine
 from kcmc_tpu_torch.utils import prng
 from kcmc_tpu_torch.utils.device import resolve_device, set_full_precision
@@ -85,6 +101,7 @@ class TorchBackend:
             set_full_precision()
         self.model = None if config.model == "piecewise" else get_model(config.model)
         self._base_key = prng.key(config.seed, device=self.device)
+        self._geometries = {}  # frame shape -> banded geometry
 
     # -- launch counters ---------------------------------------------------
 
@@ -152,15 +169,17 @@ class TorchBackend:
         )
 
     def _resolve_batch_warp(self, shape):
-        """fn(frames (B, H, W), transforms (B, 3, 3)) -> (corrected, ok):
-        the gather warp for warp="jnp"; the separable chain for
-        similarity or warp="separable" (shear bound _shear_bound_px,
-        0 for translation); else K3 for translation and K7 with max_px =
-        _matrix_resid_px(shape) for rigid, affine and homography (the
-        reference's accelerator choices; `unsupported()` refuses every
-        other policy). For rigid3d volumes and (B, 4, 4) maps: the
-        bounded volume warp with max_px = max_flow_px, or the gather
-        warp for warp="jnp"."""
+        """fn(frames (B, H, W), transforms (B, 3, 3)) -> (corrected, ok),
+        the reference's accelerator choices (jax_backend.py:1671-1735):
+        the gather warp for warp="jnp"; K7 with max_px =
+        _matrix_resid_px(shape) for warp="matrix" and for rigid, affine
+        and homography under "auto"; for homography warp="separable" the
+        separable chain plus the projective residual (shear bound
+        _shear_bound_px, residual bound max_projective_px); the
+        separable chain for similarity or warp="separable" (shear bound
+        _shear_bound_px, 0 for translation); else K3 (translation). For
+        rigid3d volumes and (B, 4, 4) maps: the bounded volume warp with
+        max_px = max_flow_px, or the gather warp for warp="jnp"."""
         if self.config.model == "rigid3d":
             if self.config.warp == "jnp":
                 def gather(vols, transforms):
@@ -168,28 +187,65 @@ class TorchBackend:
                     return warp_volume(vols, transforms), ok
                 return gather
             return functools.partial(warp_batch_rigid3d, max_px=self.config.max_flow_px)
-        model = self.config.model
-        if self.config.warp == "jnp":
+        model, warp = self.config.model, self.config.warp
+        if warp == "jnp":
             return warp_batch_with_ok
-        if self.config.warp == "separable" or model == "similarity":
+        if warp == "matrix" or (warp == "auto" and model in ("rigid", "affine", "homography")):
+            return functools.partial(warp_batch_matrix, max_px=self._matrix_resid_px(shape))
+        if warp == "separable" and model == "homography":
+            return functools.partial(
+                warp_batch_homography, shear_px=self._shear_bound_px(shape),
+                max_px=self.config.max_projective_px,
+            )
+        if warp == "separable" or model == "similarity":
             shear = 0 if model == "translation" else self._shear_bound_px(shape)
             return functools.partial(warp_batch_affine, shear_px=shear, with_ok=True)
-        if model == "translation":
-            return warp_translation
-        return functools.partial(warp_batch_matrix, max_px=self._matrix_resid_px(shape))
+        return warp_translation
 
     def _resolve_field_warp(self, shape):
         """fn(frames (B, H, W), fields (B, gh, gw, 2)) -> (corrected, ok)
-        for piecewise: K8 with max_px = max_flow_px, or for warp="jnp"
-        the gather warp of the upsampled flow (unbounded, ok all True)."""
-        if self.config.warp == "jnp":
+        for piecewise: K8 with max_px = max_flow_px where it takes the
+        grid (`cuda_warp_field.supports`), else the upsampled flow
+        through `warp_batch_flow` (jax_backend.py:1741-1771); for
+        warp="jnp" the gather warp of the upsampled flow (unbounded, ok
+        all True). Chosen from the config before any launch."""
+        cfg = self.config
+        if cfg.warp == "jnp":
             def gather(frames, fields):
                 return (
                     warp_frame_flow(frames, upsample_field(fields, shape)),
                     torch.ones(frames.shape[0], dtype=torch.bool, device=frames.device),
                 )
             return gather
-        return functools.partial(warp_batch_field, max_px=self.config.max_flow_px)
+        if cuda_warp_field.supports(cfg.patch_grid, cfg.max_flow_px):
+            return functools.partial(cuda_warp_field.warp_batch_field, max_px=cfg.max_flow_px)
+
+        def flow(frames, fields):
+            return warp_batch_flow(frames, upsample_field(fields, shape), max_px=cfg.max_flow_px)
+        return flow
+
+    def _banded(self, shape, ref: dict):
+        """(geometry, bucketed reference) of the banded matcher for this
+        batch, or None without `match_radius`: the geometry once per
+        frame shape (jax_backend.py:982-991), the reference once per
+        batch (:1017-1024)."""
+        cfg = self.config
+        if cfg.match_radius is None:
+            return None
+        geom = self._geometries.get(shape)
+        if geom is None:
+            geom = self._geometries[shape] = make_geometry(
+                shape, cfg.match_radius, cfg.max_keypoints, cfg.max_keypoints,
+                tile=cfg.match_tile, slack=cfg.match_slack, nms_tile=cfg.cand_tile,
+            )
+        return geom, build_banded_ref(geom, ref["xy"], ref["desc"], ref["valid"])
+
+    def _banded_matches(self, banded, kps, desc):
+        if banded is None:
+            return None
+        cfg = self.config
+        return banded_match(*banded, desc, kps.xy, kps.valid, ratio=cfg.ratio,
+                            max_dist=cfg.max_hamming, mutual=cfg.mutual)
 
     def prepare_reference(self, ref_frame) -> dict:
         """Keypoints and descriptors of the (H, W) reference frame (every
@@ -230,23 +286,27 @@ class TorchBackend:
             frames = frames.to(torch.float32).contiguous()
             idx = torch.as_tensor(np.asarray(frame_indices, np.int64), device=self.device)
             keys = prng.fold_in(self._base_key, idx)
+        with stage("match_consensus"):
+            banded = self._banded(tuple(frames.shape[1:]), ref)
         with stage("detect_describe"):
             kps, desc = self._detect_describe(frames)
         if cfg.model == "piecewise":
-            out = self._piecewise_tail(frames, kps, desc, ref, keys)
+            out = self._piecewise_tail(frames, kps, desc, ref, keys, banded)
         else:
-            out = self._matrix_tail(frames, kps, desc, ref, keys)
+            out = self._matrix_tail(frames, kps, desc, ref, keys, banded)
         with stage("download"):
             return {k: v.cpu().numpy() for k, v in out.items()}
 
-    def _piecewise_tail(self, frames, kps, desc, ref, keys) -> dict:
-        """Match, per-patch field estimate, K8 warp and the field_polish
-        loop (jax_backend.py:1050-1104, :1212-1241)."""
+    def _piecewise_tail(self, frames, kps, desc, ref, keys, banded=None) -> dict:
+        """Match (dense or banded), per-patch field estimate, field warp
+        and the field_polish loop (jax_backend.py:1050-1104,
+        :1212-1241)."""
         cfg = self.config
         with stage("match_consensus"):
             src, m = match_to_reference(
                 desc, kps.valid, ref["desc"], ref["xy"], ref["valid"],
                 ratio=cfg.ratio, max_dist=cfg.max_hamming, mutual=cfg.mutual,
+                matches=self._banded_matches(banded, kps, desc),
             )
             fres = estimate_field(
                 src, kps.xy, m.valid, keys, grid=cfg.patch_grid,
@@ -280,8 +340,9 @@ class TorchBackend:
             "rms_residual": fres.rms_residual,
         }
 
-    def _register(self, kps, desc, ref, keys) -> dict:
-        """Match and consensus of a batch against the reference."""
+    def _register(self, kps, desc, ref, keys, banded=None) -> dict:
+        """Match (dense or banded) and consensus of a batch against the
+        reference."""
         cfg = self.config
         with stage("match_consensus"):
             res, n_matches = fused_match_consensus(
@@ -291,6 +352,7 @@ class TorchBackend:
                 n_hypotheses=cfg.n_hypotheses, threshold=cfg.inlier_threshold,
                 refine_iters=cfg.refine_iters, score_cap=cfg.score_cap,
                 budget_rungs=cfg.budget_rungs, early_exit_frac=cfg.early_exit_frac,
+                matches=self._banded_matches(banded, kps, desc),
             )
         return {
             "transform": res.transform.contiguous(),
@@ -300,13 +362,13 @@ class TorchBackend:
             "rms_residual": res.rms_residual,
         }
 
-    def _matrix_tail(self, frames, kps, desc, ref, keys) -> dict:
+    def _matrix_tail(self, frames, kps, desc, ref, keys, banded=None) -> dict:
         """Match, consensus, the pyramid's coarse-to-fine refine, bounded
         warp and the transform polish loop (rigid3d has no polish,
         jax_backend.py:1323)."""
         cfg = self.config
         batch_warp = self._resolve_batch_warp(frames.shape[1:])
-        out = self._register(kps, desc, ref, keys)
+        out = self._register(kps, desc, ref, keys, banded)
         if frames.dim() == 3 and cfg.n_octaves > 1 and cfg.pyramid_refine:
             # warp by the coarse (multi-scale) estimate and register the
             # residual single-scale, without a temporal seed; frames the
@@ -317,7 +379,7 @@ class TorchBackend:
                     corrected0, ok0 = batch_warp(frames, coarse)
                 with stage("detect_describe"):
                     kps2, desc2 = self._detect_describe(corrected0, multi_scale=False)
-                fine_out = self._register(kps2, desc2, ref, prng.fold_in(keys, 1))
+                fine_out = self._register(kps2, desc2, ref, prng.fold_in(keys, 1), banded)
                 eye = torch.eye(3, dtype=coarse.dtype, device=coarse.device)
                 fine = torch.where(ok0[:, None, None], fine_out["transform"], eye)
                 fine_out["transform"] = torch.matmul(coarse, fine).contiguous()

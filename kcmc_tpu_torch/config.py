@@ -7,7 +7,9 @@ pyramid) read, under the names and defaults of
 `config_from_dict(dataclasses.asdict(cfg))`. Knobs the port does not
 implement are still declared: `unsupported()` names each non-default one
 with the ROADMAP.md item that will port it, and the backend raises
-`NotImplementedError` with that list instead of ignoring them.
+`NotImplementedError` with that list instead of ignoring them. Warp
+policies and knob values the reference rejects raise `ValueError` here
+with the reference's messages (kcmc_tpu/config.py:750-767, :1018-1047).
 """
 
 from __future__ import annotations
@@ -19,23 +21,12 @@ import dataclasses
 # (kcmc_tpu/ops/describe.py:_BINS_FIRST_MIN_K).
 BINS_FIRST_MIN_K = 2048
 
-# Warp policies the port implements, per model: K3 (translation), K7
-# (matrix models), the separable shear/scale chain (similarity, "auto";
-# translation, rigid and affine on request), K8 (piecewise, "auto"), the
-# bounded rigid3d volume warp ("auto"), and the exact gather warp ("jnp")
-# for every model.
-_WARPS = {
-    "translation": ("auto", "pallas", "separable", "jnp"),
-    "rigid": ("auto", "matrix", "separable", "jnp"),
-    "similarity": ("auto", "separable", "jnp"),
-    "affine": ("auto", "matrix", "separable", "jnp"),
-    "homography": ("auto", "matrix", "jnp"),
-    "piecewise": ("auto", "jnp"),
-    "rigid3d": ("auto", "jnp"),
-}
+MODELS = ("translation", "rigid", "similarity", "affine", "homography",
+          "piecewise", "rigid3d")
 
 # Largest Gaussian radius kernel K9 covers (its blur of the volume);
-# radius = max(1, int(3 sigma + 0.5)).
+# radius = max(1, int(3 sigma + 0.5)). Beyond it detection takes the
+# plain route, as the reference takes its jnp route.
 K9_MAX_RADIUS = 6
 
 
@@ -64,6 +55,8 @@ class CorrectorConfig:
     max_hamming: int = 80
     mutual: bool = True
     match_radius: float | None = None
+    match_tile: int = 64  # banded matcher's query tile side, px
+    match_slack: float = 2.0  # banded bucket capacity / mean occupancy
     match_precision: str = "auto"
 
     # piecewise-rigid (config 3)
@@ -93,6 +86,11 @@ class CorrectorConfig:
     rescue_warp: bool = True
     max_shear_px: int = 8
     max_rotation_deg: float | None = None
+    # warn when more than this fraction of the frames seen (or of a
+    # sliding window) took the gather rescue; with rescue_escalate, the
+    # remaining batches switch to the exact gather warp
+    rescue_warn_fraction: float = 0.25
+    rescue_escalate: bool = True
     max_projective_px: int = 4
     max_scale_dev: float = 0.02
     transform_polish: int = 1
@@ -107,9 +105,9 @@ class CorrectorConfig:
     mesh_devices: int = 0
 
     def __post_init__(self):
-        if self.model not in _WARPS:
+        if self.model not in MODELS:
             raise ValueError(
-                f"unknown model {self.model!r}; available: {sorted(_WARPS)}"
+                f"unknown model {self.model!r}; available: {sorted(MODELS)}"
             )
         if self.blur_sigma <= 0.0:
             raise ValueError(f"blur_sigma must be positive, got {self.blur_sigma}")
@@ -135,8 +133,7 @@ class CorrectorConfig:
                 "match_precision must be 'auto', 'float32', 'bf16', or "
                 f"'int8', got {self.match_precision!r}"
             )
-        if self.warp not in ("auto", "jnp", "pallas", "separable", "matrix"):
-            raise ValueError(f"unknown warp policy {self.warp!r}")
+        self._check_warp()
         if self.field_passes < 1:
             raise ValueError(f"field_passes must be >= 1, got {self.field_passes}")
         if self.refine_hypotheses < 0:
@@ -160,10 +157,27 @@ class CorrectorConfig:
                 )
             if self.model == "rigid3d":
                 raise ValueError("n_octaves > 1 (scale pyramid) supports 2D models only")
-        if self.model == "rigid3d" and self.match_radius is not None:
+        if self.match_radius is not None:
+            if self.match_radius <= 0:
+                raise ValueError(
+                    f"match_radius must be positive, got {self.match_radius}"
+                )
+            if self.model == "rigid3d":
+                raise ValueError(
+                    "match_radius (banded matching) supports 2D models only; "
+                    "rigid3d uses the dense matcher"
+                )
+        if self.match_tile < 16 or self.match_tile % 4:
             raise ValueError(
-                "match_radius (banded matching) supports 2D models only; "
-                "rigid3d uses the dense matcher"
+                "match_tile must be >= 16 and a multiple of 4 (sub-"
+                f"bucket sides are tile//4 or tile//2), got {self.match_tile}"
+            )
+        if self.match_slack < 1.0:
+            raise ValueError(f"match_slack must be >= 1.0, got {self.match_slack}")
+        if not 0.0 < self.rescue_warn_fraction <= 1.0:
+            raise ValueError(
+                "rescue_warn_fraction must be in (0, 1], got "
+                f"{self.rescue_warn_fraction}"
             )
         if int(self.transform_polish) < 0:
             raise ValueError(
@@ -172,6 +186,35 @@ class CorrectorConfig:
         object.__setattr__(self, "polish_grid", tuple(self.polish_grid))
         object.__setattr__(self, "patch_grid", tuple(self.patch_grid))
         object.__setattr__(self, "plan_buckets", tuple(self.plan_buckets))
+
+    def _check_warp(self) -> None:
+        """The reference's warp-policy checks, with its messages."""
+        if self.warp not in ("auto", "jnp", "pallas", "separable", "matrix"):
+            raise ValueError(
+                "warp must be 'auto', 'jnp', 'pallas', 'separable', or "
+                f"'matrix', got {self.warp!r}"
+            )
+        if self.warp == "matrix" and self.model not in (
+            "translation", "rigid", "affine", "homography"
+        ):
+            raise ValueError(
+                "warp='matrix' resamples bounded-residual 2D matrix "
+                f"transforms; model {self.model!r} needs "
+                "warp='separable' (zoom-unbounded) or 'jnp' (or 'auto')"
+            )
+        if self.warp == "pallas" and self.model != "translation":
+            raise ValueError(
+                "warp='pallas' is the gather-free translation kernel; "
+                f"model {self.model!r} needs warp='jnp' (or 'auto')"
+            )
+        if self.warp == "separable" and self.model not in (
+            "translation", "rigid", "similarity", "affine", "homography"
+        ):
+            raise ValueError(
+                "warp='separable' resamples affine-family transforms "
+                "(plus homography via the affine+residual split); "
+                f"model {self.model!r} needs warp='jnp' (or 'auto')"
+            )
 
     def resolved_oriented(self) -> bool:
         if self.oriented is None:
@@ -195,18 +238,6 @@ class CorrectorConfig:
         """Non-default knobs the port does not implement yet, each with
         the ROADMAP.md queue-1 item that will port it."""
         out = []
-        if (self.model == "rigid3d"
-                and max(1, int(3.0 * self.blur_sigma + 0.5)) > K9_MAX_RADIUS):
-            out.append(
-                "rigid3d blur_sigma above 2.16 (K9's blur radius is at most "
-                f"{K9_MAX_RADIUS}; ROADMAP queue 1 item 13)"
-            )
-        if self.model == "piecewise" and self.patch_model != "translation":
-            out.append(
-                f"patch_model={self.patch_model!r} (ROADMAP queue 1 item 14b)"
-            )
-        if self.match_radius is not None:
-            out.append("match_radius (ROADMAP queue 1 item 14b)")
         if self.match_precision == "float32":
             out.append(
                 "match_precision='float32' unquantized describe route "
@@ -222,13 +253,6 @@ class CorrectorConfig:
             out.append("plan_buckets (ROADMAP queue 1 item 16)")
         if self.mesh_devices:
             out.append("mesh_devices (ROADMAP queue 1 item 17)")
-        if self.warp not in _WARPS[self.model]:
-            out.append(
-                f"warp={self.warp!r} for model={self.model!r}: the port has "
-                "K3, the matrix kernel K7, the separable chain, the field "
-                "kernel K8, the rigid3d volume warp and the gather warp "
-                "(ROADMAP queue 1 item 14b)"
-            )
         return out
 
 

@@ -5,15 +5,18 @@ through the scale pyramid).
 Counterpart of the one-shot path of `kcmc_tpu/corrector.py`
 (`MotionCorrector.correct`): reference selection, fixed-size batches
 with the tail batch padded by repeating its last frame, the batch
-program, rescue of frames the bounded warp flagged, and the merge.
-Streaming, checkpoints, template refinement and the robustness ladder
-are later slices (ROADMAP.md queue 1 item 15).
+program, rescue of frames the bounded warp flagged with the out-of-bound
+policy (warn, then escalate the remaining batches to the exact gather
+warp; kcmc_tpu/corrector.py:1990-2066), and the merge. Streaming,
+checkpoints, template refinement and the robustness ladder are later
+slices (ROADMAP.md queue 1 item 15).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 
 import numpy as np
 
@@ -81,6 +84,28 @@ class MotionCorrector:
         self.backend = TorchBackend(self.config, device=device)
         self.reference = reference
         self.reference_window = reference_window
+        self._escalation_backend = None
+        self._reset_rescue_policy()
+
+    def _reset_rescue_policy(self) -> None:
+        """Out-of-bound telemetry and the escalation decision, reset at
+        the start of every correct() (corrector.py:1627-1636)."""
+        self._rescue_seen = 0
+        self._rescue_count = 0
+        self._rescue_window: list[tuple[int, int]] = []  # (frames, rescued)
+        self._escalated = False
+        self._escalated_at = None  # first frame the escalation backend took
+        self._rescue_warned = False
+
+    def _get_escalation_backend(self) -> TorchBackend:
+        """The same backend with warp="jnp" (exact, unbounded), built the
+        first time the escalation trips; it takes the reference prepared
+        by the main backend."""
+        if self._escalation_backend is None:
+            self._escalation_backend = TorchBackend(
+                self.config.replace(warp="jnp"), device=self.backend.device
+            )
+        return self._escalation_backend
 
     def _select_reference(self, stack: np.ndarray) -> np.ndarray:
         ref = self.reference
@@ -114,13 +139,64 @@ class MotionCorrector:
             idx = np.concatenate([idx, np.repeat(idx[-1:], B - n)])
         return n, batch, idx
 
+    def _maybe_escalate(self) -> None:
+        """When more than `rescue_warn_fraction` of the frames seen so far,
+        or of the sliding window, took the rescue, warn once and (with
+        `rescue_escalate`) switch the remaining batches to the exact
+        gather warp (corrector.py:2002-2045)."""
+        cfg = self.config
+        if self._rescue_warned or self._rescue_seen < cfg.batch_size:
+            return
+        frac = self._rescue_count / max(self._rescue_seen, 1)
+        wn = sum(n for n, _ in self._rescue_window)
+        wr = sum(r for _, r in self._rescue_window)
+        if wn >= cfg.batch_size:
+            frac = max(frac, wr / wn)
+        if frac <= cfg.rescue_warn_fraction:
+            return
+        self._rescue_warned = True
+        detail = (
+            f"{self._rescue_count}/{self._rescue_seen} frames "
+            f"({100.0 * frac:.0f}%) exceeded the bounded warp kernel's "
+            "static motion bound and took the per-frame exact-warp "
+            "rescue path"
+        )
+        if cfg.rescue_escalate:
+            self._escalated = True
+            self._escalated_at = self._rescue_seen
+            warnings.warn(
+                f"kcmc: {detail}; switching the remaining batches to the "
+                "exact unbounded warp (one recompile, then full batch "
+                "speed). Raise max_shear_px / set max_rotation_deg to "
+                "keep such stacks on the fast bounded kernels.",
+                RuntimeWarning, stacklevel=3,
+            )
+        else:
+            warnings.warn(
+                f"kcmc: {detail}. Use warp='jnp', or raise max_shear_px / "
+                "set max_rotation_deg, for stacks with persistently "
+                "large motion.",
+                RuntimeWarning, stacklevel=3,
+            )
+
     def _rescue_flagged(self, host: dict, batch: np.ndarray, n: int, ref: dict) -> None:
         """Re-warp frames the bounded warp (K3, K7, K8, the separable
         chain or the rigid3d volume warp) zeroed (warp_ok False) through
-        the exact gather path, in place; `warp_rescued` records which."""
+        the exact gather path, in place; `warp_rescued` records which.
+        Counts the batch for the out-of-bound policy first: the window
+        holds the newest batches totalling at least max(256, 4 x batch)
+        frames (corrector.py:2051-2066)."""
         ok = np.asarray(host["warp_ok"], bool)
         host["warp_rescued"] = ~ok
-        if ok.all() or not self.config.rescue_warp:
+        n_bad = int((~ok).sum())
+        self._rescue_seen += len(ok)
+        self._rescue_count += n_bad
+        self._rescue_window.append((len(ok), n_bad))
+        win = max(256, 4 * self.config.batch_size)
+        while sum(m for m, _ in self._rescue_window[:-1]) >= win:
+            self._rescue_window.pop(0)
+        self._maybe_escalate()
+        if ok.all():
             return
         bad = np.nonzero(~ok)[0]
         sub = {k: host[k][bad] for k in ("transform", "field") if k in host}
@@ -153,6 +229,7 @@ class MotionCorrector:
             raise ValueError("model='rigid3d' requires a (T, D, H, W) stack")
         out_dt = np.dtype(stack.dtype if output_dtype == "input" else output_dtype)
         t0 = time.perf_counter()
+        self._reset_rescue_policy()
         ref = self.backend.prepare_reference(self._select_reference(stack))
         B = self.config.batch_size
         outs = []
@@ -161,8 +238,10 @@ class MotionCorrector:
             n, batch, idx = self._pad_batch(
                 np.asarray(stack[lo:hi], np.float32), np.arange(lo, hi), B
             )
-            host = {k: v[:n] for k, v in self.backend.process_batch(batch, ref, idx).items()}
-            self._rescue_flagged(host, batch, n, ref)
+            backend = self._get_escalation_backend() if self._escalated else self.backend
+            host = {k: v[:n] for k, v in backend.process_batch(batch, ref, idx).items()}
+            if self.config.rescue_warp:
+                self._rescue_flagged(host, batch, n, ref)
             outs.append(host)
         merged = {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
         seconds = time.perf_counter() - t0
@@ -178,5 +257,7 @@ class MotionCorrector:
                 "seconds": seconds,
                 "frames_per_sec": len(stack) / seconds if seconds > 0 else None,
                 "device": str(self.backend.device),
+                "warp_escalated": self._escalated,
+                "warp_escalated_at": self._escalated_at,
             },
         )

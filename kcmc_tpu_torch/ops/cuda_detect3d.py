@@ -37,15 +37,18 @@ def _radius(sigma: float) -> int:
     return max(1, int(3.0 * sigma + 0.5))
 
 
-def _check(window_sigma: float, smooth_sigma: float | None) -> None:
+def supports(window_sigma: float, smooth_sigma: float | None = None) -> bool:
+    """Whether K9 takes these Gaussian sigmas: every radius at most
+    K9_MAX_RADIUS (pallas_detect3d.supports' radius rule; K9 has no
+    width limit). Detection takes the plain route beyond, as the
+    reference takes its jnp route."""
+    sig = (window_sigma,) if smooth_sigma is None else (window_sigma, smooth_sigma)
+    return all(_radius(s) <= K9_MAX_RADIUS for s in sig)
+
+
+def _check_smooth(smooth_sigma: float | None) -> None:
     if smooth_sigma is not None and smooth_sigma <= 0.0:
         raise ValueError(f"smooth_sigma must be positive, got {smooth_sigma}")
-    for s in (window_sigma,) if smooth_sigma is None else (window_sigma, smooth_sigma):
-        if _radius(s) > K9_MAX_RADIUS:
-            raise ValueError(
-                f"sigma {s} gives a radius above {K9_MAX_RADIUS}, the 3D "
-                "detection kernel's largest (the reference's supports())"
-            )
 
 
 def _central_diff(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -77,8 +80,9 @@ def response_fields_3d_plain(
     window_sigma: float = WINDOW_SIGMA,
     smooth_sigma: float | None = None,
 ):
-    """Plain PyTorch version of K9: (resp, smooth or None)."""
-    _check(window_sigma, smooth_sigma)
+    """Plain PyTorch version of K9: (resp, smooth or None), at any
+    radius (the reference's jnp route beyond K9's)."""
+    _check_smooth(smooth_sigma)
     g = gauss_taps(window_sigma)
     gz, gy, gx = (_central_diff(vols, d) for d in (1, 2, 3))
     resp = _harris3(
@@ -105,11 +109,18 @@ def response_fields_3d(
     smooth_sigma: float | None = None,
 ):
     """(resp, smooth or None) of a (B, D, H, W) float32 batch: the kernel
-    on a CUDA tensor, the plain version on a CPU tensor."""
+    on a CUDA tensor (raising beyond `supports`), the plain version on a
+    CPU tensor."""
     require_tensor(vols, "vols", torch.float32, 4)
     if not kernel_route(vols):
         return response_fields_3d_plain(vols, harris_k, window_sigma, smooth_sigma)
-    _check(window_sigma, smooth_sigma)
+    _check_smooth(smooth_sigma)
+    if not supports(window_sigma, smooth_sigma):
+        raise ValueError(
+            f"sigmas {window_sigma}, {smooth_sigma} give a radius above "
+            f"{K9_MAX_RADIUS}, the 3D detection kernel's largest (the "
+            "reference's supports())"
+        )
     B, D, H, W = vols.shape
     resp = torch.empty_like(vols)
     smooth = None if smooth_sigma is None else torch.empty_like(vols)

@@ -138,19 +138,33 @@ def _lib():
     return fn
 
 
+MAX_CELLS = 6144  # csrc/warp_field.cu's MAX_CELLS
+MAX_PX = 1024
+
+
+def supports(grid, max_px: int) -> bool:
+    """Whether K8 takes a (gh, gw) field grid at this residual bound:
+    at most 6144 cells (the prologue's staged cells) and 0 <= max_px <=
+    1024. The backend takes the flow route (`warp_field.warp_batch_flow`
+    of the upsampled field) beyond, as the reference takes it where its
+    Pallas kernel does not fit."""
+    gh, gw = grid
+    return gh * gw <= MAX_CELLS and 0 <= max_px <= MAX_PX
+
+
 def warp_batch_field(frames: torch.Tensor, fields: torch.Tensor, max_px: int = 6):
     """(corrected (B, H, W) float32, ok (B,) bool) for (B, gh, gw, 2)
-    cell-centred displacement fields."""
+    cell-centred displacement fields; raises beyond `supports`."""
     require_tensor(frames, "frames", torch.float32, 3)
     require_tensor(fields, "fields", torch.float32, 4)
     B, H, W = frames.shape
     if fields.shape[0] != B or fields.shape[3] != 2:
         raise ValueError(f"fields must be (B, gh, gw, 2) for B={B}, got {tuple(fields.shape)}")
     gh, gw = fields.shape[1:3]
-    if gh * gw > 6144:
-        raise ValueError(f"field grid {gh}x{gw} exceeds 6144 cells")
-    if not 0 <= max_px <= 1024:
-        raise ValueError(f"max_px must be in [0, 1024], got {max_px}")
+    if gh * gw > MAX_CELLS:
+        raise ValueError(f"field grid {gh}x{gw} exceeds {MAX_CELLS} cells")
+    if not 0 <= max_px <= MAX_PX:
+        raise ValueError(f"max_px must be in [0, {MAX_PX}], got {max_px}")
     if not kernel_route(frames, fields):
         return warp_batch_field_plain(frames, fields, max_px)
     out = torch.empty_like(frames)

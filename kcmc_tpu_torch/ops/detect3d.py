@@ -28,7 +28,12 @@ import torch
 import torch.nn.functional as F
 
 from kcmc_tpu_torch.ops.cuda_detect import gauss_taps
-from kcmc_tpu_torch.ops.cuda_detect3d import blur3, response_fields_3d, response_fields_3d_plain
+from kcmc_tpu_torch.ops.cuda_detect3d import (
+    blur3,
+    response_fields_3d,
+    response_fields_3d_plain,
+    supports,
+)
 from kcmc_tpu_torch.ops.detect import Keypoints, sorted_top_k, tile_max_argmax
 from kcmc_tpu_torch.ops.patterns import WINDOW_SIGMA
 
@@ -196,8 +201,12 @@ def detect_keypoints_3d_batch(
 ):
     """Keypoints of a (B, D, H, W) float32 batch from K9's response.
     With `smooth_sigma` returns (keypoints, smooth), the blurred batch
-    K9 computes on the side for the describe stage."""
-    resp, smooth = response_fields_3d(
+    K9 computes on the side for the describe stage. Where K9 does not
+    take the sigmas (`cuda_detect3d.supports`: a blur radius above 6),
+    the plain route computes both on the batch's own device, as the
+    reference takes its jnp route (detect3d.py:300-324)."""
+    fields = response_fields_3d if supports(WINDOW_SIGMA, smooth_sigma) else response_fields_3d_plain
+    resp, smooth = fields(
         vols, harris_k=harris_k, window_sigma=WINDOW_SIGMA, smooth_sigma=smooth_sigma
     )
     kps = _select_keypoints_3d(resp, _nms(resp), max_keypoints, threshold, border)

@@ -80,15 +80,19 @@ def match_to_reference(
     ratio: float = 0.85,
     max_dist: int = 80,
     mutual: bool = True,
+    matches: Matches | None = None,
 ) -> tuple[torch.Tensor, Matches]:
     """Match (B, K, W) descriptors against the reference: (src (B, K, 2),
     the reference keypoint of each frame keypoint's match, and the
     Matches). The piecewise path's per-frame match (jax_backend.py:1056)
-    and the first half of `fused_match_consensus`."""
-    matches = knn_match_impl(
-        desc, ref_desc, kp_valid, ref_valid,
-        ratio=ratio, max_dist=max_dist, mutual=mutual,
-    )
+    and the first half of `fused_match_consensus`. `matches` supplies
+    precomputed Matches (the banded matcher's) in place of the dense
+    match."""
+    if matches is None:
+        matches = knn_match_impl(
+            desc, ref_desc, kp_valid, ref_valid,
+            ratio=ratio, max_dist=max_dist, mutual=mutual,
+        )
     return ref_xy[matches.idx], matches
 
 
@@ -110,13 +114,15 @@ def fused_match_consensus(
     score_cap: int = 0,
     budget_rungs: int = 0,
     early_exit_frac: float = 0.7,
+    matches: Matches | None = None,
 ) -> tuple[RansacResult, torch.Tensor]:
-    """Match (B, K, W) descriptors against the reference and estimate
-    per-frame transforms: (RansacResult, n_matches (B,) int32).
-    Correspondences run reference keypoint -> frame keypoint."""
+    """Match (B, K, W) descriptors against the reference (or take the
+    precomputed `matches`) and estimate per-frame transforms:
+    (RansacResult, n_matches (B,) int32). Correspondences run reference
+    keypoint -> frame keypoint."""
     src, matches = match_to_reference(
         desc, kp_valid, ref_desc, ref_xy, ref_valid,
-        ratio=ratio, max_dist=max_dist, mutual=mutual,
+        ratio=ratio, max_dist=max_dist, mutual=mutual, matches=matches,
     )
     res = consensus_batch(
         model, src, kp_xy, matches.valid, keys,

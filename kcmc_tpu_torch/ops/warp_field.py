@@ -1,5 +1,6 @@
 """Bounded warps without a gather of the residual, the XLA forms: the
-single-interpolation matrix warp and the rigid3d volume warp.
+single-interpolation matrix warp, the dense-flow warp, the separable
+homography route and the rigid3d volume warp.
 
 Counterpart of `kcmc_tpu/ops/warp_field.py::warp_batch_matrix`
 (warp_field.py:269): affine/projective frames corrected with ONE
@@ -19,8 +20,15 @@ flagged. This form has no +-PAD translation window and no degenerate
 M[2, 2] flag (kernel K7, `cuda_warp_matrix`, adds both); it is the
 independent oracle K7's plain version is held against.
 
-`warp_batch_rigid3d` (warp_field.py:163) has no Pallas kernel in the
-reference either: it is plain torch on both devices.
+`warp_batch_flow` (warp_field.py:108), `warp_batch_homography` (:416)
+and `warp_batch_rigid3d` (:163) have no Pallas kernel in the reference
+either: they are plain torch on both devices. The flow warp is the
+piecewise route where K8 does not fit (more than 6144 cells); the
+homography route is warp="separable": the separable affine chain for
+the first-order part, then the small-field resample of the projective
+residual. Their one-hot clamped-shift matrices (`_clamped_shift_matrix`,
+:36) are integer indexing here (`_shift_index`): one-hot rows copy
+exactly.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from kcmc_tpu_torch.ops.warp import source_coords_3d
+from kcmc_tpu_torch.ops.warp_separable import warp_batch_affine
 
 
 def smap(m: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
@@ -202,3 +211,117 @@ def warp_batch_rigid3d(vols: torch.Tensor, transforms: torch.Tensor, max_px: int
     )
     keep = ok[:, None, None, None] & inb
     return torch.where(keep, r3, torch.zeros_like(r3)), ok
+
+
+def _field_resample_small(padded: torch.Tensor, flow: torch.Tensor, R: int) -> torch.Tensor:
+    """out[p] = padded[p + R+1 + flow[p]] for |flow| <= R (warp_field.py:
+    48): (B, H + 2R + 2, W + 2R + 2) sources whose halo carries the
+    border content, (B, H, W, 2) flows of (ux, uy). Two sequential 1D
+    passes (x over the still-haloed rows, then y), each component read
+    at the ORIGINAL pixel; the caller masks out-of-frame samples."""
+    B, H, W = flow.shape[:3]
+    mxi, fx = floor_int(flow[..., 0], R)
+    myi, fy = floor_int(flow[..., 1], R)
+    # the x phases, edge-replicated over the y halo
+    rows = torch.clamp(torch.arange(H + 2 * (R + 1), device=flow.device) - (R + 1), 0, H - 1)
+    mxi_h, fx_h = mxi[:, rows], fx[:, rows]
+    r1 = torch.zeros((B, H + 2 * (R + 1), W), dtype=torch.float32, device=flow.device)
+    for k in range(-R, R + 2):
+        r1 = r1 + _tap_weight(mxi_h, fx_h, k) * padded[:, :, R + 1 + k: R + 1 + k + W]
+    out = torch.zeros((B, H, W), dtype=torch.float32, device=flow.device)
+    for k in range(-R, R + 2):
+        out = out + _tap_weight(myi, fy, k) * r1[:, R + 1 + k: R + 1 + k + H, :]
+    return out
+
+
+def warp_batch_flow(frames: torch.Tensor, flows: torch.Tensor, max_px: int = 6):
+    """Correct (B, H, W) frames through (B, H, W, 2) forward displacement
+    fields, corrected(p) = frame(p + u(p)), with no gather of the
+    residual (warp_field.py:108): the mean displacement rounded to whole
+    pixels is an exact integer translation onto a canvas haloed by
+    max_px + 1 (taps edge-clamped like the gather warp's), the residual
+    is resampled by `_field_resample_small`. A frame whose residual
+    exceeds max_px is zeroed and flagged; pixels whose true sample leaves
+    the frame are 0. Returns (corrected, ok (B,) bool)."""
+    B, H, W = frames.shape
+    dev = frames.device
+    frames = frames.to(torch.float32)
+    flows = flows.to(torch.float32)
+    t = torch.round(flows.mean(dim=(1, 2)))  # (B, 2) integer (tx, ty)
+    P = max_px + 1
+    ri = _shift_index(H, P, t[:, 1])
+    ci = _shift_index(W, P, t[:, 0])
+    bidx = torch.arange(B, device=dev)[:, None, None]
+    halos = frames[bidx, ri[:, :, None], ci[:, None, :]]  # (B, H + 2P, W + 2P)
+    resid = flows - t[:, None, None, :]
+    ok = resid.abs().amax(dim=(1, 2, 3)) <= max_px
+    out = _field_resample_small(halos, resid, max_px)
+    xs = torch.arange(W, dtype=torch.float32, device=dev)[None, None, :]
+    ys = torch.arange(H, dtype=torch.float32, device=dev)[None, :, None]
+    sx = xs + flows[..., 0]
+    sy = ys + flows[..., 1]
+    inb = (sx >= 0) & (sx <= W - 1) & (sy >= 0) & (sy <= H - 1)
+    return torch.where(ok[:, None, None], out * inb, torch.zeros_like(out)), ok
+
+
+def _affine_about_center(M: torch.Tensor, cx: float, cy: float):
+    """First-order Taylor expansion of (B, 3, 3) projective maps at the
+    centre (warp_field.py:387): (A (B, 3, 3) affine, ok (B,)), A(p) ~
+    M(p) near (cx, cy)."""
+    m = M / M[:, 2:3, 2:3]
+    g, h = m[:, 2, 0], m[:, 2, 1]
+    w0 = g * cx + h * cy + 1.0
+    ok = w0.abs() > 1e-3
+    w0 = torch.where(ok, w0, torch.ones_like(w0))
+    sx0 = (m[:, 0, 0] * cx + m[:, 0, 1] * cy + m[:, 0, 2]) / w0
+    sy0 = (m[:, 1, 0] * cx + m[:, 1, 1] * cy + m[:, 1, 2]) / w0
+    a00 = (m[:, 0, 0] - g * sx0) / w0
+    a01 = (m[:, 0, 1] - h * sx0) / w0
+    a10 = (m[:, 1, 0] - g * sy0) / w0
+    a11 = (m[:, 1, 1] - h * sy0) / w0
+    zero, one = torch.zeros_like(a00), torch.ones_like(a00)
+    A = torch.stack([
+        torch.stack([a00, a01, sx0 - a00 * cx - a01 * cy], -1),
+        torch.stack([a10, a11, sy0 - a10 * cx - a11 * cy], -1),
+        torch.stack([zero, zero, one], -1),
+    ], dim=1)
+    return A, ok
+
+
+def warp_batch_homography(frames: torch.Tensor, transforms: torch.Tensor,
+                          shear_px: int = 8, max_px: int = 4):
+    """Correct (B, H, W) frames through (B, 3, 3) homographies with no
+    gather (warp_field.py:416): H = A N with A the first-order part about
+    the centre, warped by the separable affine chain (bound shear_px),
+    and N = A^-1 H / H[2, 2] a near-identity residual resampled by
+    `_field_resample_small` (bound max_px). Coverage from the true
+    homography. Returns (corrected, ok (B,) bool)."""
+    B, H, W = frames.shape
+    dev = frames.device
+    frames = frames.to(torch.float32)
+    Ms = transforms.to(torch.float32)
+    cy, cx = (H - 1) / 2.0, (W - 1) / 2.0
+    As, oks = _affine_about_center(Ms, cx, cy)
+    Ns = torch.linalg.solve(As, Ms / Ms[:, 2:3, 2:3])
+    oks = oks & (Ms[:, 2, 2].abs() > 1e-6)
+    base, affine_ok = warp_batch_affine(frames, As, shear_px=shear_px, with_ok=True)
+    oks = oks & affine_ok
+    xs = torch.arange(W, dtype=torch.float32, device=dev)[None, None, :]
+    ys = torch.arange(H, dtype=torch.float32, device=dev)[None, :, None]
+
+    def source(m):  # (B, H, W) sample positions of (B, 3, 3) maps
+        def c(i, j):
+            return m[:, i, j, None, None]
+
+        w = c(2, 0) * xs + c(2, 1) * ys + c(2, 2)
+        w = torch.where(w.abs() < 1e-8, torch.full_like(w, 1e-8), w)
+        return (c(0, 0) * xs + c(0, 1) * ys + c(0, 2)) / w, (c(1, 0) * xs + c(1, 1) * ys + c(1, 2)) / w
+
+    sx, sy = source(Ns)
+    flows = torch.stack([sx - xs, sy - ys], dim=-1)  # N(p) - p
+    ok = oks & (flows.abs().amax(dim=(1, 2, 3)) <= max_px)
+    padded = F.pad(base[:, None], (max_px + 1,) * 4, mode="replicate")[:, 0]
+    out = _field_resample_small(padded, flows, max_px)
+    sx, sy = source(Ms)
+    inb = (sx >= 0) & (sx <= W - 1) & (sy >= 0) & (sy <= H - 1)
+    return torch.where(ok[:, None, None], out * inb, torch.zeros_like(out)), ok

@@ -278,14 +278,14 @@ def test_matrix_bounds_and_config_carry_across():
 @pytest.mark.parametrize(
     "kw",
     [
-        {"model": "rigid", "warp": "pallas"},
-        {"model": "affine", "max_keypoints": 4096, "oriented": None, "match_radius": 16.0},
-        {"model": "affine", "max_keypoints": 4096, "warp": "pallas"},
+        {"model": "rigid", "warm_start": True},
+        {"model": "affine", "max_keypoints": 4096, "oriented": None, "quality_metrics": True},
+        {"model": "affine", "max_keypoints": 4096, "plan_buckets": ((128, 128),)},
         {"model": "rigid3d", "template_iters": 1},
-        {"model": "similarity", "max_keypoints": 4096, "warp": "pallas"},
-        {"model": "homography", "max_keypoints": 4096, "warp": "separable"},
-        {"model": "translation", "warp": "matrix"},
-        {"model": "piecewise", "warp": "separable"},
+        {"model": "similarity", "max_keypoints": 4096, "mesh_devices": 2},
+        {"model": "homography", "max_keypoints": 4096, "match_precision": "float32"},
+        {"model": "translation", "template_update_every": 8},
+        {"model": "piecewise", "warm_start": True},
     ],
 )
 def test_unported_affine_knobs_raise(kw):

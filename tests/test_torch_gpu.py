@@ -644,3 +644,74 @@ def test_k10_sizes_bitwise(cuda, Pz, Pxy, K, thin):
     assert cuda_build.launch_counts()["extract_blended_3d"] == before + 1
     want = cuda_patch3d.extract_blended_3d_plain(padded, xyz, Pz, Pxy)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# routes beyond K8's and K9's limits; the banded matcher
+
+
+def test_k8_k9_raise_beyond_their_limits_on_card(cuda):
+    """K8 raises for more than 6144 cells and K9 for a blur radius above
+    6 on CUDA tensors: no launch, no quiet fallback."""
+    fr = torch.zeros((1, 64, 64), device=cuda)
+    with pytest.raises(ValueError, match="6144"):
+        cuda_warp_field.warp_batch_field(fr, torch.zeros((1, 80, 80, 2), device=cuda))
+    with pytest.raises(ValueError, match="max_px"):
+        cuda_warp_field.warp_batch_field(fr, torch.zeros((1, 8, 8, 2), device=cuda), max_px=1025)
+    vols = torch.zeros((1, 16, 32, 32), device=cuda)
+    with pytest.raises(ValueError, match="radius above 6"):
+        cuda_detect3d.response_fields_3d(vols, smooth_sigma=3.0)
+    with pytest.raises(ValueError, match="radius above 6"):
+        cuda_detect3d.response_fields_3d(vols, window_sigma=2.5)
+
+
+def test_wide_grid_and_wide_blur_take_their_routes_on_card(cuda):
+    """A 6400-cell piecewise grid takes the flow route and a blur_sigma
+    of 3.0 the plain detection route, on the card: K8 and K9 are not
+    launched, the other kernels are, and the results agree with the CPU
+    route (fields within 1e-3 px RMSE; rigid3d transforms within 1e-3)."""
+    data = make_piecewise_stack(2, (128, 128), seed=0)
+    kw = dict(model="piecewise", batch_size=2, patch_grid=(80, 80), max_keypoints=128,
+              n_hypotheses=32, patch_hypotheses=8, refine_hypotheses=4, field_polish=1,
+              field_passes=2)
+    cuda_build.reset_launches()
+    on_card = MotionCorrector(**kw).correct(data.stack)
+    counts = cuda_build.launch_counts()
+    assert counts["warp_batch_field"] == 0 and counts["extract_blended"] == 2
+    on_cpu = MotionCorrector(device="cpu", **kw).correct(data.stack)
+    assert np.sqrt(np.mean(np.sum((on_card.fields - on_cpu.fields) ** 2, -1))) <= 1e-3
+
+    vols = make_drift_stack_3d(4, (16, 64, 64), seed=2)
+    kw = dict(model="rigid3d", batch_size=2, max_keypoints=256, blur_sigma=3.0)
+    cuda_build.reset_launches()
+    on_card = MotionCorrector(**kw).correct(vols.stack)
+    counts = cuda_build.launch_counts()
+    assert counts["response_fields_3d"] == 0 and counts["extract_blended_3d"] == 3
+    on_cpu = MotionCorrector(device="cpu", **kw).correct(vols.stack)
+    assert _px3(on_card.transforms, on_cpu.transforms, (16, 64, 64)) <= 1e-3
+
+
+@pytest.mark.parametrize("radius,slack", [(6.0, 2.0), (20.0, 2.0), (12.0, 1.0)])
+def test_banded_match_on_card_equals_cpu(cuda, radius, slack):
+    """The banded matcher on the card gives the CPU's indices, distances
+    and flags exactly, on the keypoints and descriptors of a real
+    detect + describe (config 2's settings at 256x256)."""
+    from kcmc_tpu_torch.ops import match_banded
+
+    data = make_drift_stack(3, (256, 256), model="affine", seed=0, sigma_range=(0.7, 1.4))
+    be = TorchBackend(CorrectorConfig(model="affine", max_keypoints=1024, nms_size=3,
+                                      harris_window_sigma=1.2, cand_tile=4), device=cuda)
+    ref = be.prepare_reference(data.stack[0])
+    kps, desc = be._detect_describe(torch.as_tensor(data.stack[1:], device=cuda))
+    geom = match_banded.make_geometry((256, 256), radius, 1024, 1024, slack=slack, nms_tile=4)
+
+    def run(dev):
+        bref = match_banded.build_banded_ref(geom, ref["xy"].to(dev), ref["desc"].to(dev),
+                                             ref["valid"].to(dev))
+        return match_banded.banded_match(geom, bref, desc.to(dev), kps.xy.to(dev),
+                                         kps.valid.to(dev))
+
+    card, cpu = run(cuda), run("cpu")
+    for f in ("idx", "dist", "second", "valid"):
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+    assert int(cpu.valid.sum()) > 100

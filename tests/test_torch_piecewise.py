@@ -266,10 +266,10 @@ def test_piecewise_config_carries_across():
     [
         {"model": "similarity", "n_octaves": 3, "warm_start": True},
         {"model": "rigid3d", "sanitize_input": True},
-        {"model": "homography", "warp": "separable"},
-        {"model": "piecewise", "patch_model": "affine"},
-        {"model": "piecewise", "warp": "pallas"},
-        {"model": "rigid", "warp": "pallas"},
+        {"model": "homography", "sanitize_input": True},
+        {"model": "piecewise", "quality_metrics": True},
+        {"model": "piecewise", "mesh_devices": 2},
+        {"model": "rigid", "plan_buckets": ((64, 64),)},
     ],
 )
 def test_unported_knobs_still_raise(kw):

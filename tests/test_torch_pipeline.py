@@ -137,13 +137,13 @@ def test_config_carries_across():
     "kw",
     [
         {"warm_start": True}, {"plan_buckets": ((128, 128),)},
-        {"sanitize_input": True}, {"match_radius": 16.0},
-        {"model": "similarity", "n_octaves": 2, "match_radius": 16.0},
+        {"sanitize_input": True}, {"model": "affine", "warm_start": True},
+        {"model": "similarity", "n_octaves": 2, "quality_metrics": True},
         {"quality_metrics": True}, {"mesh_devices": 2},
         {"model": "rigid3d", "warm_start": True},
-        {"model": "piecewise", "patch_model": "similarity"}, {"match_precision": "float32"},
+        {"model": "piecewise", "sanitize_input": True}, {"match_precision": "float32"},
         {"template_iters": 1}, {"template_update_every": 8}, {"mesh": object()},
-        {"model": "homography", "warp": "separable"},
+        {"model": "homography", "template_iters": 1},
     ],
 )
 def test_unported_knobs_raise(kw):
@@ -196,7 +196,7 @@ def test_port_imports_neither_jax_nor_kcmc_tpu():
     assert len(names) >= 28
     for mod in ("ops.piecewise", "ops.cuda_warp_field", "ops.cuda_patch", "ops.dispatch",
                 "ops.detect3d", "ops.describe3d", "ops.cuda_detect3d", "ops.cuda_patch3d",
-                "ops.pyramid", "ops.warp_separable"):
+                "ops.pyramid", "ops.warp_separable", "ops.match_banded", "ops.warp_field"):
         assert "kcmc_tpu_torch." + mod in names
     src = open(os.path.join(REPO, "chip_smoke.py")).read()
     assert "import jax" not in src and "from kcmc_tpu " not in src
