@@ -69,11 +69,11 @@ line is printed:
      width where the reference runs K1's TPU kernel as column panels);
      K6 bit-identical (patches, moments by bits, bins) at K=176 on 344^2,
      and timed there; K11
-     (the raw integer-origin patch cut, which no path of either package
-     launches: its e2e launch count is 0) bit-identical at B=32, K=512,
-     P=28 on (32, 540, 540) padded blur at the translation path's
-     keypoint origins, and at K=13; K11's bytes count the union of the
-     windows read;
+     (the raw integer-origin patch cut of the match_precision="float32"
+     describe route, whose e2e launches come from e2e_float32)
+     bit-identical at B=32, K=512, P=28 on (32, 540, 540) padded blur at
+     the translation path's keypoint origins, and at K=13; K11's bytes
+     count the union of the windows read;
 4. e2e: MotionCorrector(model="translation").correct() on a 1000-frame
    512x512 drift stack (config 1 of BASELINE.json), launch counters
    reset just before: transform RMSE <= 0.05 px, every frame warp_ok,
@@ -138,6 +138,38 @@ launch counts:
     the gather warp of the same fields (the reference's own flow route's
     figures); the dense-flow RMSE against the truth printed).
 
+Then the options of correct() and apply_correction, each at full width
+with its own launch counts (escalation off):
+13. e2e_templates: config 1's scene, 512 frames, template_iters=2 over
+    32 frames, rolling updates every 128 frames (3), quality_metrics;
+    with device_templates on and off, transforms within 1e-3 px RMSE of
+    each other; RMSE <= 0.05 px; median template_corr and coverage;
+14. e2e_warm_start: config 4's scene, 256 frames, warm_start on and off
+    (frames/s of both, no speed claim); RMSE <= 0.05 px each;
+15. e2e_float32_translation / _homography: config 1's and config 4's
+    scenes, 128 frames each, match_precision="float32": K11 once per
+    batch and once for the reference, K2, K4, K5 and K6 never; K11 on the
+    run's first batch equal to its plain version (torch.equal); RMSE <=
+    0.05 px;
+16. e2e_sanitize: config 1's scene, 256 frames, sanitize_input=True,
+    every 8th frame with a NaN row and an Inf column (seeded): every
+    output finite, RMSE <= 0.05 px;
+17. e2e_chunked_device: config 2's scene, 256 frames: correct(end_frame=
+    128) and correct(start_frame=128) bit-equal to the one-shot run; the
+    stack as a CUDA tensor with device_outputs: CUDA tensors, frames with
+    warp_ok bit-equal to the host run's; two stream views share the
+    backend;
+18. e2e_apply: apply_correction of config 2's 256 transforms to a second
+    channel (K7 once per batch, the frames it flags re-warped by the
+    gather; fallback count beside the registration's rescues), of
+    config 3's 256 recovered fields (K8 once per batch) and of
+    smooth_trajectory(sigma=15) of e2e_templates' 512 transforms (K7);
+    the frames the kernel keeps equal (torch.equal) to its plain
+    version, the frames it flags within TOL of max|frame| of the gather;
+    each kept frame's gap to the gather under APPLY_GAP_LIMIT, and K7's
+    route on two witness frames of the channel reading the reference's
+    interpret-mode gap (APPLY_WITNESS).
+
 The line before the last holds the kernels table; the last line is
 {"ok": true, "device": {...}}.
 
@@ -180,6 +212,19 @@ TOL = 1e-5
 WIDE_GRID_GATHER_LIMIT = {"max": 0.5, "rms": 0.15}
 # config 2 of BASELINE.json, as the JAX package's bench.py defines it
 # (CONFIG_ROWS["affine@2k"], _build_stack)
+# e2e_apply: K7 and K8 interpolate once with a fixed-point phase (K7) or
+# in two passes (K8), so on the frames they keep they depart from the
+# per-frame gather with the content's second derivative. APPLY_WITNESS is
+# the reference's interpret-mode K7 route on two frames of the phase's
+# channel with their ground-truth maps (its gap to the gather per frame,
+# as a share of max|frame|, away from an 8-px border;
+# tests/test_torch_apply.py reads it on the CPU); the card's route must
+# read it within APPLY_WITNESS_TOL. Every kept frame of the phase must
+# read under APPLY_GAP_LIMIT: the witness frames read 0.024 and 0.028,
+# the gather of maps off by 0.05 px above 0.24.
+APPLY_WITNESS = {18: 0.0239287, 25: 0.0279765}
+APPLY_WITNESS_TOL = 1e-4
+APPLY_GAP_LIMIT = 0.04
 CFG2 = dict(max_keypoints=4096, nms_size=3, harris_window_sigma=1.2, cand_tile=4)
 CFG2_SCENE = dict(model="affine", max_drift=10.0, seed=0, n_blobs=12000,
                   sigma_range=(0.7, 1.4))
@@ -191,6 +236,7 @@ VOL_SHAPE = (32, 256, 256)
 # the JAX package's bench.py pyramid row: ("similarity", {"n_octaves": 3})
 PYRAMID = dict(n_octaves=3)
 PYRAMID_SCENE = dict(model="similarity", max_drift=10.0, seed=0)
+CARD = "cuda"
 
 
 def emit(obj) -> None:
@@ -1050,7 +1096,8 @@ def phase_kernels_volumes() -> tuple[list[dict], dict]:
 
 def phase_kernels_pyramid() -> tuple[list[dict], dict]:
     """K1 and K6 at the pyramid path's octave shapes, K1 at 2048^2, and
-    K11 (no path launches it) at the translation path's shapes."""
+    K11 (the float32 describe route's raw cut) at the translation path's
+    shapes."""
     from kcmc_tpu_torch.ops import cuda_patch
     from kcmc_tpu_torch.ops import describe as D
     from kcmc_tpu_torch.ops.detect import detect_keypoints_batch
@@ -1132,8 +1179,8 @@ def phase_kernels_pyramid() -> tuple[list[dict], dict]:
     }
     extra["library"] = {"extract_patches": "torch.take with a precomputed (B, K, P, P) "
                         "int64 index (index build not timed)"}
-    extra["e2e_launches"] = {"extract_patches": "0 on every path: no path of kcmc_tpu or "
-                             "of the port calls it"}
+    extra["e2e_launches"] = {"extract_patches": "the match_precision='float32' describe "
+                             "route (e2e_float32): once per batch and reference"}
     return [row], extra
 
 
@@ -1472,6 +1519,319 @@ def phase_e2e_routes(smi: str) -> dict[str, dict]:
     return lines
 
 
+def _launches(**nonzero) -> dict:
+    return {**ZERO, **nonzero}
+
+
+def _cell(model: str, n: int, **overrides):
+    """The first n frames of a model's 1000-frame cell (stack, ground
+    truth relative to frame 0, corrector with `overrides`)."""
+    from kcmc_tpu_torch.utils.metrics import relative_transforms
+
+    stack, gt, mc = path_input(model, 1000, **overrides)
+    return stack[:n], relative_transforms(gt[:n]), mc
+
+
+def _rmse(res, gt_rel, shape) -> float:
+    from kcmc_tpu_torch.utils.metrics import transform_rmse
+
+    transforms = res.transforms
+    if isinstance(transforms, torch.Tensor):
+        transforms = transforms.cpu().numpy()
+    return transform_rmse(transforms, gt_rel, shape)
+
+
+def _check_rmse(phase: str, err: float, limit: float = 0.05) -> None:
+    if not np.isfinite(err) or err > limit:
+        raise AssertionError(f"{phase}: rmse_px {err} exceeds {limit}")
+
+
+def phase_e2e_templates(smi: str) -> tuple[dict, np.ndarray]:
+    """Config 1's scene, 512 frames, template_iters=2 over a 32-frame
+    window, rolling updates every 128 frames (3 updates) and the quality
+    metrics: once with the device blend, once with the host blend; the
+    two runs' transforms within 1e-3 px RMSE of each other. Returns the
+    line and the device run's transforms (for e2e_apply's stabilizer)."""
+    n, B = 512, 32
+    kw = dict(template_iters=2, template_window=32, template_update_every=128,
+              quality_metrics=True)
+    # refinement: 2 x (reference + one 32-frame batch); the refined
+    # reference; 16 batches; 3 updates, each a new reference
+    want = _launches(detect_response=2 * 2 + 1 + n // B + 3,
+                     extract_blended=2 * 2 + 1 + n // B + 3,
+                     warp_translation=2 * 2 + 2 * (n // B))
+    runs = {}
+    for dev in (True, False):
+        stack, gt_rel, mc = _cell("translation", n, device_templates=dev, **kw)
+        res, seconds, launches, _ = counted_run(mc, stack)
+        err = _rmse(res, gt_rel, stack.shape[1:])
+        runs[dev] = (res, seconds, launches, err)
+        check_launches(f"e2e_templates[device_templates={dev}]", launches, want)
+        _check_rmse(f"e2e_templates[device_templates={dev}]", err)
+        if res.timing["pipeline"] != {"template_updates": 3, "device_templates": dev}:
+            raise AssertionError(f"e2e_templates: pipeline {res.timing['pipeline']}")
+    res, seconds, launches, err = runs[True]
+    host = runs[False][0]
+    gap = _rmse(host, res.transforms, stack.shape[1:])
+    line = e2e_line(smi, "e2e_templates", "translation", stack, res, seconds, launches,
+                    "rmse_px", err, {
+                        "config": kw, "pipeline": res.timing["pipeline"],
+                        "median_template_corr": float(np.median(res.diagnostics["template_corr"])),
+                        "median_coverage": float(np.median(res.diagnostics["coverage"])),
+                        "host_blend": {"rmse_px": runs[False][3],
+                                       "frames_per_s": n / runs[False][1],
+                                       "median_template_corr": float(np.median(
+                                           host.diagnostics["template_corr"]))},
+                        "device_vs_host_rmse_px": gap})
+    if gap > 1e-3:
+        raise AssertionError(f"e2e_templates: device and host blends {gap} px apart")
+    return line, res.transforms
+
+
+def phase_e2e_warm_start(smi: str) -> dict:
+    """Config 4's scene (homography: K1, K6, K7), 256 frames, with and
+    without warm_start; no speed claim, both rates printed."""
+    n, B = 256, 32
+    want = _launches(detect_response=n // B + 1, extract_blended_moments=n // B + 1,
+                     warp_batch_matrix=2 * (n // B))
+    out = {}
+    for warm in (True, False):
+        stack, gt_rel, mc = _cell("homography", n, warm_start=warm)
+        res, seconds, launches, _ = counted_run(mc, stack)
+        err = _rmse(res, gt_rel, stack.shape[1:])
+        out[warm] = (res, seconds, launches, err)
+        check_launches(f"e2e_warm_start[warm_start={warm}]", launches, want)
+        _check_rmse(f"e2e_warm_start[warm_start={warm}]", err)
+    res, seconds, launches, err = out[True]
+    cold = out[False]
+    return e2e_line(smi, "e2e_warm_start", "homography", stack, res, seconds, launches,
+                    "rmse_px", err, {
+                        "cold": {"rmse_px": cold[3], "frames_per_s": n / cold[1],
+                                 "mean_inliers": float(np.mean(cold[0].diagnostics["n_inliers"])),
+                                 "warp_rescued": int(np.sum(cold[0].diagnostics["warp_rescued"]))}})
+
+
+def phase_e2e_float32(smi: str) -> dict[str, dict]:
+    """match_precision="float32" on config 1's and config 4's scenes, 128
+    frames each: K11 once per batch and once for the reference, no K2,
+    K4, K5 or K6; then K11 on the run's own first batch against its plain
+    version by torch.equal."""
+    from kcmc_tpu_torch.ops import cuda_patch
+    from kcmc_tpu_torch.ops import describe as D
+    from kcmc_tpu_torch.ops.detect import detect_keypoints_batch
+
+    n, B = 128, 32
+    lines = {}
+    for model, warp in (("translation", {"warp_translation": 2 * (n // B)}),
+                        ("homography", {"warp_batch_matrix": 2 * (n // B)})):
+        stack, gt_rel, mc = _cell(model, n, match_precision="float32")
+        res, seconds, launches, _ = counted_run(mc, stack)
+        err = _rmse(res, gt_rel, stack.shape[1:])
+        cfg = mc.config
+        fr = torch.as_tensor(stack[:B], device=mc.backend.device)
+        kps, smooth = detect_keypoints_batch(
+            fr, max_keypoints=cfg.max_keypoints, threshold=cfg.detect_threshold,
+            nms_size=cfg.nms_size, border=cfg.border, harris_k=cfg.harris_k,
+            smooth_sigma=cfg.blur_sigma, window_sigma=cfg.harris_window_sigma,
+            cand_tile=cfg.cand_tile)
+        windows = D.float32_windows(D.centre_finite(smooth), kps.xy, cfg.resolved_oriented())
+        equal = torch.equal(cuda_patch.extract_patches(*windows),
+                            cuda_patch.extract_patches_plain(*windows))
+        phase = f"e2e_float32_{model}"
+        lines[phase] = e2e_line(smi, phase, model, stack, res, seconds, launches, "rmse_px",
+                                err, {"config": {"match_precision": "float32"},
+                                      "k11_equal_plain": equal, "k11_patch": windows[3]})
+        _check_rmse(phase, err)
+        check_launches(phase, launches, _launches(
+            detect_response=n // B + 1, extract_patches=n // B + 1, **warp))
+        if not equal:
+            raise AssertionError(f"{phase}: K11 is not bit-identical to its plain version")
+    return lines
+
+
+def phase_e2e_sanitize(smi: str) -> dict:
+    """Config 1's scene, 256 frames, sanitize_input=True; every 8th frame
+    (the reference frame 0 among them) has a NaN row and an Inf column
+    at seeded places. Every output finite, RMSE within 0.05 px."""
+    n, B = 256, 32
+    stack, gt_rel, mc = _cell("translation", n, sanitize_input=True)
+    stack = stack.copy()
+    rng = np.random.default_rng(0)
+    bad = np.arange(0, n, 8)
+    rows = rng.integers(0, stack.shape[1], len(bad))
+    cols = rng.integers(0, stack.shape[2], len(bad))
+    stack[bad, rows, :] = np.nan
+    stack[bad, :, cols] = np.inf
+    res, seconds, launches, _ = counted_run(mc, stack)
+    err = _rmse(res, gt_rel, stack.shape[1:])
+    line = e2e_line(smi, "e2e_sanitize", "translation", stack, res, seconds, launches,
+                    "rmse_px", err, {"config": {"sanitize_input": True},
+                                     "frames_with_nonfinite": len(bad)})
+    if not np.isfinite(res.transforms).all():
+        raise AssertionError("e2e_sanitize: non-finite transforms")
+    _check_rmse("e2e_sanitize", err)
+    check_launches("e2e_sanitize", launches, _launches(
+        detect_response=n // B + 1, extract_blended=n // B + 1, warp_translation=2 * (n // B)))
+    return line
+
+
+def phase_e2e_chunked_device(smi: str) -> tuple[dict, tuple]:
+    """Config 2's scene, 256 frames, escalation off: the one-shot run;
+    correct(end_frame=128) then correct(start_frame=128), transforms
+    bit-equal to it; the stack as a CUDA tensor with device_outputs:
+    CUDA tensors, frames with warp_ok bit-equal to the host run's; two
+    stream views share the corrector's backend. Returns the line and
+    (stack, one-shot result, ground truth) for e2e_apply."""
+    n, B = 256, 32
+    stack, gt_rel, mc = _cell("affine", n)
+    res, seconds, launches, _ = counted_run(mc, stack)
+    err = _rmse(res, gt_rel, stack.shape[1:])
+    a = mc.correct(stack, end_frame=n // 2)
+    b = mc.correct(stack, start_frame=n // 2)
+    chunked_equal = np.array_equal(np.concatenate([a.transforms, b.transforms]), res.transforms)
+    dev = mc.correct(torch.as_tensor(stack, device=mc.backend.device), device_outputs=True)
+    ok = dev.diagnostics["warp_ok"].cpu().numpy()
+    on_card = dev.corrected.device.type == CARD and dev.transforms.device.type == CARD
+    dev_equal = (np.array_equal(dev.corrected.cpu().numpy()[ok], res.corrected[ok])
+                 and np.array_equal(dev.transforms.cpu().numpy()[ok], res.transforms[ok]))
+    views = [mc.stream_view(), mc.stream_view(reference="mean")]
+    shared = all(v.backend is mc.backend for v in views)
+    line = e2e_line(smi, "e2e_chunked_device", "affine", stack, res, seconds, launches,
+                    "rmse_px", err, {"chunked_bit_equal": chunked_equal,
+                                     "device_outputs_on_card": on_card,
+                                     "device_warp_ok_frames": int(ok.sum()),
+                                     "device_bit_equal_on_warp_ok": dev_equal,
+                                     "stream_views_share_backend": shared})
+    _check_rmse("e2e_chunked_device", err)
+    check_launches("e2e_chunked_device", launches, _launches(
+        detect_response=n // B + 1, extract_blended=n // B + 1, moment_maps=n // B + 1,
+        binned_select_rows=n // B + 1, warp_batch_matrix=2 * (n // B)))
+    if not (chunked_equal and on_card and dev_equal and shared):
+        raise AssertionError(f"e2e_chunked_device: {line}")
+    return line, (stack, res, gt_rel)
+
+
+def phase_e2e_apply(smi: str, affine: tuple, stabilize: np.ndarray) -> dict:
+    """apply_correction on the card: config 2's 256 transforms applied to
+    a second channel (0.5 x the stack plus seeded noise; K7 once per
+    batch), config 3's 256 recovered fields (K8 once per batch), and the
+    stabilizer smooth_trajectory(sigma=15) of config 1's 512 transforms
+    (K7). Each output frame the kernel kept must equal the kernel's
+    plain version on the same batch (torch.equal), each frame it flagged
+    the gather's (within TOL of max|frame|), and each kept frame's gap to
+    the gather must stay under APPLY_GAP_LIMIT; the K7 route on the
+    witness frames of the channel must read APPLY_WITNESS."""
+    from kcmc_tpu_torch import apply_correction
+    from kcmc_tpu_torch.ops import cuda_build
+    from kcmc_tpu_torch.ops.cuda_warp_field import warp_batch_field_plain
+    from kcmc_tpu_torch.ops.cuda_warp_matrix import warp_batch_matrix_plain
+    from kcmc_tpu_torch.ops.piecewise import upsample_field
+    from kcmc_tpu_torch.ops.warp import fast_apply_matrix, warp_batch, warp_frame_flow
+    from kcmc_tpu_torch.utils.trajectory import smooth_trajectory
+
+    B = 32
+
+    def run(stack, **kw):
+        apply_correction(stack[:B], **{k: v[:B] for k, v in kw.items()})  # warm-up
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        out = apply_correction(stack, batch_size=B, **kw)
+        seconds = time.perf_counter() - t0
+        return out, seconds, cuda_build.launch_counts()
+
+    def gaps(got, gather, fr):
+        """Each frame's largest gap to the gather away from an 8-px
+        border, as a share of its max|frame|."""
+        d = (got - gather)[:, 8:-8, 8:-8].abs().amax(dim=(1, 2)).double()
+        return d / fr.abs().amax(dim=(1, 2)).double()
+
+    def check(stack, out, maps, kind):
+        """(frames the kernel flags, whether the kept frames equal the
+        kernel's plain version and the flagged ones the gather (within
+        TOL of max|frame|: the batch's gather against the route's
+        per-frame one), the kept frames' largest gap to the gather)."""
+        flagged, equal, worst = 0, True, 0.0
+        for i in range(0, len(stack), B):
+            fr = torch.as_tensor(stack[i:i + B], device=CARD).contiguous()
+            m = torch.as_tensor(maps[i:i + B], device=CARD).contiguous()
+            if kind == "matrix":
+                plain, ok = warp_batch_matrix_plain(fr, m, 16)
+                gather = warp_batch(fr, m)
+            else:
+                plain, ok = warp_batch_field_plain(fr, m, 6)
+                gather = warp_frame_flow(fr, upsample_field(m, tuple(fr.shape[1:])))
+            got = torch.as_tensor(out[i:i + B], device=CARD)
+            g = gaps(got, gather, fr)
+            full = (got - gather).abs().amax(dim=(1, 2)) / fr.abs().amax(dim=(1, 2))
+            equal = (equal and torch.equal(got[ok], plain[ok])
+                     and bool((full[~ok] <= TOL).all()))
+            flagged += int((~ok).sum())
+            worst = max(worst, float(g[ok].max()) if bool(ok.any()) else 0.0)
+        return flagged, equal, worst
+
+    rng = np.random.default_rng(1)
+    stack2, reg, gt2 = affine
+    channel = (0.5 * stack2 + rng.normal(0, 2.0, stack2.shape)).astype(np.float32)
+    out, seconds, launches = run(channel, transforms=reg.transforms)
+    n = len(channel)
+    flagged, equal, worst = check(channel, out, reg.transforms, "matrix")
+    # the witness: the K7 route on two frames of the channel with their
+    # ground-truth maps, read against the reference's interpret mode
+    idx = sorted(APPLY_WITNESS)
+    fr = torch.as_tensor(channel[idx], device=CARD).contiguous()
+    m = torch.as_tensor(gt2[idx].astype(np.float32), device=CARD)
+    witness = gaps(fast_apply_matrix(fr, m), warp_batch(fr, m), fr).tolist()
+    witness_ok = all(abs(w - APPLY_WITNESS[i]) <= APPLY_WITNESS_TOL
+                     for i, w in zip(idx, witness))
+    # config 3's recovered fields
+    stack3, _, mc3 = path_input("piecewise", 256)
+    fields = mc3.correct(stack3).fields
+    out3, seconds3, launches3 = run(stack3, fields=fields)
+    flagged3, equal3, worst3 = check(stack3, out3, fields, "fields")
+    # stabilization: the jitter-free path of config 1's drift
+    stack1, _, _ = _cell("translation", len(stabilize))
+    stab = smooth_trajectory(stabilize, sigma=15.0)
+    out1, seconds1, launches1 = run(stack1, transforms=stab)
+    flagged1, equal1, worst1 = check(stack1, out1, stab, "matrix")
+    line = {
+        "phase": "e2e_apply", "frames": n, "frames_per_s": n / seconds,
+        "launches": {k: launches[k] + launches3[k] + launches1[k] for k in launches},
+        "transforms": {"launches": launches, "k7_fallback_frames": flagged,
+                       "registration_warp_rescued": int(np.sum(reg.diagnostics["warp_rescued"])),
+                       "equal_to_plain_route": equal, "kept_gather_gap_rel": worst,
+                       "witness_gap_rel": dict(zip(map(str, idx), witness)),
+                       "witness_reference": {str(i): APPLY_WITNESS[i] for i in idx}},
+        "fields": {"frames": len(stack3), "frames_per_s": len(stack3) / seconds3,
+                   "launches": launches3, "k8_fallback_frames": flagged3,
+                   "equal_to_plain_route": equal3, "kept_gather_gap_rel": worst3},
+        "stabilize": {"frames": len(stack1), "frames_per_s": len(stack1) / seconds1,
+                      "launches": launches1, "k7_fallback_frames": flagged1,
+                      "equal_to_plain_route": equal1, "kept_gather_gap_rel": worst1,
+                      "max_stabilizer_shift_px": float(np.abs(stab[:, :2, 2]).max())},
+        "card": smi,
+    }
+    emit(line)
+    check_launches("e2e_apply[transforms]", launches, _launches(warp_batch_matrix=n // B))
+    check_launches("e2e_apply[fields]", launches3, _launches(warp_batch_field=len(stack3) // B))
+    check_launches("e2e_apply[stabilize]", launches1,
+                   _launches(warp_batch_matrix=len(stack1) // B))
+    for what, o, ref in (("transforms", out, channel), ("fields", out3, stack3),
+                         ("stabilize", out1, stack1)):
+        if o.shape != ref.shape or not np.isfinite(o).all():
+            raise AssertionError(f"e2e_apply[{what}]: wrong shape or non-finite values")
+    if not (equal and equal3 and equal1):
+        raise AssertionError("e2e_apply: a frame differs from its route's plain result "
+                             "(the kernel's plain version, or the gather where it flags)")
+    if max(worst, worst3, worst1) > APPLY_GAP_LIMIT:
+        raise AssertionError(f"e2e_apply: a kept frame's gap to the gather exceeds "
+                             f"{APPLY_GAP_LIMIT}: {worst}, {worst3}, {worst1}")
+    if not witness_ok:
+        raise AssertionError(f"e2e_apply: the witness frames read {witness}, the reference "
+                             f"{APPLY_WITNESS} (within {APPLY_WITNESS_TOL})")
+    return line
+
+
 def phase_profile(smi: str, model: str, n_batches: int = 6) -> None:
     """Where the time of the model's batch program goes on the card:
     host wall time per batch (32 frames, 8 volumes; no profiler), then one
@@ -1574,6 +1934,13 @@ def main() -> int:
     for m in ("affine", "pyramid"):
         by_path[f"e2e_escalate_{m}"] = phase_e2e_escalate(smi, m)
     by_path.update(phase_e2e_routes(smi))
+    # the options of correct() and apply_correction (queue 1 item 15a)
+    by_path["e2e_templates"], config1_transforms = phase_e2e_templates(smi)
+    by_path["e2e_warm_start"] = phase_e2e_warm_start(smi)
+    by_path.update(phase_e2e_float32(smi))
+    by_path["e2e_sanitize"] = phase_e2e_sanitize(smi)
+    by_path["e2e_chunked_device"], affine = phase_e2e_chunked_device(smi)
+    by_path["e2e_apply"] = phase_e2e_apply(smi, affine, config1_transforms)
     for r in rows:
         r["launches"] = sum(line["launches"][r["name"]] for line in by_path.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

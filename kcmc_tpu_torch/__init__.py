@@ -13,14 +13,16 @@ single-scale or through the scale pyramid (`n_octaves`), and rigid3d
     res = MotionCorrector(device="cpu").correct(stack)  # plain versions
     res = MotionCorrector(model="similarity", n_octaves=3).correct(stack)
     res = MotionCorrector(model="rigid3d", batch_size=8).correct(volumes)
+    other = apply_correction(channel2, res.transforms)  # same motion
 """
 
 from kcmc_tpu_torch.config import CorrectorConfig, config_from_dict
-from kcmc_tpu_torch.corrector import CorrectionResult, MotionCorrector
+from kcmc_tpu_torch.corrector import CorrectionResult, MotionCorrector, apply_correction
 
 __all__ = [
     "CorrectionResult",
     "CorrectorConfig",
     "MotionCorrector",
+    "apply_correction",
     "config_from_dict",
 ]

@@ -3,7 +3,7 @@
 
 Counterpart of `kcmc_tpu/backends/jax_backend.py` for the slices the
 port covers — the 2D `core` of `_build_local_2d` and the 3D one of
-`_build_local_3d` (no shape buckets, temporal seeds or mesh):
+`_build_local_3d` (no shape buckets or mesh):
 
     translation: K1 fields + blur -> selection -> K2 upright describe
         -> match -> consensus -> K3 warp -> polish -> K3 re-warp
@@ -28,6 +28,16 @@ port covers — the 2D `core` of `_build_local_2d` and the 3D one of
 plus reference preparation (the same detect+describe on a batch of
 one, so the reference runs the same kernels), the exact gather rescue
 of frames the bounded warp flags, and the kernels' launch counters.
+
+The options of `correct()` meet here: `sanitize_input` replaces
+non-finite pixels by each frame's finite mean before the reference's
+and every batch's detection and in the rescue (jax_backend.py:72);
+`match_precision="float32"` describes through the unquantized route
+(K11); a warm-start `seed` is scored first by the batch's consensus
+(not by the pyramid's fine pass); `quality_metrics` adds the per-frame
+`template_corr` and `coverage`; `update_reference` blends a rolling
+template on the device (jax_backend.py:449). Batches may arrive as
+device tensors, and `to_host=False` leaves the outputs on the device.
 The stages of the batch program are named profiler ranges
 (`kcmc.detect_describe`, ...) that `chip_smoke.py --profile` reads. RANSAC keys fold the
 global frame index into `key(seed)`, so results do not depend on batch
@@ -68,7 +78,15 @@ from kcmc_tpu_torch.ops.fused import (
 from kcmc_tpu_torch.ops.match_banded import banded_match, build_banded_ref, make_geometry
 from kcmc_tpu_torch.ops.piecewise import correlation_polish, estimate_field, upsample_field
 from kcmc_tpu_torch.ops.polish import polish_transforms
-from kcmc_tpu_torch.ops.warp import warp_batch, warp_batch_with_ok, warp_frame_flow, warp_volume
+from kcmc_tpu_torch.ops.warp import (
+    coverage_mask,
+    coverage_mask_3d,
+    coverage_mask_flow,
+    warp_batch,
+    warp_batch_with_ok,
+    warp_frame_flow,
+    warp_volume,
+)
 from kcmc_tpu_torch.ops.warp_field import (
     warp_batch_flow,
     warp_batch_homography,
@@ -77,6 +95,48 @@ from kcmc_tpu_torch.ops.warp_field import (
 from kcmc_tpu_torch.ops.warp_separable import warp_batch_affine
 from kcmc_tpu_torch.utils import prng
 from kcmc_tpu_torch.utils.device import resolve_device, set_full_precision
+
+
+def sanitize_nonfinite(frames: torch.Tensor) -> torch.Tensor:
+    """Replace the non-finite pixels of a (B, ...) batch by each frame's
+    finite mean (jax_backend.py:72, `sanitize_input`)."""
+    finite = torch.isfinite(frames)
+    axes = tuple(range(1, frames.dim()))
+    n = torch.clamp(finite.sum(dim=axes, keepdim=True), min=1)
+    zero = torch.zeros((), dtype=frames.dtype, device=frames.device)
+    mean = torch.where(finite, frames, zero).sum(dim=axes, keepdim=True) / n
+    return torch.where(finite, frames, mean)
+
+
+def template_corr(corrected: torch.Tensor, ref_frame: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """Per-frame Pearson correlation (B,) of corrected frames against the
+    reference over the warp coverage mask (jax_backend.py:36), so the
+    zeros a warp writes outside its coverage do not lower the score."""
+    axes = tuple(range(1, corrected.dim()))
+    m = mask.to(corrected.dtype)
+    n = torch.clamp(m.sum(dim=axes, keepdim=True), min=1.0)
+    cm = (corrected * m).sum(dim=axes, keepdim=True) / n
+    rm = (ref_frame * m).sum(dim=axes, keepdim=True) / n
+    c = (corrected - cm) * m
+    r = (ref_frame - rm) * m
+    num = (c * r).sum(dim=axes)
+    den = torch.sqrt((c * c).sum(dim=axes) * (r * r).sum(dim=axes))
+    return num / torch.clamp(den, min=1e-12)
+
+
+def blend_template(ref_frame: torch.Tensor, frames: torch.Tensor, ok: torch.Tensor,
+                   alpha: float) -> torch.Tensor:
+    """(1 - alpha) * template + alpha * the mean of the window's frames
+    with `ok` (jax_backend.py:111); a window with none keeps the
+    template."""
+    okf = ok.to(torch.float32)
+    n = okf.sum()
+    w = okf.reshape((-1,) + (1,) * (frames.dim() - 1))
+    mean = (frames * w).sum(dim=0) / torch.clamp(n, min=1.0)
+    a = torch.tensor(alpha, dtype=torch.float32, device=frames.device)
+    blended = (1.0 - a) * ref_frame + a * mean
+    return torch.where(n > 0.0, blended, ref_frame)
 
 
 def stage(name: str):
@@ -102,6 +162,7 @@ class TorchBackend:
         self.model = None if config.model == "piecewise" else get_model(config.model)
         self._base_key = prng.key(config.seed, device=self.device)
         self._geometries = {}  # frame shape -> banded geometry
+        self.precision = config.resolved_match_precision(self.device.type == "cuda")
 
     # -- launch counters ---------------------------------------------------
 
@@ -146,6 +207,7 @@ class TorchBackend:
             n_octaves=cfg.n_octaves,
             octave_scale=cfg.octave_scale,
             multi_scale=multi_scale,
+            precision=self.precision,
         )
 
     # -- warp policy -------------------------------------------------------
@@ -253,8 +315,15 @@ class TorchBackend:
         volume, through the batch program's kernels:
         {"xy" (K, 2 or 3), "desc" (K, N_WORDS) int64, "valid" (K,),
         "frame"}. (The JAX package prepares a 3D reference through its
-        jnp route; on the CPU the port's plain versions reproduce it.)"""
-        frame = torch.as_tensor(np.array(ref_frame, np.float32), device=self.device)
+        jnp route; on the CPU the port's plain versions reproduce it.)
+        `ref_frame` is a numpy array or a tensor on any device; with
+        `sanitize_input` its non-finite pixels are replaced first."""
+        if isinstance(ref_frame, torch.Tensor):
+            frame = ref_frame.to(device=self.device, dtype=torch.float32)
+        else:
+            frame = torch.as_tensor(np.array(ref_frame, np.float32), device=self.device)
+        if self.config.sanitize_input:
+            frame = sanitize_nonfinite(frame[None])[0]
         kps, desc = self._detect_describe(frame[None].contiguous())
         return {"xy": kps.xy[0], "desc": desc[0], "valid": kps.valid[0], "frame": frame}
 
@@ -273,17 +342,63 @@ class TorchBackend:
             "frame": torch.as_tensor(np.array(ref["frame"], np.float32), device=dev),
         }
 
+    def update_reference(self, ref: dict, tail_corrected, tail_ok, window: int,
+                         alpha: float) -> dict:
+        """A rolling-template update on the device (jax_backend.py:449):
+        blend the last `window` frames of the per-batch corrected frames
+        `tail_corrected` whose `tail_ok` holds into ref["frame"]
+        (`blend_template`) and prepare the blended template as the new
+        reference. Frames the bounded warp flagged are left out, where
+        the host path blends their rescued pixels."""
+        if not tail_corrected:
+            return ref
+        dev = self.device
+        frames = torch.cat([torch.as_tensor(c, device=dev).to(torch.float32)
+                            for c in tail_corrected])[-window:]
+        ok = torch.cat([torch.as_tensor(k, device=dev).to(torch.bool)
+                        for k in tail_ok])[-window:]
+        with stage("update_reference"):
+            new_frame = blend_template(ref["frame"].to(torch.float32), frames, ok, alpha)
+        return self.prepare_reference(new_frame)
+
+    def quality(self, corrected: torch.Tensor, out: dict, ref_frame: torch.Tensor):
+        """(template_corr, coverage), (B,) each, of corrected frames and
+        the transforms or fields in `out` that made them
+        (jax_backend.py:676-701): coverage masks of the dense flow
+        (piecewise), the volume warp (rigid3d) or the matrix warp."""
+        shape = tuple(corrected.shape[1:])
+        if "field" in out:
+            mask = coverage_mask_flow(upsample_field(out["field"], shape))
+        elif out["transform"].shape[-1] == 4:
+            mask = coverage_mask_3d(shape, out["transform"])
+        else:
+            mask = coverage_mask(shape, out["transform"])
+        coverage = mask.to(torch.float32).mean(dim=tuple(range(1, mask.dim())))
+        return template_corr(corrected, ref_frame, mask), coverage
+
     # -- batch program -----------------------------------------------------
 
-    def process_batch(self, frames, ref: dict, frame_indices) -> dict:
-        """Register and correct a (B, H, W) batch (rigid3d: (B, D, H, W))
-        against a prepared reference. Returns numpy arrays: transform (B,
-        3, 3) ((B, 4, 4) for rigid3d; field (B, gh, gw, 2) for
-        piecewise), corrected, warp_ok and the per-frame diagnostics."""
+    def to_host(self, out: dict) -> dict:
+        """A batch's outputs as numpy arrays."""
+        with stage("download"):
+            return {k: v.cpu().numpy() for k, v in out.items()}
+
+    def process_batch(self, frames, ref: dict, frame_indices, seed=None,
+                      to_host: bool = True) -> dict:
+        """Register and correct a (B, H, W) batch (rigid3d: (B, D, H, W);
+        numpy or a tensor on any device) against a prepared reference.
+        Returns numpy arrays (tensors on the device with `to_host=False`):
+        transform (B, 3, 3) ((B, 4, 4) for rigid3d; field (B, gh, gw, 2)
+        for piecewise), corrected, warp_ok and the per-frame diagnostics
+        (with `quality_metrics`, template_corr and coverage, unless
+        ref["_skip_quality"]). `seed` = (transform, ok): the warm start's
+        consensus seed, shared by the batch (matrix models)."""
         cfg = self.config
         with stage("upload"):
             frames = torch.as_tensor(frames, device=self.device)
             frames = frames.to(torch.float32).contiguous()
+            if cfg.sanitize_input:
+                frames = sanitize_nonfinite(frames)
             idx = torch.as_tensor(np.asarray(frame_indices, np.int64), device=self.device)
             keys = prng.fold_in(self._base_key, idx)
         with stage("match_consensus"):
@@ -293,9 +408,12 @@ class TorchBackend:
         if cfg.model == "piecewise":
             out = self._piecewise_tail(frames, kps, desc, ref, keys, banded)
         else:
-            out = self._matrix_tail(frames, kps, desc, ref, keys, banded)
-        with stage("download"):
-            return {k: v.cpu().numpy() for k, v in out.items()}
+            out = self._matrix_tail(frames, kps, desc, ref, keys, banded, seed)
+        if cfg.quality_metrics and not ref.get("_skip_quality"):
+            with stage("quality"):
+                out["template_corr"], out["coverage"] = self.quality(
+                    out["corrected"], out, ref["frame"])
+        return self.to_host(out) if to_host else out
 
     def _piecewise_tail(self, frames, kps, desc, ref, keys, banded=None) -> dict:
         """Match (dense or banded), per-patch field estimate, field warp
@@ -340,10 +458,15 @@ class TorchBackend:
             "rms_residual": fres.rms_residual,
         }
 
-    def _register(self, kps, desc, ref, keys, banded=None) -> dict:
+    def _register(self, kps, desc, ref, keys, banded=None, seed=None) -> dict:
         """Match (dense or banded) and consensus of a batch against the
-        reference."""
+        reference; `seed` = (transform, ok) is the consensus's warm-start
+        seed."""
         cfg = self.config
+        seed_M = seed_ok = None
+        if seed is not None:
+            seed_M = torch.as_tensor(seed[0], device=self.device).to(torch.float32)
+            seed_ok = torch.as_tensor(seed[1], device=self.device).to(torch.bool)
         with stage("match_consensus"):
             res, n_matches = fused_match_consensus(
                 self.model, desc, kps.xy, kps.valid,
@@ -353,6 +476,7 @@ class TorchBackend:
                 refine_iters=cfg.refine_iters, score_cap=cfg.score_cap,
                 budget_rungs=cfg.budget_rungs, early_exit_frac=cfg.early_exit_frac,
                 matches=self._banded_matches(banded, kps, desc),
+                seed_transform=seed_M, seed_ok=seed_ok,
             )
         return {
             "transform": res.transform.contiguous(),
@@ -362,13 +486,13 @@ class TorchBackend:
             "rms_residual": res.rms_residual,
         }
 
-    def _matrix_tail(self, frames, kps, desc, ref, keys, banded=None) -> dict:
-        """Match, consensus, the pyramid's coarse-to-fine refine, bounded
-        warp and the transform polish loop (rigid3d has no polish,
-        jax_backend.py:1323)."""
+    def _matrix_tail(self, frames, kps, desc, ref, keys, banded=None, seed=None) -> dict:
+        """Match, consensus (seeded with `seed`), the pyramid's
+        coarse-to-fine refine, bounded warp and the transform polish loop
+        (rigid3d has no polish, jax_backend.py:1323)."""
         cfg = self.config
         batch_warp = self._resolve_batch_warp(frames.shape[1:])
-        out = self._register(kps, desc, ref, keys, banded)
+        out = self._register(kps, desc, ref, keys, banded, seed)
         if frames.dim() == 3 and cfg.n_octaves > 1 and cfg.pyramid_refine:
             # warp by the coarse (multi-scale) estimate and register the
             # residual single-scale, without a temporal seed; frames the
@@ -410,7 +534,14 @@ class TorchBackend:
         volumes through the trilinear gather, neither with a polish
         (jax_backend.py:1431)."""
         cfg = self.config
-        fr = torch.as_tensor(np.asarray(frames, np.float32), device=self.device)
+        if isinstance(frames, torch.Tensor):
+            fr = frames.to(device=self.device, dtype=torch.float32)
+        else:
+            fr = torch.as_tensor(np.asarray(frames, np.float32), device=self.device)
+        if cfg.sanitize_input:
+            # the batch program sanitized its own copy; the rescue warps
+            # the raw frames again (jax_backend.py:1426)
+            fr = sanitize_nonfinite(fr)
         if cfg.model == "piecewise":
             fields = torch.as_tensor(np.asarray(out["field"], np.float32), device=self.device)
             return warp_frame_flow(fr, upsample_field(fields, tuple(fr.shape[1:]))).cpu().numpy()

@@ -2,12 +2,13 @@
 
 The fields the ported slices (translation, rigid, similarity, affine,
 homography, piecewise and rigid3d, single-scale or through the scale
-pyramid) read, under the names and defaults of
-`kcmc_tpu.config.CorrectorConfig`, so a JAX config carries across with
-`config_from_dict(dataclasses.asdict(cfg))`. Knobs the port does not
-implement are still declared: `unsupported()` names each non-default one
-with the ROADMAP.md item that will port it, and the backend raises
-`NotImplementedError` with that list instead of ignoring them. Warp
+pyramid, with the options of `correct()`) read, under the names and
+defaults of `kcmc_tpu.config.CorrectorConfig`, so a JAX config carries
+across with `config_from_dict(dataclasses.asdict(cfg))`. Knobs the port
+does not implement yet (`plan_buckets`, `mesh_devices`) are still
+declared: `unsupported()` names each non-default one with the ROADMAP.md
+item that will port it, and the backend raises `NotImplementedError`
+with that list instead of ignoring them. Warp
 policies and knob values the reference rejects raise `ValueError` here
 with the reference's messages (kcmc_tpu/config.py:750-767, :1018-1047).
 """
@@ -99,8 +100,12 @@ class CorrectorConfig:
 
     # orchestration
     batch_size: int = 32
+    # per-frame template_corr and coverage diagnostics
     quality_metrics: bool = False
+    # replace non-finite pixels by each frame's finite mean
     sanitize_input: bool = False
+    # rolling-template updates blend on the device (update_reference)
+    device_templates: bool = True
     plan_buckets: tuple = ()
     mesh_devices: int = 0
 
@@ -132,6 +137,12 @@ class CorrectorConfig:
             raise ValueError(
                 "match_precision must be 'auto', 'float32', 'bf16', or "
                 f"'int8', got {self.match_precision!r}"
+            )
+        if self.warm_start and self.model == "piecewise":
+            raise ValueError(
+                "warm_start seeds matrix-model consensus with the "
+                "previous batch's transform; the piecewise field has "
+                "no transform seed — disable warm_start for piecewise"
             )
         self._check_warp()
         if self.field_passes < 1:
@@ -224,7 +235,8 @@ class CorrectorConfig:
     def resolved_match_precision(self, on_accelerator: bool = True) -> str:
         """What "auto" resolves to, as in kcmc_tpu. Every variant gives
         the identical Hamming matrix; the port computes it with float32
-        ±1 operands whatever the name says."""
+        ±1 operands whatever the name says. "float32" also selects the
+        unquantized describe route (ops/describe.py)."""
         if self.match_precision == "auto":
             if not on_accelerator or self.model == "rigid3d":
                 return "bf16"
@@ -238,17 +250,6 @@ class CorrectorConfig:
         """Non-default knobs the port does not implement yet, each with
         the ROADMAP.md queue-1 item that will port it."""
         out = []
-        if self.match_precision == "float32":
-            out.append(
-                "match_precision='float32' unquantized describe route "
-                "(ROADMAP queue 1 item 15)"
-            )
-        if self.warm_start:
-            out.append("warm_start (ROADMAP queue 1 item 15)")
-        if self.quality_metrics:
-            out.append("quality_metrics (ROADMAP queue 1 item 15)")
-        if self.sanitize_input:
-            out.append("sanitize_input (ROADMAP queue 1 item 15)")
         if self.plan_buckets:
             out.append("plan_buckets (ROADMAP queue 1 item 16)")
         if self.mesh_devices:

@@ -20,9 +20,10 @@ tensor, plain version on a CPU tensor; the two are bit-identical.
 Counterpart of `kcmc_tpu/ops/pallas_patch.py::extract_patches` (K11,
 csrc/patches.cu): `extract_patches(padded, oy, ox, P)` cuts (B, K, P, P)
 float32 windows of (B, Hp, Wp) float32 frames at (B, K) int32 origins,
-clamped to [0, Hp - P] x [0, Wp - P]. No path of the pipeline calls it
-(nor does one of the JAX package); its callers are its tests and
-chip_smoke.py.
+clamped to [0, Hp - P] x [0, Wp - P]. The unquantized describe route
+(`match_precision="float32"`, ops/describe.py) cuts its raw windows with
+it, where the JAX package slices them with `lax.dynamic_slice`
+(describe.py:95-118).
 """
 
 from __future__ import annotations

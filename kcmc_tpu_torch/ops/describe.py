@@ -30,6 +30,14 @@ kernel K5 multiplies each 16-row block by its bin's one-hot selection
 matrix of the rotated pattern. The words are packed in the sorted
 layout and mapped back to keypoint order.
 
+Unquantized, `precision="float32"` (describe.py:95-136, :215-288, the
+reference route of the `match_precision` parity gate), for every K and
+both orientations: the mean-removed blur stays float32, is edge-padded
+by r + 1, kernel K11 cuts the raw (P, P) windows at floor(xy) + 1, and
+the bilinear blend, the ORB moments of the raw window and the selection
+follow in plain torch. The selected values are quantized to bf16 before
+the comparisons, as on every route.
+
 Bit i is `sample[2i] < sample[2i+1]`, packed into N_WORDS 32-bit words
 (bit i at word i // 32, position i % 32); invalid slots are 0.
 Descriptors are (..., N_WORDS) int64 tensors holding the uint32 bit
@@ -46,7 +54,11 @@ import torch
 
 from kcmc_tpu_torch.config import BINS_FIRST_MIN_K
 from kcmc_tpu_torch.ops.cuda_moments import moment_maps
-from kcmc_tpu_torch.ops.cuda_patch import extract_blended
+from kcmc_tpu_torch.ops.cuda_patch import (
+    _fma,
+    extract_blended,
+    extract_patches,
+)
 from kcmc_tpu_torch.ops.cuda_select import binned_select_rows
 from kcmc_tpu_torch.ops.detect import Keypoints, gaussian_blur
 from kcmc_tpu_torch.ops.dispatch import segment_by_key, stable_argsort_small_keys
@@ -249,32 +261,104 @@ def _binned_select(flat: torch.Tensor, bins: torch.Tensor, valid: torch.Tensor):
     return vals[:, :K]
 
 
+def _bilinear_blend(raw: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """(B, K, P, P) raw windows -> (B, K, P-1, P-1) float32 bilinear
+    resample at each keypoint's fraction, rows first, then columns
+    (describe.py:124), with K2's fused multiply-adds. XLA's compiled
+    blend agrees within float32 rounding (its fusion of the lerps
+    follows no fixed order); the bf16 quantization of the selected
+    values absorbs the difference."""
+    frac = xy - torch.floor(xy)
+    fx = frac[..., 0, None, None]
+    fy = frac[..., 1, None, None]
+    yb = _fma(fy, raw[..., 1:, :], (1.0 - fy) * raw[..., :-1, :])
+    return _fma(1.0 - fx, yb[..., :-1], fx * yb[..., 1:])
+
+
+def centre_finite(smooth: torch.Tensor) -> torch.Tensor:
+    """The (B, H, W) blur less each frame's finite-pixel mean
+    (describe.py:362-387): large DC backgrounds would otherwise eat the
+    bf16 mantissa."""
+    finite = torch.isfinite(smooth)
+    n_fin = torch.clamp(finite.sum(dim=(1, 2), keepdim=True), min=1)
+    mu = torch.where(finite, smooth, torch.zeros((), device=smooth.device)).sum(
+        dim=(1, 2), keepdim=True
+    ) / n_fin
+    return smooth - mu
+
+
+def float32_windows(centred: torch.Tensor, xy: torch.Tensor, oriented: bool):
+    """K11's inputs on the float32 route: the centred blur edge-padded by
+    r + 1, the windows' row and column origins floor(xy) + 1 (int32) and
+    the window side P = 2r + 2."""
+    r = ROT_RADIUS if oriented else PATCH_RADIUS
+    padded = edge_pad(centred, r + 1).contiguous()
+    org = torch.floor(xy).to(torch.int32) + 1
+    return padded, org[..., 1].contiguous(), org[..., 0].contiguous(), 2 * r + 2
+
+
+def _disc_moments(raw: torch.Tensor, frac: torch.Tensor):
+    """(m10, m01) of the ORB disc in raw (B, K, P, P) windows, centred at
+    each keypoint's rounded position (frac: its (x, y) fractional part):
+    one masked float64 sum, rounded once to float32. The reference sums
+    in float32, which moves a bin only for angles within ~1e-6 of a bin
+    boundary."""
+    P = raw.shape[-1]
+    c = (P - 2) // 2
+    ar = torch.arange(P, device=raw.device, dtype=torch.float64)
+    dx = ar - (c + (frac[..., 0] >= 0.5).double())[..., None]  # (B, K, P)
+    dy = ar - (c + (frac[..., 1] >= 0.5).double())[..., None]
+    disc = (dx[..., None, :] ** 2 + dy[..., :, None] ** 2 <= MOMENT_RADIUS ** 2)
+    w = torch.where(disc, raw.double(), 0.0)
+    m10 = torch.einsum("...ij,...j->...", w, dx)
+    m01 = torch.einsum("...ij,...i->...", w, dy)
+    return m10.float(), m01.float()
+
+
+def _describe_float32(centred: torch.Tensor, kps: Keypoints, oriented: bool) -> torch.Tensor:
+    """The unquantized route (describe.py:253-288): K11 cuts the raw
+    windows of the float32 mean-removed blur padded by r + 1, then the
+    blend, the orientation bin (oriented) and the selection; the
+    selected values are quantized to bf16 (describe.py:244)."""
+    B, K = kps.xy.shape[:2]
+    padded, oy, ox, P = float32_windows(centred, kps.xy, oriented)
+    raw = extract_patches(padded, oy, ox, P)
+    flat = _bilinear_blend(raw, kps.xy).reshape(B, K, -1)
+    if oriented:
+        m10, m01 = _disc_moments(raw, kps.xy - torch.floor(kps.xy))
+        bins = _quantize_bins(torch.atan2(m01, m10))
+        cols = torch.as_tensor(_SEL_ROT_INDEX, device=flat.device)[bins]  # (B, K, 512)
+        vals = torch.gather(flat, 2, cols)
+    else:
+        vals = flat[..., torch.as_tensor(_SEL_UPRIGHT, device=flat.device)]
+    return _finalize_descriptors(vals.to(torch.bfloat16), kps.valid)
+
+
 def describe_keypoints_batch(
     frames: torch.Tensor,
     kps: Keypoints,
     blur_sigma: float = 2.0,
     smooth: torch.Tensor | None = None,
     oriented: bool = False,
+    precision: str = "bf16",
 ) -> torch.Tensor:
     """(B, K, N_WORDS) descriptors of a (B, H, W) batch.
 
     `smooth` optionally supplies the blur_sigma-blurred batch (K1's
     free-ride output) so the blur is not recomputed. `oriented` takes
     the small-K route below BINS_FIRST_MIN_K keypoints, the bins-first
-    route from there on."""
+    route from there on. `precision="float32"` takes the unquantized
+    route through K11 instead, for every K ("bf16" and "int8" are the
+    quantized routes)."""
     B, K = kps.xy.shape[:2]
     r = ROT_RADIUS if oriented else PATCH_RADIUS
     P = 2 * r + 2
     if smooth is None:
         smooth = gaussian_blur(frames, blur_sigma)
-    # finite-pixel mean off before the bf16 cast (describe.py:362-387):
-    # large DC backgrounds would otherwise eat the bf16 mantissa
-    finite = torch.isfinite(smooth)
-    n_fin = torch.clamp(finite.sum(dim=(1, 2), keepdim=True), min=1)
-    mu = torch.where(finite, smooth, torch.zeros((), device=smooth.device)).sum(
-        dim=(1, 2), keepdim=True
-    ) / n_fin
-    padded = edge_pad((smooth - mu).to(torch.bfloat16), r + 1).contiguous()
+    centred = centre_finite(smooth)
+    if precision == "float32":
+        return _describe_float32(centred, kps, oriented)
+    padded = edge_pad(centred.to(torch.bfloat16), r + 1).contiguous()
     if oriented and K >= BINS_FIRST_MIN_K:
         m10, m01 = _moments_at_keypoints(padded, kps.xy, r)
         bins = _quantize_bins(torch.atan2(m01, m10))
@@ -296,6 +380,7 @@ def describe_keypoints(
     blur_sigma: float = 2.0,
     smooth: torch.Tensor | None = None,
     oriented: bool = False,
+    precision: str = "bf16",
 ) -> torch.Tensor:
     """(K, N_WORDS) descriptors of one (H, W) frame (the batched route on
     a batch of one)."""
@@ -303,4 +388,5 @@ def describe_keypoints(
     return describe_keypoints_batch(
         img[None], kb, blur_sigma=blur_sigma,
         smooth=None if smooth is None else smooth[None], oriented=oriented,
+        precision=precision,
     )[0]

@@ -35,6 +35,7 @@ def fused_detect_describe(
     n_octaves: int = 1,
     octave_scale: float = 1.5,
     multi_scale: bool = True,
+    precision: str = "bf16",
 ):
     """(Keypoints, desc) of a (B, H, W) float32 batch: K1 fields and
     blur, selection, then the upright describe route through K2 or,
@@ -42,7 +43,8 @@ def fused_detect_describe(
     bins-first route through K4, K2 and K5. With `n_octaves > 1` and
     `multi_scale`, the same stage runs on every octave of the pyramid at
     `per_octave_k` keypoints and border min(border, min(H_o, W_o) // 4),
-    merged octave-major in base coordinates."""
+    merged octave-major in base coordinates. `precision="float32"`
+    describes through the unquantized route (K11) at every K."""
 
     def stage(fr, k, b):
         kps, smooth = detect_keypoints_batch(
@@ -57,7 +59,8 @@ def fused_detect_describe(
             cand_tile=cand_tile,
         )
         desc = describe_keypoints_batch(
-            fr, kps, blur_sigma=blur_sigma, smooth=smooth, oriented=oriented
+            fr, kps, blur_sigma=blur_sigma, smooth=smooth, oriented=oriented,
+            precision=precision,
         )
         return kps, desc
 
@@ -115,11 +118,14 @@ def fused_match_consensus(
     budget_rungs: int = 0,
     early_exit_frac: float = 0.7,
     matches: Matches | None = None,
+    seed_transform: torch.Tensor | None = None,
+    seed_ok: torch.Tensor | None = None,
 ) -> tuple[RansacResult, torch.Tensor]:
     """Match (B, K, W) descriptors against the reference (or take the
     precomputed `matches`) and estimate per-frame transforms:
     (RansacResult, n_matches (B,) int32). Correspondences run reference
-    keypoint -> frame keypoint."""
+    keypoint -> frame keypoint; `seed_transform` / `seed_ok` are the
+    consensus's warm-start seed."""
     src, matches = match_to_reference(
         desc, kp_valid, ref_desc, ref_xy, ref_valid,
         ratio=ratio, max_dist=max_dist, mutual=mutual, matches=matches,
@@ -129,5 +135,6 @@ def fused_match_consensus(
         n_hypotheses=n_hypotheses, threshold=threshold,
         refine_iters=refine_iters, score_cap=score_cap,
         budget_rungs=budget_rungs, early_exit_frac=early_exit_frac,
+        seed_transform=seed_transform, seed_ok=seed_ok,
     )
     return res, matches.valid.sum(dim=1).to(torch.int32)

@@ -11,7 +11,10 @@ once every frame is done. Per-hypothesis draws reproduce the
 reference's bits: key = fold_in(frame_key, h), scores =
 uniform(key, (N,)) over the valid matches, m argmax-and-mask rounds.
 The winner gets IRLS refinement and a final least-squares polish on the
-full match set (`_refine_polish`).
+full match set (`_refine_polish`). A temporal warm-start seed
+(`seed_transform`, `seed_ok`) scores as hypothesis zero: it only adds a
+candidate, and a seed below the exit bar leaves the ladder to run as
+unseeded (ransac.py:273-290).
 
 `ransac_estimate` is the reference's single-frame entry
 (ransac.py:435): without the ladder it is `_estimate_single`, whose
@@ -125,12 +128,16 @@ def consensus_batch(
     score_cap: int = 0,
     budget_rungs: int = 0,
     early_exit_frac: float = 0.7,
+    seed_transform: torch.Tensor | None = None,
+    seed_ok: torch.Tensor | bool | None = None,
 ) -> RansacResult:
     """Batched consensus: src/dst (B, N, d) with d = model.ndim (2, or 3
     for rigid3d), valid (B, N), keys (B, 2) per-frame keys. `score_cap`
     > 0 scores on an every-stride-th subset when N exceeds it (the first
     eighth of the hypotheses then samples the full set); `budget_rungs`
-    > 1 arms the early-exit ladder."""
+    > 1 arms the early-exit ladder. `seed_transform` ((d+1, d+1) shared
+    or (B, d+1, d+1)) with `seed_ok` (bool, scalar or (B,)) is scored
+    first, as the running best of the frames where it is ok."""
     B, N = src.shape[:2]
     dev = src.device
     m = int(model.min_samples)
@@ -171,6 +178,13 @@ def consensus_batch(
     dd = int(model.ndim) + 1
     best_M = torch.eye(dd, dtype=torch.float32, device=dev).expand(B, dd, dd).clone()
     best_s = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    if seed_transform is not None:
+        seedM = torch.as_tensor(seed_transform, dtype=torch.float32, device=dev)
+        seedM = seedM.expand(B, dd, dd)
+        sok = torch.as_tensor(seed_ok, dtype=torch.bool, device=dev).expand(B)
+        s_sc = _count_inliers(model, seedM[:, None], src_s, dst_s, valid_s, thresh_sq)[:, 0]
+        best_s = torch.where(sok, s_sc, best_s)
+        best_M = torch.where(sok[:, None, None], seedM, best_M)
     never_done = torch.zeros((B,), dtype=torch.bool, device=dev)
 
     def hyp_ids(lo, hi):
@@ -259,23 +273,32 @@ def ransac_estimate(
     score_cap: int = 0,
     budget_rungs: int = 0,
     early_exit_frac: float = 0.7,
+    seed_transform: torch.Tensor | None = None,
+    seed_ok: torch.Tensor | bool | None = None,
 ) -> RansacResult:
     """RANSAC estimate of `model` mapping src -> dst (ransac.py:435),
     batched over the leading axes: src/dst (..., N, 2), valid (..., N),
-    key (..., 2). With budget_rungs <= 1 the fixed-budget estimator,
-    else the laddered `consensus_batch`. Result fields carry the leading
-    axes."""
+    key (..., 2). With budget_rungs <= 1 and no seed the fixed-budget
+    estimator, else the laddered `consensus_batch` (a seeded call always
+    takes it; the seed is (..., 3, 3) or shared (3, 3), `seed_ok` (...)
+    or scalar). Result fields carry the leading axes."""
     lead = tuple(src.shape[:-2])
     N = src.shape[-2]
     src = src.reshape((-1, N, 2))
     dst = dst.reshape((-1, N, 2))
     valid = valid.reshape((-1, N))
     key = key.reshape((-1, 2))
-    if int(budget_rungs) > 1:
+    if int(budget_rungs) > 1 or seed_transform is not None:
+        if seed_transform is not None:
+            n = src.shape[0]
+            seed_transform = torch.as_tensor(seed_transform).reshape((-1, 3, 3))
+            seed_transform = seed_transform.expand(n, 3, 3)
+            seed_ok = torch.as_tensor(seed_ok, dtype=torch.bool).reshape(-1).expand(n)
         res = consensus_batch(
             model, src, dst, valid, key, n_hypotheses=n_hypotheses,
             threshold=threshold, refine_iters=refine_iters, score_cap=score_cap,
             budget_rungs=budget_rungs, early_exit_frac=early_exit_frac,
+            seed_transform=seed_transform, seed_ok=seed_ok,
         )
     else:
         thresh_sq = float(torch.tensor(threshold * threshold, dtype=torch.float32))

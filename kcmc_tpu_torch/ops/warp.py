@@ -8,7 +8,12 @@ tensors: frames (B, H, W), transforms (B, 3, 3). `warp_frame_flow`
 warps through dense flows instead (the piecewise model's gather route,
 its rescue and K8's accuracy oracle). `warp_volume` is the 3D gather
 warp of (B, D, H, W) volumes under (B, 4, 4) maps (the rigid3d rescue
-and `warp="jnp"` route).
+and `warp="jnp"` route). The coverage masks (matrix, flow and volume)
+feed the `quality_metrics` diagnostics. `fast_apply_matrix` and
+`fast_apply_fields` are `apply_correction`'s batch warps
+(warp.py:217-330): on the card the bounded kernels K7 and K8 with an
+exact per-frame gather for each frame they flag, on the CPU the gather
+(or, with `force_kernel`, the kernels' plain versions).
 """
 
 from __future__ import annotations
@@ -101,6 +106,25 @@ def coverage_mask(shape, transforms: torch.Tensor) -> torch.Tensor:
     return (sx >= 0) & (sx <= W - 1) & (sy >= 0) & (sy <= H - 1)
 
 
+def coverage_mask_flow(flows: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) bool coverage of the dense-flow warp under (B, H, W, 2)
+    flows: pixels whose sample p + u(p) is in bounds (warp.py:123)."""
+    H, W = flows.shape[1:3]
+    xs, ys = _grid((H, W), flows.device)
+    sx = xs + flows[..., 0]
+    sy = ys + flows[..., 1]
+    return (sx >= 0) & (sx <= W - 1) & (sy >= 0) & (sy <= H - 1)
+
+
+def coverage_mask_3d(shape, transforms: torch.Tensor) -> torch.Tensor:
+    """(B, D, H, W) bool coverage of the volume warp under (B, 4, 4)
+    maps (warp.py:133)."""
+    D, H, W = shape
+    sx, sy, sz = source_coords_3d(shape, transforms)
+    return ((sx >= 0) & (sx <= W - 1) & (sy >= 0) & (sy <= H - 1)
+            & (sz >= 0) & (sz <= D - 1))
+
+
 def trilinear_sample(vols: torch.Tensor, sx, sy, sz) -> torch.Tensor:
     """Sample (B, D, H, W) volumes at float (x, y, z) coordinates of
     shape (B, D, H, W) each; edge-clamped taps, 0 outside the volume."""
@@ -157,3 +181,50 @@ def source_coords_3d(shape, M: torch.Tensor):
 def warp_volume(vols: torch.Tensor, transforms: torch.Tensor) -> torch.Tensor:
     """Correct (B, D, H, W) volumes with (B, 4, 4) ref -> frame maps."""
     return trilinear_sample(vols, *source_coords_3d(vols.shape[1:], transforms))
+
+
+def _refill(out: torch.Tensor, ok: torch.Tensor, exact) -> torch.Tensor:
+    """The bounded warp's output with each flagged frame i replaced by
+    exact(i), one frame at a time."""
+    bad = torch.nonzero(~ok).flatten().tolist()
+    if bad:
+        out = out.clone()
+        for i in bad:
+            out[i] = exact(i)
+    return out
+
+
+def fast_apply_matrix(frames: torch.Tensor, transforms: torch.Tensor,
+                      force_kernel: bool = False) -> torch.Tensor:
+    """Correct (B, H, W) float32 frames through (B, 3, 3) maps with
+    gather-warp semantics (warp.py:217): on the card K7 at max_px = 16,
+    then the exact gather for each frame it flags; on the CPU the
+    gather, or with `force_kernel` K7's plain version and the same
+    fallback."""
+    # imported here: cuda_warp_matrix imports warp_field, which imports this module
+    from kcmc_tpu_torch.ops import cuda_warp_matrix
+
+    if frames.is_cuda or force_kernel:
+        out, ok = cuda_warp_matrix.warp_batch_matrix(frames, transforms, max_px=16)
+        return _refill(out, ok, lambda i: warp_frame(frames[i], transforms[i]))
+    return warp_batch(frames, transforms)
+
+
+def fast_apply_fields(frames: torch.Tensor, fields: torch.Tensor,
+                      force_kernel: bool = False) -> torch.Tensor:
+    """Correct (B, H, W) float32 frames through (B, gh, gw, 2) piecewise
+    fields with gather-warp semantics (warp.py:277): on the card K8 at
+    max_px = 6 where it takes the grid (`cuda_warp_field.supports`),
+    then the exact gather of the upsampled flow for each frame it flags;
+    on the CPU (and beyond K8's grid) the gather, or with `force_kernel`
+    K8's plain version and the same fallback."""
+    # imported here: both import modules that import this one
+    from kcmc_tpu_torch.ops import cuda_warp_field
+    from kcmc_tpu_torch.ops.piecewise import upsample_field
+
+    shape = tuple(frames.shape[1:])
+    if (frames.is_cuda or force_kernel) and cuda_warp_field.supports(fields.shape[1:3], 6):
+        out, ok = cuda_warp_field.warp_batch_field(frames, fields, max_px=6)
+        return _refill(out, ok, lambda i: warp_frame_flow(
+            frames[i:i + 1], upsample_field(fields[i:i + 1], shape))[0])
+    return warp_frame_flow(frames, upsample_field(fields, shape))

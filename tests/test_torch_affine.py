@@ -278,19 +278,38 @@ def test_matrix_bounds_and_config_carry_across():
 @pytest.mark.parametrize(
     "kw",
     [
-        {"model": "rigid", "warm_start": True},
-        {"model": "affine", "max_keypoints": 4096, "oriented": None, "quality_metrics": True},
         {"model": "affine", "max_keypoints": 4096, "plan_buckets": ((128, 128),)},
-        {"model": "rigid3d", "template_iters": 1},
         {"model": "similarity", "max_keypoints": 4096, "mesh_devices": 2},
-        {"model": "homography", "max_keypoints": 4096, "match_precision": "float32"},
-        {"model": "translation", "template_update_every": 8},
-        {"model": "piecewise", "warm_start": True},
     ],
 )
 def test_unported_affine_knobs_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         kcmc_tpu_torch.MotionCorrector(device="cpu", **kw)
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        {"model": "rigid", "warm_start": True},
+        {"model": "affine", "max_keypoints": 4096, "oriented": None, "quality_metrics": True},
+        {"model": "rigid3d", "template_iters": 1},
+        {"model": "homography", "max_keypoints": 4096, "match_precision": "float32"},
+        {"model": "translation", "template_update_every": 8},
+    ],
+)
+def test_ported_affine_knobs_accepted(kw):
+    mc = kcmc_tpu_torch.MotionCorrector(device="cpu", **kw)
+    assert mc.config.unsupported() == []
+
+
+def test_piecewise_warm_start_raises_in_both():
+    """warm_start has no transform seed for piecewise: both packages
+    raise the same ValueError."""
+    with pytest.raises(ValueError) as want:
+        kcmc_tpu.CorrectorConfig(model="piecewise", warm_start=True)
+    with pytest.raises(ValueError) as got:
+        kcmc_tpu_torch.MotionCorrector(model="piecewise", device="cpu", warm_start=True)
+    assert str(got.value) == str(want.value)
 
 
 def test_affine_ok_without_oriented_is_allowed():

@@ -715,3 +715,81 @@ def test_banded_match_on_card_equals_cpu(cuda, radius, slack):
     for f in ("idx", "dist", "second", "valid"):
         assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
     assert int(cpu.valid.sum()) > 100
+
+
+@pytest.mark.parametrize("model,shape,K", [("translation", (512, 512), 512),
+                                           ("homography", (512, 512), 512)])
+def test_k11_float32_route_bitwise(cuda, model, shape, K):
+    """The float32 describe route at config 1's and config 4's shapes:
+    K11 on the run's own padded mean-removed blur and keypoints,
+    bit-identical to its plain version, and the route's words equal on
+    card and CPU (the same K11 windows, the same plain torch after)."""
+    data = make_drift_stack(4, shape, model=model, seed=0)
+    fr = torch.as_tensor(data.stack, device=cuda)
+    kps, smooth = detect_keypoints_batch(fr, max_keypoints=K, threshold=1e-4, smooth_sigma=2.0)
+    oriented = model != "translation"
+    windows = D.float32_windows(D.centre_finite(smooth), kps.xy, oriented)
+    before = cuda_build.launch_counts()["extract_patches"]
+    got = cuda_patch.extract_patches(*windows)
+    assert cuda_build.launch_counts()["extract_patches"] == before + 1
+    assert torch.equal(got, cuda_patch.extract_patches_plain(*windows))
+    card = D.describe_keypoints_batch(fr, kps, smooth=smooth, oriented=oriented,
+                                      precision="float32")
+    cpu_kps = type(kps)(*(t.cpu() for t in kps))
+    cpu = D.describe_keypoints_batch(fr.cpu(), cpu_kps, smooth=smooth.cpu(),
+                                     oriented=oriented, precision="float32")
+    assert torch.equal(card.cpu(), cpu)
+
+
+@pytest.mark.parametrize("kind", ["matrix", "fields"])
+def test_fast_apply_on_card_matches_gather(cuda, kind):
+    """apply_correction's batch warps on the card: K7 (max_px 16) or K8
+    (max_px 6) launched once, the flagged frame exactly the gather's,
+    the frames kept equal to the CPU's kernel route (the plain
+    versions) and near the gather: K7 within 1e-3 of max|frame| (its
+    ~1e-4 px on affine maps; 4.2e-4 on these), K8 within 5e-3 (the
+    two-pass field warp's O(|grad u|^2) term; 3.1e-3 on these)."""
+    from kcmc_tpu_torch.ops import warp as W
+    from kcmc_tpu_torch.ops.piecewise import upsample_field
+
+    fr = torch.as_tensor(_stack(3, (256, 256)).stack, device=cuda)
+    gen = np.random.default_rng(0)
+    if kind == "matrix":
+        M = np.tile(np.eye(3, dtype=np.float32), (3, 1, 1))
+        M[:, :2, 2] = gen.uniform(-6, 6, (3, 2))
+        M[:, :2, :2] += gen.normal(0, 0.01, (3, 2, 2)).astype(np.float32)
+        M[1, :2, :2] = [[np.cos(0.5), -np.sin(0.5)], [np.sin(0.5), np.cos(0.5)]]
+        maps = torch.as_tensor(M, device=cuda)
+        name, gather = "warp_batch_matrix", W.warp_batch(fr, maps)
+        before = cuda_build.launch_counts()[name]
+        got = W.fast_apply_matrix(fr, maps)
+    else:
+        f = gen.uniform(-2, 2, (3, 8, 8, 2)).astype(np.float32)
+        f[1, :4] += 9.0
+        f[1, 4:] -= 9.0
+        maps = torch.as_tensor(f, device=cuda)
+        name = "warp_batch_field"
+        gather = W.warp_frame_flow(fr, upsample_field(maps, (256, 256)))
+        before = cuda_build.launch_counts()[name]
+        got = W.fast_apply_fields(fr, maps)
+    assert cuda_build.launch_counts()[name] == before + 1
+    assert torch.equal(got[1], gather[1])
+    apply = W.fast_apply_matrix if kind == "matrix" else W.fast_apply_fields
+    cpu = apply(fr.cpu(), maps.cpu(), force_kernel=True)
+    assert torch.equal(got.cpu()[[0, 2]], cpu[[0, 2]])
+    scale = float(fr.abs().max())
+    limit = 1e-3 if kind == "matrix" else 5e-3
+    assert float((got - gather)[[0, 2]].abs().max()) <= limit * scale
+
+
+def test_device_stack_with_device_outputs(cuda):
+    """A CUDA stack with device_outputs: CUDA tensors back, transforms
+    equal to the host run's, and the frames with warp_ok equal too."""
+    data = _stack(8, (128, 128), seed=2)
+    mc = MotionCorrector(batch_size=4)
+    host = mc.correct(data.stack)
+    dev = mc.correct(torch.as_tensor(data.stack, device=cuda), device_outputs=True)
+    assert dev.corrected.is_cuda and dev.transforms.is_cuda
+    assert np.array_equal(dev.transforms.cpu().numpy(), host.transforms)
+    ok = dev.diagnostics["warp_ok"].cpu().numpy()
+    assert np.array_equal(dev.corrected.cpu().numpy()[ok], host.corrected[ok])

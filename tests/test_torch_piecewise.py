@@ -264,10 +264,6 @@ def test_piecewise_config_carries_across():
 @pytest.mark.parametrize(
     "kw",
     [
-        {"model": "similarity", "n_octaves": 3, "warm_start": True},
-        {"model": "rigid3d", "sanitize_input": True},
-        {"model": "homography", "sanitize_input": True},
-        {"model": "piecewise", "quality_metrics": True},
         {"model": "piecewise", "mesh_devices": 2},
         {"model": "rigid", "plan_buckets": ((64, 64),)},
     ],
@@ -275,6 +271,20 @@ def test_piecewise_config_carries_across():
 def test_unported_knobs_still_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         kcmc_tpu_torch.MotionCorrector(device="cpu", **kw)
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        {"model": "similarity", "n_octaves": 3, "warm_start": True},
+        {"model": "rigid3d", "sanitize_input": True},
+        {"model": "homography", "sanitize_input": True},
+        {"model": "piecewise", "quality_metrics": True},
+    ],
+)
+def test_ported_knobs_now_accepted(kw):
+    mc = kcmc_tpu_torch.MotionCorrector(device="cpu", **kw)
+    assert mc.config.unsupported() == []
 
 
 # ---------------------------------------------------------------------------

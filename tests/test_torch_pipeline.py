@@ -135,20 +135,30 @@ def test_config_carries_across():
 
 @pytest.mark.parametrize(
     "kw",
-    [
-        {"warm_start": True}, {"plan_buckets": ((128, 128),)},
-        {"sanitize_input": True}, {"model": "affine", "warm_start": True},
-        {"model": "similarity", "n_octaves": 2, "quality_metrics": True},
-        {"quality_metrics": True}, {"mesh_devices": 2},
-        {"model": "rigid3d", "warm_start": True},
-        {"model": "piecewise", "sanitize_input": True}, {"match_precision": "float32"},
-        {"template_iters": 1}, {"template_update_every": 8}, {"mesh": object()},
-        {"model": "homography", "template_iters": 1},
-    ],
+    [{"plan_buckets": ((128, 128),)}, {"mesh_devices": 2}, {"mesh": object()}],
 )
 def test_unported_knobs_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         kcmc_tpu_torch.MotionCorrector(device="cpu", **kw)
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        {"warm_start": True}, {"sanitize_input": True},
+        {"model": "affine", "warm_start": True},
+        {"model": "similarity", "n_octaves": 2, "quality_metrics": True},
+        {"quality_metrics": True}, {"model": "rigid3d", "warm_start": True},
+        {"model": "piecewise", "sanitize_input": True}, {"match_precision": "float32"},
+        {"template_iters": 1}, {"template_update_every": 8},
+        {"model": "homography", "template_iters": 1},
+    ],
+)
+def test_ported_knobs_accepted(kw):
+    """The options of correct() ported with queue 1 item 15a: accepted,
+    with nothing left unsupported."""
+    mc = kcmc_tpu_torch.MotionCorrector(device="cpu", **kw)
+    assert mc.config.unsupported() == []
 
 
 @pytest.fixture
@@ -196,7 +206,8 @@ def test_port_imports_neither_jax_nor_kcmc_tpu():
     assert len(names) >= 28
     for mod in ("ops.piecewise", "ops.cuda_warp_field", "ops.cuda_patch", "ops.dispatch",
                 "ops.detect3d", "ops.describe3d", "ops.cuda_detect3d", "ops.cuda_patch3d",
-                "ops.pyramid", "ops.warp_separable", "ops.match_banded", "ops.warp_field"):
+                "ops.pyramid", "ops.warp_separable", "ops.match_banded", "ops.warp_field",
+                "utils.trajectory", "corrector", "ops.warp"):
         assert "kcmc_tpu_torch." + mod in names
     src = open(os.path.join(REPO, "chip_smoke.py")).read()
     assert "import jax" not in src and "from kcmc_tpu " not in src
