@@ -170,6 +170,33 @@ with its own launch counts (escalation off):
     route on two witness frames of the channel reading the reference's
     interpret-mode gap (APPLY_WITNESS).
 
+Every e2e line above also asserts that timing["robustness"] shows no
+retry, failover or failed frame. Then files and resume, at full width in
+a temporary directory removed afterwards (uint16 TIFFs written by the
+port's TiffWriter, the scene x 40000; escalation off):
+19. e2e_file: config 1's 1000 frames; correct_file(output, checkpoint,
+    checkpoint_every=256) writes correct()'s uint16 frames bit for bit
+    with equal transforms, launches K1/K2/K3 = 33/33/64, RMSE <= 0.05
+    px; a run killed by device:step=20:fatal and resumed has the
+    uninterrupted output's sha256 (restored_frames and the resumed
+    run's launches printed); frames/s beside correct()'s (no claim; also
+    a repeat without a checkpoint and a run without an output), the
+    decoder that ran, prefetch_wait and the writer stalls;
+20. e2e_file_twopass: config 2's scene, 256 frames; a registration-only
+    correct_file (emit_frames=False) whose transforms equal correct()'s
+    on the frames K7 kept (it runs no gather rescue, as the reference's
+    does not, so flagged frames keep their unpolished estimate; their
+    gap printed), RMSE <= 0.05 px; then apply_correction_file to a
+    second channel (deflate TIFF): equal to the in-memory
+    apply_correction cast to uint16, bit for bit, K7 once per batch;
+21. e2e_file_faults: config 1's scene, 256 frames, through the
+    robustness ladder: an io_read and a device transient the retries
+    absorb (output bytes equal to the clean run's); a device fault that
+    exhausts the retries (one batch on the CPU failover, its transforms
+    within 1e-3 px of the clean run's, the others bit-equal, RMSE <=
+    0.05 px); failover_backend=None with device:step=4:always (32 frames
+    marked failed and interpolated, the others' RMSE <= 0.05 px).
+
 The line before the last holds the kernels table; the last line is
 {"ok": true, "device": {...}}.
 
@@ -1262,10 +1289,11 @@ def _gt_beyond_bound(stack, gt_rel, mc) -> int:
     return n
 
 
-def counted_run(mc, stack):
+def counted_run(mc, stack, **kw):
     """A warm-up correct() of one batch, then the timed correct() of the
-    stack with the launch counters set to 0 just before it and read just
-    after: (result, seconds, launches, RuntimeWarning texts)."""
+    stack (with `kw`) with the launch counters set to 0 just before it
+    and read just after: (result, seconds, launches, RuntimeWarning
+    texts)."""
     import warnings
 
     with warnings.catch_warnings():
@@ -1277,14 +1305,27 @@ def counted_run(mc, stack):
     with warnings.catch_warnings(record=True) as rec:
         warnings.simplefilter("always")
         t0 = time.perf_counter()
-        res = mc.correct(stack)
+        res = mc.correct(stack, **kw)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     launches = mc.backend.launch_counts()
     return res, seconds, launches, [str(w.message) for w in rec if w.category is RuntimeWarning]
 
 
+ROBUST_KEYS = ("io_retries", "device_retries", "backend_failovers", "failed_frames")
+
+
+def check_robust_clean(phase: str, res) -> dict:
+    """The run's timing["robustness"]: no retry, failover or failed
+    frame on a clean run (the ladder must never hide a device fault)."""
+    rb = res.timing.get("robustness")
+    if rb is None or any(rb[k] for k in ROBUST_KEYS):
+        raise AssertionError(f"{phase}: the robustness ladder acted on a clean run: {rb}")
+    return {k: rb[k] for k in ROBUST_KEYS}
+
+
 def e2e_line(smi, phase, model, stack, res, seconds, launches, metric, err, extra) -> dict:
+    robust = check_robust_clean(phase, res)
     line = {
         "phase": phase, "model": model,
         "frames": len(stack), "seconds": seconds, "frames_per_s": len(stack) / seconds,
@@ -1293,7 +1334,8 @@ def e2e_line(smi, phase, model, stack, res, seconds, launches, metric, err, extr
         "mean_keypoints": float(np.mean(res.diagnostics["n_keypoints"])),
         "mean_matches": float(np.mean(res.diagnostics["n_matches"])),
         "mean_inliers": float(np.mean(res.diagnostics["n_inliers"])),
-        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi,
+        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9, "robustness": robust,
+        "card": smi,
     }
     emit(line)
     if res.corrected.shape != stack.shape or not np.isfinite(res.corrected).all():
@@ -1786,7 +1828,9 @@ def phase_e2e_apply(smi: str, affine: tuple, stabilize: np.ndarray) -> dict:
                      for i, w in zip(idx, witness))
     # config 3's recovered fields
     stack3, _, mc3 = path_input("piecewise", 256)
-    fields = mc3.correct(stack3).fields
+    reg3 = mc3.correct(stack3)
+    check_robust_clean("e2e_apply[fields]", reg3)
+    fields = reg3.fields
     out3, seconds3, launches3 = run(stack3, fields=fields)
     flagged3, equal3, worst3 = check(stack3, out3, fields, "fields")
     # stabilization: the jitter-free path of config 1's drift
@@ -1829,6 +1873,265 @@ def phase_e2e_apply(smi: str, affine: tuple, stabilize: np.ndarray) -> dict:
     if not witness_ok:
         raise AssertionError(f"e2e_apply: the witness frames read {witness}, the reference "
                              f"{APPLY_WITNESS} (within {APPLY_WITNESS_TOL})")
+    return line
+
+
+# the file phases: a float scene as the uint16 frames a camera writes
+# (the JAX package's streaming tests scale by 40000)
+U16_SCALE = 40000.0
+# fast retries: the ladder's logic, not its sleeps
+FAST_RETRY = dict(retry_backoff_s=0.01, retry_backoff_max_s=0.02)
+
+
+def _u16(stack: np.ndarray) -> np.ndarray:
+    return np.clip(stack * U16_SCALE, 0, 65535).astype(np.uint16)
+
+
+def _write_tif(path: str, stack: np.ndarray, compression: str = "none") -> float:
+    """Write a stack with the port's TiffWriter; returns seconds."""
+    from kcmc_tpu_torch.io.tiff import TiffWriter
+
+    t0 = time.perf_counter()
+    with TiffWriter(path, compression=compression) as w:
+        w.append_batch(stack)
+    return time.perf_counter() - t0
+
+
+def _sha256(path: str) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def _build_decoder() -> tuple[float, bool]:
+    """Build (or load) the native TIFF decoder before any timed file
+    run, so its g++ build stays out of the frames/s: (seconds, built)."""
+    from kcmc_tpu_torch.io.tiff import _get_native
+
+    t0 = time.perf_counter()
+    lib = _get_native()
+    return time.perf_counter() - t0, lib is not None
+
+
+def file_run(mc, path: str, **kw):
+    """A correct_file run with the launch counters set to 0 just before
+    it and read just after: (result, seconds, launches, RuntimeWarning
+    texts)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    mc.backend.reset_launch_counts()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        res = mc.correct_file(path, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = mc.backend.launch_counts()
+    return res, seconds, launches, [str(w.message) for w in rec if w.category is RuntimeWarning]
+
+
+def _stalls(res) -> dict:
+    st = res.timing.get("stalls_s", {})
+    return {k: st.get(k, 0.0) for k in ("prefetch_wait", "writer_backpressure", "writer_flush")}
+
+
+def phase_e2e_file(smi: str, tmp: str) -> dict:
+    """Config 1's 1000-frame scene as a uint16 TIFF (the port's
+    TiffWriter): an uninterrupted correct_file(output, checkpoint,
+    checkpoint_every=256) whose output equals correct() of the same
+    uint16 stack cast to uint16, bit for bit, with equal transforms,
+    launches K1/K2/K3 33/33/64 and RMSE <= 0.05 px; then a run killed by
+    an injected fatal device fault at batch 20 and resumed, whose output
+    has the uninterrupted run's sha256."""
+    from kcmc_tpu_torch import MotionCorrector
+    from kcmc_tpu_torch.io.tiff import read_stack
+    from kcmc_tpu_torch.utils.faults import FatalFaultError
+
+    n = 1000
+    stack_f, gt_rel, mc = _cell("translation", n)
+    stack = _u16(stack_f)
+    src, out, out2 = (os.path.join(tmp, f) for f in ("config1.tif", "out.tif", "resumed.tif"))
+    write_s = _write_tif(src, stack)
+    decoder_build_s, decoder_built = _build_decoder()  # printed as "decoder"
+    mem, mem_s, _, _ = counted_run(mc, stack, output_dtype="input")
+    ckpt = dict(checkpoint_every=256)
+    res, seconds, launches, _ = file_run(mc, src, output=out,
+                                         checkpoint=os.path.join(tmp, "run.ckpt.npz"), **ckpt)
+    robust = check_robust_clean("e2e_file", res)
+    err = _rmse(res, gt_rel, stack.shape[1:])
+    equal = np.array_equal(read_stack(out), mem.corrected)
+    same_transforms = np.array_equal(res.transforms, mem.transforms)
+    killer = MotionCorrector(model="translation", rescue_escalate=False,
+                             fault_plan="device:step=20:fatal")
+    try:
+        killer.correct_file(src, output=out2, checkpoint=os.path.join(tmp, "kill.ckpt.npz"),
+                            **ckpt)
+        killed = False
+    except FatalFaultError:
+        killed = True
+    resumed, resumed_s, resumed_launches, _ = file_run(
+        mc, src, output=out2, checkpoint=os.path.join(tmp, "kill.ckpt.npz"), **ckpt)
+    sha, sha2 = _sha256(out), _sha256(out2)
+    # the spread of correct_file's frames/s: the same run again without
+    # a checkpoint, and once without an output (frames to the host)
+    _, repeat_s, _, _ = file_run(mc, src, output=os.path.join(tmp, "repeat.tif"))
+    os.remove(os.path.join(tmp, "repeat.tif"))
+    _, nowrite_s, _, _ = file_run(mc, src)
+    line = {
+        "phase": "e2e_file", "model": "translation", "frames": n, "rmse_px": err,
+        "frames_per_s": n / seconds, "correct_frames_per_s": n / mem_s,
+        "repeat_frames_per_s": n / repeat_s, "no_output_frames_per_s": n / nowrite_s,
+        "write_tif_s": write_s, "decoder": res.timing["decoder"],
+        "decoder_build_s": decoder_build_s, "stalls_s": _stalls(res),
+        "output_equal_to_correct": equal, "transforms_equal": same_transforms,
+        "launches": launches, "robustness": robust,
+        "resume": {"killed": killed, "restored_frames": resumed.timing["restored_frames"],
+                   "launches": resumed_launches,
+                   "frames_per_s": (n - resumed.timing["restored_frames"]) / resumed_s,
+                   "sha256_equal": sha == sha2, "sha256": sha[:16]},
+        "card": smi,
+    }
+    emit(line)
+    _check_rmse("e2e_file", err)
+    check_launches("e2e_file", launches, WANT_LAUNCHES["translation"])
+    if not (equal and same_transforms and killed and sha == sha2):
+        raise AssertionError(f"e2e_file: {line}")
+    return line
+
+
+def phase_e2e_file_twopass(smi: str, tmp: str) -> dict:
+    """Config 2's scene, 256 frames as a uint16 TIFF: a registration-only
+    correct_file (emit_frames=False) whose transforms equal correct()'s
+    on every frame the bounded warp kept (the registration-only pass
+    runs no gather rescue, as the reference's, so the frames K7 flags
+    keep their unpolished estimate); then apply_correction_file of its
+    transforms to a second channel (deflate TIFF), equal to the
+    in-memory apply_correction cast to uint16, bit for bit, K7 once per
+    batch."""
+    from kcmc_tpu_torch import apply_correction, apply_correction_file
+    from kcmc_tpu_torch.io.tiff import read_stack
+    from kcmc_tpu_torch.ops import cuda_build
+    from kcmc_tpu_torch.utils.metrics import transform_rmse
+
+    n, B = 256, 32
+    stack_f, gt_rel, mc = _cell("affine", n)
+    stack = _u16(stack_f)
+    rng = np.random.default_rng(2)
+    channel = _u16(0.5 * stack_f + rng.normal(0, 0.005, stack_f.shape))
+    src, ch2, out = (os.path.join(tmp, f) for f in ("config2.tif", "ch2.tif", "ch2_out.tif"))
+    _write_tif(src, stack)
+    _write_tif(ch2, channel, compression="deflate")
+    mem, mem_s, _, _ = counted_run(mc, stack)
+    reg, seconds, launches, _ = file_run(mc, src, emit_frames=False)
+    robust = check_robust_clean("e2e_file_twopass", reg)
+    ok = np.asarray(reg.diagnostics["warp_ok"], bool)
+    equal_kept = np.array_equal(reg.transforms[ok], mem.transforms[ok])
+    flagged_gap = (transform_rmse(reg.transforms[~ok], mem.transforms[~ok], stack.shape[1:])
+                   if (~ok).any() else 0.0)
+    err = _rmse(reg, gt_rel, stack.shape[1:])
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    apply_correction_file(ch2, out, transforms=reg.transforms)
+    apply_s = time.perf_counter() - t0
+    apply_launches = cuda_build.launch_counts()
+    want = apply_correction(channel, reg.transforms, output_dtype="input")
+    apply_equal = np.array_equal(read_stack(out), want)
+    line = {
+        "phase": "e2e_file_twopass", "model": "affine", "frames": n, "rmse_px": err,
+        "frames_per_s": n / seconds, "correct_frames_per_s": n / mem_s,
+        "warp_flagged": int((~ok).sum()),
+        "correct_warp_rescued": int(np.sum(mem.diagnostics["warp_rescued"])),
+        "transforms_equal_on_kept": equal_kept, "flagged_transform_gap_px": flagged_gap,
+        "launches": {k: launches[k] + apply_launches[k] for k in launches},
+        "registration_launches": launches, "robustness": robust,
+        "apply": {"launches": apply_launches, "frames_per_s": n / apply_s,
+                  "equal_to_apply_correction": apply_equal},
+        "card": smi,
+    }
+    emit(line)
+    _check_rmse("e2e_file_twopass", err)
+    check_launches("e2e_file_twopass", launches, _launches(
+        detect_response=n // B + 1, extract_blended=n // B + 1, moment_maps=n // B + 1,
+        binned_select_rows=n // B + 1, warp_batch_matrix=2 * (n // B)))
+    check_launches("e2e_file_twopass[apply]", apply_launches,
+                   _launches(warp_batch_matrix=n // B))
+    if not (equal_kept and apply_equal):
+        raise AssertionError(f"e2e_file_twopass: {line}")
+    return line
+
+
+def phase_e2e_file_faults(smi: str, tmp: str) -> dict:
+    """Config 1's scene, 256 frames as a uint16 TIFF, through the
+    robustness ladder: (a) an io_read and a device transient the retries
+    absorb: output bytes equal to the clean run's; (b) a device fault
+    that exhausts the retries: one batch re-run on the CPU failover, its
+    transforms within 1e-3 px of the clean run's, the other batches
+    bit-equal, RMSE <= 0.05 px; (c) failover_backend=None with
+    device:step=4:always: 32 frames marked failed and interpolated, the
+    other frames' RMSE <= 0.05 px."""
+    from kcmc_tpu_torch import MotionCorrector
+    from kcmc_tpu_torch.utils.metrics import transform_rmse
+
+    n, B = 256, 32
+    stack_f, gt_rel, _ = _cell("translation", n)
+    src = os.path.join(tmp, "config1_256.tif")
+    _write_tif(src, _u16(stack_f))
+    shape = stack_f.shape[1:]
+
+    def run(tag, **kw):
+        mc = MotionCorrector(model="translation", rescue_escalate=False, **FAST_RETRY, **kw)
+        out = os.path.join(tmp, f"faults_{tag}.tif")
+        res, seconds, launches, warned = file_run(mc, src, output=out)
+        return res, out, seconds, launches, warned
+
+    clean, clean_out, clean_s, launches, _ = run("clean")
+    check_robust_clean("e2e_file_faults[clean]", clean)
+    a, a_out, _, _, _ = run("absorbed", fault_plan="io_read:step=1:transient, "
+                                                   "device:step=3:transient:times=2")
+    b, _, b_s, b_launches, b_warned = run("failover", fault_plan="device:step=2:always")
+    c, _, _, _, c_warned = run("failed", fault_plan="device:step=4:always",
+                               failover_backend=None)
+    fo = np.zeros(n, bool)
+    fo[2 * B:3 * B] = True
+    failed = np.asarray(c.diagnostics.get("frames_failed", np.zeros(n, bool)))
+    lines = {
+        "absorbed": {**a.timing["robustness"],
+                     "bytes_equal": _sha256(a_out) == _sha256(clean_out)},
+        "failover": {**b.timing["robustness"], "seconds": b_s, "launches": b_launches,
+                     "batch_gap_px": transform_rmse(b.transforms[fo], clean.transforms[fo], shape),
+                     "others_bit_equal": np.array_equal(b.transforms[~fo], clean.transforms[~fo]),
+                     "rmse_px": _rmse(b, gt_rel, shape), "warned": len(b_warned)},
+        "failed": {**c.timing["robustness"], "frames_failed": int(failed.sum()),
+                   "failed_frames_at": [int(i) for i in np.nonzero(failed)[0][[0, -1]]]
+                   if failed.any() else [],
+                   "rmse_px_others": transform_rmse(c.transforms[~failed], gt_rel[~failed], shape),
+                   "rmse_px_interpolated": (transform_rmse(c.transforms[failed], gt_rel[failed],
+                                                           shape) if failed.any() else None),
+                   "warned": len(c_warned)},
+    }
+    line = {"phase": "e2e_file_faults", "model": "translation", "frames": n,
+            "clean_frames_per_s": n / clean_s, "rmse_px": _rmse(clean, gt_rel, shape),
+            "launches": launches, **lines, "card": smi}
+    emit(line)
+    check_launches("e2e_file_faults", launches, _launches(
+        detect_response=n // B + 1, extract_blended=n // B + 1, warp_translation=2 * (n // B)))
+    la, lb, lc = lines["absorbed"], lines["failover"], lines["failed"]
+    ok = (la["bytes_equal"] and (la["io_retries"], la["device_retries"], la["backend_failovers"],
+                                 la["failed_frames"]) == (1, 2, 0, 0)
+          and (lb["device_retries"], lb["backend_failovers"], lb["failover_frames"],
+               lb["failed_frames"]) == (2, 1, 32, 0)
+          and lb["batch_gap_px"] <= 1e-3 and lb["others_bit_equal"] and lb["rmse_px"] <= 0.05
+          and (lc["failed_frames"], lc["rescued_frames"], lc["backend_failovers"]) == (32, 32, 0)
+          and lc["failed_frames_at"] == [4 * B, 5 * B - 1] and lc["rmse_px_others"] <= 0.05
+          and line["rmse_px"] <= 0.05)
+    if not ok:
+        raise AssertionError(f"e2e_file_faults: {line}")
     return line
 
 
@@ -1941,6 +2244,13 @@ def main() -> int:
     by_path["e2e_sanitize"] = phase_e2e_sanitize(smi)
     by_path["e2e_chunked_device"], affine = phase_e2e_chunked_device(smi)
     by_path["e2e_apply"] = phase_e2e_apply(smi, affine, config1_transforms)
+    # files and resume (queue 1 item 15b), in a directory removed after
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="kcmc_smoke_") as tmp:
+        by_path["e2e_file"] = phase_e2e_file(smi, tmp)
+        by_path["e2e_file_twopass"] = phase_e2e_file_twopass(smi, tmp)
+        by_path["e2e_file_faults"] = phase_e2e_file_faults(smi, tmp)
     for r in rows:
         r["launches"] = sum(line["launches"][r["name"]] for line in by_path.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -148,6 +148,10 @@ def stage(name: str):
 
 class TorchBackend:
     name = "torch"
+    # Device errors the robustness ladder may retry: none. A CUDA error
+    # is sticky — no retry on the same context outlives it — so a launch,
+    # build or kernel error always raises (faults.classify_device_transient).
+    transient_error_types = ()
 
     def __init__(self, config: CorrectorConfig, device=None):
         missing = config.unsupported()

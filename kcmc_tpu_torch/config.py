@@ -2,7 +2,8 @@
 
 The fields the ported slices (translation, rigid, similarity, affine,
 homography, piecewise and rigid3d, single-scale or through the scale
-pyramid, with the options of `correct()`) read, under the names and
+pyramid, with the options of `correct()`, and the retry, fault and
+file-streaming knobs of `correct_file()`) read, under the names and
 defaults of `kcmc_tpu.config.CorrectorConfig`, so a JAX config carries
 across with `config_from_dict(dataclasses.asdict(cfg))`. Knobs the port
 does not implement yet (`plan_buckets`, `mesh_devices`) are still
@@ -109,6 +110,32 @@ class CorrectorConfig:
     plan_buckets: tuple = ()
     mesh_devices: int = 0
 
+    # robustness (utils/faults.py; the degradation ladder of correct()
+    # and correct_file()): total attempts per retryable operation (chunk
+    # reads, device batches; 1 = no retry), exponential backoff with
+    # seeded jitter
+    retry_attempts: int = 3
+    retry_backoff_s: float = 0.05
+    retry_backoff_max_s: float = 2.0
+    retry_jitter: float = 0.25  # uniform fraction in [0, 1]
+    # rung 2: re-run a batch whose retries are spent on this backend;
+    # "numpy" (the reference's name) is the same config on device="cpu",
+    # the kernels' plain versions; None disables the rung
+    failover_backend: str | None = "numpy"
+    # rung 3: mark the batch's frames failed (identity transform, raw
+    # pixels; matrix transforms interpolated after the run) instead of
+    # raising
+    degrade_mark_failed: bool = True
+    # deterministic fault-injection spec (also KCMC_FAULT_PLAN), e.g.
+    # "io_read:step=3:raise, device:step=7:transient"
+    fault_plan: str | None = None
+    # file streaming: decode workers (0 = auto), prefetch depth in
+    # chunks (0 = derived from the dispatch window) and the background
+    # writer's queue depth in batches (0 = synchronous writes)
+    io_workers: int = 0
+    io_prefetch: int = 0
+    writer_depth: int = 2
+
     def __post_init__(self):
         if self.model not in MODELS:
             raise ValueError(
@@ -194,9 +221,52 @@ class CorrectorConfig:
             raise ValueError(
                 f"transform_polish must be >= 0, got {self.transform_polish}"
             )
+        self._check_robustness()
         object.__setattr__(self, "polish_grid", tuple(self.polish_grid))
         object.__setattr__(self, "patch_grid", tuple(self.patch_grid))
         object.__setattr__(self, "plan_buckets", tuple(self.plan_buckets))
+
+    def _check_robustness(self) -> None:
+        """The reference's checks of the retry, fault, object-store and
+        file-streaming knobs, with its messages."""
+        if self.retry_attempts < 1:
+            raise ValueError(
+                f"retry_attempts must be >= 1 (1 = no retry), got "
+                f"{self.retry_attempts}"
+            )
+        if self.retry_backoff_s <= 0.0:
+            raise ValueError(
+                f"retry_backoff_s must be positive, got {self.retry_backoff_s}"
+            )
+        if self.retry_backoff_max_s < self.retry_backoff_s:
+            raise ValueError(
+                "retry_backoff_max_s must be >= retry_backoff_s, got "
+                f"{self.retry_backoff_max_s} < {self.retry_backoff_s}"
+            )
+        if not 0.0 <= self.retry_jitter <= 1.0:
+            raise ValueError(
+                f"retry_jitter must be in [0, 1], got {self.retry_jitter}"
+            )
+        if self.fault_plan is not None:
+            # a typo'd chaos spec fails at construction, not mid-run
+            from kcmc_tpu_torch.utils.faults import FaultPlan
+
+            FaultPlan.from_spec(self.fault_plan)
+        if self.writer_depth < 0:
+            raise ValueError(
+                f"writer_depth must be >= 0 batches (0 = synchronous "
+                f"writes), got {self.writer_depth}"
+            )
+        if self.io_workers < 0:
+            raise ValueError(
+                f"io_workers must be >= 0 workers (0 = auto), got "
+                f"{self.io_workers}"
+            )
+        if self.io_prefetch < 0:
+            raise ValueError(
+                f"io_prefetch must be >= 0 chunks (0 = auto: derived "
+                f"from the dispatch window), got {self.io_prefetch}"
+            )
 
     def _check_warp(self) -> None:
         """The reference's warp-policy checks, with its messages."""
@@ -255,6 +325,20 @@ class CorrectorConfig:
         if self.mesh_devices:
             out.append("mesh_devices (ROADMAP queue 1 item 17)")
         return out
+
+
+# Fields that shape failure recovery, IO scheduling or execution
+# topology but never what a run computes (kcmc_tpu/config.py:1094-1170,
+# for the fields the port declares): pinned to their defaults in
+# correct_file's resume signature, so changing them between a killed
+# run and its rerun resumes instead of restarting. `device_templates`
+# and `plan_buckets` are deliberately not neutral.
+SIG_NEUTRAL_FIELDS = frozenset({
+    "fault_plan", "retry_attempts", "retry_backoff_s", "retry_backoff_max_s",
+    "retry_jitter", "failover_backend", "degrade_mark_failed",
+    "writer_depth", "io_workers", "io_prefetch",
+    "mesh_devices",
+})
 
 
 def config_from_dict(d: dict) -> CorrectorConfig:

@@ -128,10 +128,18 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for `name`, building it first if needed."""
     lib = _LIBS.get(name)
     if lib is None:
-        out = target(name)
-        if not out.exists():
-            build([name])
-        lib = ctypes.CDLL(str(out))
+        out = name
+        try:
+            # target() reads the sources: inside the try, so an OSError
+            # there is a build fault too
+            out = target(name)
+            if not out.exists():
+                build([name])
+            lib = ctypes.CDLL(str(out))
+        except OSError as e:
+            # a build or load failure is a fault of the program, never
+            # an I/O hiccup the robustness ladder may retry or fail over
+            raise RuntimeError(f"cannot build or load {out}: {e}") from e
         _LIBS[name] = lib
     return lib
 

@@ -207,8 +207,50 @@ def test_port_imports_neither_jax_nor_kcmc_tpu():
     for mod in ("ops.piecewise", "ops.cuda_warp_field", "ops.cuda_patch", "ops.dispatch",
                 "ops.detect3d", "ops.describe3d", "ops.cuda_detect3d", "ops.cuda_patch3d",
                 "ops.pyramid", "ops.warp_separable", "ops.match_banded", "ops.warp_field",
-                "utils.trajectory", "corrector", "ops.warp"):
+                "utils.trajectory", "corrector", "ops.warp", "io", "io.tiff",
+                "io.formats", "io.feeder", "io.reader", "io.async_writer",
+                "utils.checkpoint", "utils.faults", "utils.dtypes", "obs.log"):
         assert "kcmc_tpu_torch." + mod in names
     src = open(os.path.join(REPO, "chip_smoke.py")).read()
     assert "import jax" not in src and "from kcmc_tpu " not in src
     assert "from kcmc_tpu." not in src and "import kcmc_tpu\n" not in src
+
+
+def test_decode_worker_imports_only_the_io_package(tmp_path):
+    """The decode pool's worker entry point (`feeder._decode_span`, what
+    a spawned worker runs) decodes with torch, jax and kcmc_tpu blocked:
+    the lazy package init keeps a worker's imports to
+    `kcmc_tpu_torch.io` and numpy. A real process pool then decodes the
+    same pages."""
+    path = str(tmp_path / "s.tif")
+    frames = (np.arange(6 * 24 * 20) % 997).astype(np.uint16).reshape(6, 24, 20)
+    from kcmc_tpu_torch.io import feeder, write_stack
+
+    write_stack(path, frames, compression="deflate")
+    code = textwrap.dedent(
+        f"""
+        import sys
+        for m in ("torch", "jax", "kcmc_tpu"):
+            sys.modules[m] = None
+        import numpy as np
+        from kcmc_tpu_torch.io import feeder
+        got = feeder._decode_span(("stack", {path!r}, (("force_python", True),)), 1, 5)
+        assert got.shape == (4, 24, 20), got.shape
+        bad = [m for m in sys.modules if m.startswith(("torch", "jax", "kcmc_tpu."))
+               and sys.modules[m] is not None]
+        assert not bad, bad
+        print(int(got.sum()))
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": REPO}, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout) == int(frames[1:5].sum())
+    pool = feeder.DecodePool(1, kind="process")
+    try:
+        got = pool.submit(("stack", path, (("force_python", True),)), 2, 6).result(timeout=120)
+    finally:
+        pool.shutdown()
+    np.testing.assert_array_equal(got, frames[2:6])
