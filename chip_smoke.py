@@ -13,7 +13,10 @@ line is printed:
 2. build: compiles every CUDA kernel (K1-K11) from
    kcmc_tpu_torch/csrc (one nvcc per source, in parallel); each
    library's ptxas lines (registers, shared memory, spills of every
-   kernel; none, and `cached`, where the build cache held it);
+   kernel; none, and `cached`, where the build cache held it); then
+   link: the host-to-card copy rate of a 256-frame 512x512 float32
+   stack from pageable and from pinned memory, beside the roofline's
+   `link` figure (PCIe Gen5 x16's spec);
 3. kernels: each kernel against its plain PyTorch version on the card
    at the main paths' shapes, then CUDA-event times of kernel, plain
    version and one-call PyTorch yardstick where there is one, and each
@@ -74,6 +77,11 @@ line is printed:
      bit-identical at B=32, K=512, P=28 on (32, 540, 540) padded blur at
      the translation path's keypoint origins, and at K=13; K11's bytes
      count the union of the windows read;
+   - selftest: kcmc_tpu_torch.selftest in this process (each kernel
+     against its plain version at production sizes, the warps against
+     the gather on the frames they keep, the Hamming match against XOR +
+     popcount, a rigid warp="auto" run against the gather warp); every
+     record printed, any record not ok fails the smoke;
 4. e2e: MotionCorrector(model="translation").correct() on a 1000-frame
    512x512 drift stack (config 1 of BASELINE.json), launch counters
    reset just before: transform RMSE <= 0.05 px, every frame warp_ok,
@@ -195,8 +203,21 @@ port's TiffWriter, the scene x 40000; escalation off):
     exhausts the retries (one batch on the CPU failover, its transforms
     within 1e-3 px of the clean run's, the others bit-equal, RMSE <=
     0.05 px); failover_backend=None with device:step=4:always (32 frames
-    marked failed and interpolated, the others' RMSE <= 0.05 px).
+    marked failed and interpolated, the others' RMSE <= 0.05 px);
+22. e2e_object: config 1's scene, 512 frames of uint16 in an emulated
+    object-store bucket (emu://, 64-frame chunk objects on the host's
+    disk): a checkpointed correct_file from one bucket to another, its
+    frames bit-equal to correct_file of the same frames from a local
+    TIFF with equal transforms, K1/K2/K3 17/17/32; a run killed by
+    device:step=8:fatal and resumed, whose bucket (chunks and both
+    manifests) equals the uninterrupted one byte for byte with fewer
+    PUTs; a fault storm on the object surface (drop, stall=0.2, flip,
+    truncate, throttle; object_timeout_s=2): zero loss and the same
+    bucket, its retry and refetch counters printed.
 
+Every e2e line of a 2D model carries `roofline`: analysis/roofline's
+binding resource and fraction of peak on this card's row, for the work
+stage_costs prices over the run's frames and its measured seconds.
 The line before the last holds the kernels table; the last line is
 {"ok": true, "device": {...}}.
 
@@ -205,7 +226,10 @@ The line before the last holds the kernels table; the last line is
 instead runs the device and build phases and then profiles six batches
 (32 frames; 8 volumes for rigid3d) of that config's batch program (host
 wall time, device busy time and idle share, the kcmc.* stage ranges,
-the top device operations), for PERF.md's breakdown.
+the top device operations), for PERF.md's breakdown, and for the 2D
+matrix models utils/profiling.stage_breakdown (cumulative prefixes of
+the batch program timed with CUDA events by honest_time) beside
+analysis/roofline.achieved_rates.
 """
 
 from __future__ import annotations
@@ -1324,13 +1348,45 @@ def check_robust_clean(phase: str, res) -> dict:
     return {k: rb[k] for k in ROBUST_KEYS}
 
 
-def e2e_line(smi, phase, model, stack, res, seconds, launches, metric, err, extra) -> dict:
+def run_costs(cfg, n_frames: int, frame_shape, in_itemsize: int = 4,
+              emit_frames: bool = True) -> dict:
+    """analysis/roofline.stage_costs of n_frames 2D frames under cfg."""
+    from kcmc_tpu_torch.analysis.roofline import stage_costs
+
+    return stage_costs(
+        cfg.model, tuple(frame_shape), n_frames, max_keypoints=cfg.max_keypoints,
+        n_octaves=cfg.n_octaves, octave_scale=cfg.octave_scale,
+        oriented=cfg.resolved_oriented(), n_hypotheses=cfg.n_hypotheses,
+        refine_iters=cfg.refine_iters, patch_grid=tuple(cfg.patch_grid),
+        patch_hypotheses=cfg.patch_hypotheses, in_itemsize=in_itemsize,
+        emit_frames=emit_frames,
+    )
+
+
+def roofline(mc, n_frames: int, frame_shape, seconds: float, in_itemsize: int = 4,
+             emit_frames: bool = True) -> dict:
+    """analysis/roofline's verdict on a run of n_frames with mc's config
+    on this card's row: the resource that binds the work stage_costs
+    prices for the whole run, and the run's fraction of that resource's
+    peak over its measured seconds. {} for a 3D run (stage_costs prices
+    2D frames only)."""
+    from kcmc_tpu_torch.analysis.roofline import detect_platform, judge
+
+    if len(frame_shape) != 2:
+        return {}
+    costs = run_costs(mc.config, n_frames, frame_shape, in_itemsize, emit_frames)
+    v = judge(costs, seconds, detect_platform())
+    return {"roofline": {"binding": v["binding"], "fraction_of_peak": v["fraction_of_peak"]}}
+
+
+def e2e_line(mc, smi, phase, model, stack, res, seconds, launches, metric, err, extra) -> dict:
     robust = check_robust_clean(phase, res)
     line = {
         "phase": phase, "model": model,
         "frames": len(stack), "seconds": seconds, "frames_per_s": len(stack) / seconds,
         metric: err, "warp_rescued": int(np.sum(res.diagnostics.get("warp_rescued", 0))),
-        **extra, "launches": launches,
+        **extra, **roofline(mc, len(stack), stack.shape[1:], seconds, stack.dtype.itemsize),
+        "launches": launches,
         "mean_keypoints": float(np.mean(res.diagnostics["n_keypoints"])),
         "mean_matches": float(np.mean(res.diagnostics["n_matches"])),
         "mean_inliers": float(np.mean(res.diagnostics["n_inliers"])),
@@ -1379,7 +1435,7 @@ def phase_e2e(smi: str, model: str, n_frames: int = 1000) -> dict:
         extra["volume_shape"] = list(stack.shape[1:])
         extra["batch"] = mc.config.batch_size
     extra["data_seconds"] = t_data
-    line = e2e_line(smi, PHASE[model], model, stack, res, seconds, launches, metric, err, extra)
+    line = e2e_line(mc, smi, PHASE[model], model, stack, res, seconds, launches, metric, err, extra)
     if not finite or err > limit:
         raise AssertionError(f"{model}: {metric} {err} exceeds {limit}")
     if model == "translation" and line["warp_rescued"]:
@@ -1419,7 +1475,7 @@ def phase_e2e_banded(smi: str, dense: dict) -> dict:
     res, seconds, launches, _ = counted_run(mc, stack)
     err = transform_rmse(res.transforms, relative_transforms(gt), stack.shape[1:])
     geom = mc.backend._geometries[tuple(stack.shape[1:])]
-    line = e2e_line(smi, "e2e_banded", "affine", stack, res, seconds, launches, "rmse_px", err, {
+    line = e2e_line(mc, smi, "e2e_banded", "affine", stack, res, seconds, launches, "rmse_px", err, {
         "max_gt_displacement_px": disp, "match_radius": radius,
         "geometry": {"tile": geom.tile, "sub": geom.sub, "cq": geom.cq, "csub": geom.csub,
                      "n_win": geom.n_win},
@@ -1443,7 +1499,7 @@ def phase_e2e_escalate(smi: str, model: str) -> dict:
     err = transform_rmse(res.transforms, relative_transforms(gt), stack.shape[1:])
     B = mc.config.batch_size
     at = res.timing["warp_escalated_at"]
-    line = e2e_line(smi, f"e2e_escalate_{model}", model, stack, res, seconds, launches,
+    line = e2e_line(mc, smi, f"e2e_escalate_{model}", model, stack, res, seconds, launches,
                     "rmse_px", err, {
                         "warp_escalated": res.timing["warp_escalated"],
                         "escalated_at_frame": at,
@@ -1477,7 +1533,7 @@ def phase_e2e_routes(smi: str) -> dict[str, dict]:
         extra = {"config": kw}
         if model != "rigid3d":
             extra["gt_beyond_warp_bound"] = _gt_beyond_bound(stack, relative_transforms(gt), mc)
-        lines[phase] = e2e_line(smi, phase, model, stack, res, seconds, launches, "rmse_px",
+        lines[phase] = e2e_line(mc, smi, phase, model, stack, res, seconds, launches, "rmse_px",
                                 err, extra)
         if not np.isfinite(res.transforms).all() or err > 0.05:
             raise AssertionError(f"{phase}: rmse_px {err} exceeds 0.05")
@@ -1496,7 +1552,7 @@ def phase_e2e_routes(smi: str) -> dict[str, dict]:
     res, seconds, launches, _ = counted_run(mc, stack)
     err = field_rmse(res.fields[:len(gt.stack)], gt.fields - gt.fields[0])
     lines["e2e_piecewise_affine"] = e2e_line(
-        smi, "e2e_piecewise_affine", "piecewise", stack, res, seconds, launches,
+        mc, smi, "e2e_piecewise_affine", "piecewise", stack, res, seconds, launches,
         "field_rmse_px", err, {"config": {"patch_model": "affine"}})
     if not np.isfinite(res.fields).all() or err > 0.15:
         raise AssertionError(f"e2e_piecewise_affine: field_rmse_px {err} exceeds 0.15")
@@ -1540,7 +1596,7 @@ def phase_e2e_routes(smi: str) -> dict[str, dict]:
         n_px += g.size
     gather_rms = float(np.sqrt(sq / max(n_px, 1)) / np.sqrt(np.mean(stack.astype(np.float64) ** 2)))
     lines["e2e_piecewise_wide_grid"] = e2e_line(
-        smi, "e2e_piecewise_wide_grid", "piecewise", stack, res, seconds, launches,
+        mc, smi, "e2e_piecewise_wide_grid", "piecewise", stack, res, seconds, launches,
         "flow_rmse_px", flow_err, {"config": {"patch_grid": list(grid), "batch_size": B},
                                    "route": mc.backend._resolve_field_warp(shape).__name__,
                                    "card_vs_cpu_rel": card_cpu, "card_vs_cpu_limit": TOL,
@@ -1615,7 +1671,7 @@ def phase_e2e_templates(smi: str) -> tuple[dict, np.ndarray]:
     res, seconds, launches, err = runs[True]
     host = runs[False][0]
     gap = _rmse(host, res.transforms, stack.shape[1:])
-    line = e2e_line(smi, "e2e_templates", "translation", stack, res, seconds, launches,
+    line = e2e_line(mc, smi, "e2e_templates", "translation", stack, res, seconds, launches,
                     "rmse_px", err, {
                         "config": kw, "pipeline": res.timing["pipeline"],
                         "median_template_corr": float(np.median(res.diagnostics["template_corr"])),
@@ -1646,7 +1702,7 @@ def phase_e2e_warm_start(smi: str) -> dict:
         _check_rmse(f"e2e_warm_start[warm_start={warm}]", err)
     res, seconds, launches, err = out[True]
     cold = out[False]
-    return e2e_line(smi, "e2e_warm_start", "homography", stack, res, seconds, launches,
+    return e2e_line(mc, smi, "e2e_warm_start", "homography", stack, res, seconds, launches,
                     "rmse_px", err, {
                         "cold": {"rmse_px": cold[3], "frames_per_s": n / cold[1],
                                  "mean_inliers": float(np.mean(cold[0].diagnostics["n_inliers"])),
@@ -1680,7 +1736,7 @@ def phase_e2e_float32(smi: str) -> dict[str, dict]:
         equal = torch.equal(cuda_patch.extract_patches(*windows),
                             cuda_patch.extract_patches_plain(*windows))
         phase = f"e2e_float32_{model}"
-        lines[phase] = e2e_line(smi, phase, model, stack, res, seconds, launches, "rmse_px",
+        lines[phase] = e2e_line(mc, smi, phase, model, stack, res, seconds, launches, "rmse_px",
                                 err, {"config": {"match_precision": "float32"},
                                       "k11_equal_plain": equal, "k11_patch": windows[3]})
         _check_rmse(phase, err)
@@ -1706,7 +1762,7 @@ def phase_e2e_sanitize(smi: str) -> dict:
     stack[bad, :, cols] = np.inf
     res, seconds, launches, _ = counted_run(mc, stack)
     err = _rmse(res, gt_rel, stack.shape[1:])
-    line = e2e_line(smi, "e2e_sanitize", "translation", stack, res, seconds, launches,
+    line = e2e_line(mc, smi, "e2e_sanitize", "translation", stack, res, seconds, launches,
                     "rmse_px", err, {"config": {"sanitize_input": True},
                                      "frames_with_nonfinite": len(bad)})
     if not np.isfinite(res.transforms).all():
@@ -1738,7 +1794,7 @@ def phase_e2e_chunked_device(smi: str) -> tuple[dict, tuple]:
                  and np.array_equal(dev.transforms.cpu().numpy()[ok], res.transforms[ok]))
     views = [mc.stream_view(), mc.stream_view(reference="mean")]
     shared = all(v.backend is mc.backend for v in views)
-    line = e2e_line(smi, "e2e_chunked_device", "affine", stack, res, seconds, launches,
+    line = e2e_line(mc, smi, "e2e_chunked_device", "affine", stack, res, seconds, launches,
                     "rmse_px", err, {"chunked_bit_equal": chunked_equal,
                                      "device_outputs_on_card": on_card,
                                      "device_warp_ok_frames": int(ok.sum()),
@@ -1986,6 +2042,7 @@ def phase_e2e_file(smi: str, tmp: str) -> dict:
         "phase": "e2e_file", "model": "translation", "frames": n, "rmse_px": err,
         "frames_per_s": n / seconds, "correct_frames_per_s": n / mem_s,
         "repeat_frames_per_s": n / repeat_s, "no_output_frames_per_s": n / nowrite_s,
+        **roofline(mc, n, stack.shape[1:], seconds, stack.dtype.itemsize),
         "write_tif_s": write_s, "decoder": res.timing["decoder"],
         "decoder_build_s": decoder_build_s, "stalls_s": _stalls(res),
         "output_equal_to_correct": equal, "transforms_equal": same_transforms,
@@ -2045,6 +2102,7 @@ def phase_e2e_file_twopass(smi: str, tmp: str) -> dict:
     line = {
         "phase": "e2e_file_twopass", "model": "affine", "frames": n, "rmse_px": err,
         "frames_per_s": n / seconds, "correct_frames_per_s": n / mem_s,
+        **roofline(mc, n, stack.shape[1:], seconds, stack.dtype.itemsize, emit_frames=False),
         "warp_flagged": int((~ok).sum()),
         "correct_warp_rescued": int(np.sum(mem.diagnostics["warp_rescued"])),
         "transforms_equal_on_kept": equal_kept, "flagged_transform_gap_px": flagged_gap,
@@ -2079,7 +2137,7 @@ def phase_e2e_file_faults(smi: str, tmp: str) -> dict:
     from kcmc_tpu_torch.utils.metrics import transform_rmse
 
     n, B = 256, 32
-    stack_f, gt_rel, _ = _cell("translation", n)
+    stack_f, gt_rel, mc = _cell("translation", n)
     src = os.path.join(tmp, "config1_256.tif")
     _write_tif(src, _u16(stack_f))
     shape = stack_f.shape[1:]
@@ -2117,6 +2175,7 @@ def phase_e2e_file_faults(smi: str, tmp: str) -> dict:
     }
     line = {"phase": "e2e_file_faults", "model": "translation", "frames": n,
             "clean_frames_per_s": n / clean_s, "rmse_px": _rmse(clean, gt_rel, shape),
+            **roofline(mc, n, shape, clean_s, 2),
             "launches": launches, **lines, "card": smi}
     emit(line)
     check_launches("e2e_file_faults", launches, _launches(
@@ -2132,6 +2191,168 @@ def phase_e2e_file_faults(smi: str, tmp: str) -> dict:
           and line["rmse_px"] <= 0.05)
     if not ok:
         raise AssertionError(f"e2e_file_faults: {line}")
+    return line
+
+
+def _bucket(url: str) -> dict:
+    """{key: bytes} of every object of an emulated bucket: the chunks and
+    both manifest generations."""
+    from kcmc_tpu_torch.io.objectstore import client_for_url
+
+    client = client_for_url(url)
+    return {k: client.get(k) for k in client.list("")}
+
+
+OBJECT_STORM = ("object:step=3:drop, object:step=5:stall=0.2, object:step=7:flip, "
+                "object:step=9:truncate, object:step=11:throttle")
+
+
+def phase_e2e_object(smi: str, tmp: str) -> dict:
+    """Config 1's scene, 512 frames as uint16 in an emulated bucket
+    (put_stack, 64-frame chunk objects): a checkpointed correct_file from
+    emu://.../in to emu://.../out (checkpoint_every=128) whose frames
+    equal, bit for bit, correct_file of the same frames from a local TIFF,
+    with equal transforms and launches K1/K2/K3 17/17/32; a run killed by
+    device:step=8:fatal and resumed, whose bucket (chunks and both
+    manifests) equals the uninterrupted one byte for byte with fewer
+    PUTs; and a fault storm on the object surface (drop, stall=0.2, flip,
+    truncate, throttle; object_timeout_s=2, io_workers=1 so every GET
+    rides the consumer's armed reader) whose bucket equals it too. The
+    bucket is on the host's disk: frames/s beside the local file's, no
+    limit."""
+    from kcmc_tpu_torch import MotionCorrector
+    from kcmc_tpu_torch.io import open_stack, put_stack
+    from kcmc_tpu_torch.io.objectstore import reset_url_state, stats_snapshot
+    from kcmc_tpu_torch.io.tiff import read_stack
+    from kcmc_tpu_torch.utils.faults import FatalFaultError
+
+    n, B = 512, 32
+    stack_f, gt_rel, mc = _cell("translation", n)
+    stack = _u16(stack_f)
+    src, out, resumed_url, storm_url = (f"emu://{tmp}/{k}"
+                                        for k in ("in", "out", "resumed", "storm"))
+    t0 = time.perf_counter()
+    put_stack(src, stack, chunk_frames=mc.config.object_chunk_frames)
+    put_s = time.perf_counter() - t0
+    tif, tif_out = os.path.join(tmp, "object_local.tif"), os.path.join(tmp, "object_out.tif")
+    _write_tif(tif, stack)
+    local, local_s, _, _ = file_run(mc, tif, output=tif_out)
+    ckpt = dict(checkpoint_every=128)
+    res, seconds, launches, _ = file_run(mc, src, output=out,
+                                         checkpoint=os.path.join(tmp, "obj.ckpt.npz"), **ckpt)
+    robust = check_robust_clean("e2e_object", res)
+    err = _rmse(res, gt_rel, stack.shape[1:])
+    with open_stack(out) as ts:
+        frames_equal = np.array_equal(ts.read(0, len(ts)), read_stack(tif_out))
+    same_transforms = np.array_equal(res.transforms, local.transforms)
+    full_puts = stats_snapshot(out)["puts"]
+    reference = _bucket(out)
+
+    # killed on the consumer side at batch 8, then resumed
+    kill_ckpt = os.path.join(tmp, "obj_kill.ckpt.npz")
+    killer = MotionCorrector(model="translation", rescue_escalate=False,
+                             fault_plan="device:step=8:fatal")
+    try:
+        killer.correct_file(src, output=resumed_url, checkpoint=kill_ckpt, **ckpt)
+        killed = False
+    except FatalFaultError:
+        killed = True
+    puts_before = stats_snapshot(resumed_url)["puts"]
+    resumed, resumed_s, resumed_launches, _ = file_run(mc, src, output=resumed_url,
+                                                       checkpoint=kill_ckpt, **ckpt)
+    resumed_puts = stats_snapshot(resumed_url)["puts"] - puts_before
+    resumed_equal = _bucket(resumed_url) == reference
+
+    # the fault storm, with fresh per-URL counters on the source
+    reset_url_state(src)
+    stormer = MotionCorrector(model="translation", rescue_escalate=False, io_workers=1,
+                              fault_plan=OBJECT_STORM, object_timeout_s=2.0, **FAST_RETRY)
+    storm, storm_s, _, storm_warned = file_run(stormer, src, output=storm_url)
+    storm_equal = _bucket(storm_url) == reference
+    with open_stack(storm_url) as ts:
+        storm_frames = len(ts)
+    obj = storm.timing["feeder"]["object"]
+    counters = ("gets", "hedged", "hedge_wins", "retries", "throttled", "refetched", "puts")
+    line = {
+        "phase": "e2e_object", "model": "translation", "frames": n, "rmse_px": err,
+        "frames_per_s": n / seconds, "local_file_frames_per_s": n / local_s,
+        **roofline(mc, n, stack.shape[1:], seconds, stack.dtype.itemsize),
+        "put_stack_s": put_s, "chunk_objects": len([k for k in reference if k.startswith("chunk-")]),
+        "frames_equal_to_local_file": frames_equal, "transforms_equal": same_transforms,
+        "launches": launches, "robustness": robust, "object": res.timing["feeder"]["object"],
+        "resume": {"killed": killed, "restored_frames": resumed.timing["restored_frames"],
+                   "launches": resumed_launches,
+                   "frames_per_s": (n - resumed.timing["restored_frames"]) / resumed_s,
+                   "puts": resumed_puts, "uninterrupted_puts": full_puts,
+                   "bucket_equal": resumed_equal},
+        "storm": {"plan": OBJECT_STORM, "frames": storm_frames, "bucket_equal": storm_equal,
+                  "seconds": storm_s, "robustness": {k: storm.timing["robustness"][k]
+                                                     for k in ("io_retries", "faults_injected")},
+                  "ingest": {k: obj["ingest"][k] for k in counters},
+                  "egress": {k: obj["egress"][k] for k in counters},
+                  "warned": len(storm_warned)},
+        "card": smi,
+    }
+    emit(line)
+    _check_rmse("e2e_object", err)
+    check_launches("e2e_object", launches, _launches(
+        detect_response=n // B + 1, extract_blended=n // B + 1, warp_translation=2 * (n // B)))
+    if not (frames_equal and same_transforms and killed and resumed_equal
+            and resumed_puts < full_puts and storm_equal and storm_frames == n
+            and storm.timing["robustness"]["faults_injected"] > 0):
+        raise AssertionError(f"e2e_object: {line}")
+    return line
+
+
+def phase_selftest(smi: str) -> dict:
+    """`python -m kcmc_tpu_torch.selftest` in this process: every record
+    printed; any record that is not ok fails the smoke."""
+    from kcmc_tpu_torch.selftest import run_selftest
+
+    t0 = time.perf_counter()
+    results = run_selftest()
+    bad = [r["name"] for r in results if not r["ok"]]
+    line = {"phase": "selftest", "seconds": time.perf_counter() - t0,
+            "passed": len(results) - len(bad), "failed": len(bad), "records": results,
+            "card": smi}
+    emit(line)
+    if bad:
+        raise AssertionError(f"selftest: records not ok: {bad}")
+    return line
+
+
+def phase_link(smi: str, frames: int = 256) -> dict:
+    """The host-to-card copy rate of a 512x512 float32 stack of `frames`
+    frames, from pageable and from pinned host memory (CUDA events
+    around each copy; median of five), beside the roofline's `link`
+    row (PCIe Gen5 x16's spec figure)."""
+    from kcmc_tpu_torch.analysis.roofline import PEAKS, detect_platform
+
+    host = torch.from_numpy(np.random.default_rng(0).random((frames, 512, 512), np.float32))
+    n_bytes = host.numel() * 4
+    dev = torch.empty(host.shape, dtype=host.dtype, device=CARD)
+
+    def gbs(src) -> float:
+        for _ in range(2):
+            dev.copy_(src, non_blocking=True)
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            dev.copy_(src, non_blocking=True)
+            stop.record()
+            stop.synchronize()
+            ms.append(start.elapsed_time(stop))
+        return n_bytes / (float(np.median(ms)) * 1e-3) / 1e9
+
+    pageable = gbs(host)
+    pinned = gbs(host.pin_memory())
+    line = {"phase": "link", "bytes": n_bytes, "h2d_pageable_gbs": pageable,
+            "h2d_pinned_gbs": pinned,
+            "link_spec_gbs": PEAKS[detect_platform()]["link"] / 1e9, "card": smi}
+    emit(line)
     return line
 
 
@@ -2204,6 +2425,27 @@ def phase_profile(smi: str, model: str, n_batches: int = 6) -> None:
             for k, v in top
         ],
     })
+    if model in ("piecewise", "rigid3d"):
+        return  # stage_breakdown covers the 2D matrix models
+    from kcmc_tpu_torch.analysis.roofline import achieved_rates, detect_platform
+    from kcmc_tpu_torch.utils.profiling import stage_breakdown
+
+    cfg = mc.config
+    over = {k: getattr(cfg, k) for k in ("max_keypoints", "nms_size", "harris_window_sigma",
+                                         "cand_tile", "n_octaves")}
+    scene = ({"n_blobs": CFG2_SCENE["n_blobs"], "sigma_range": CFG2_SCENE["sigma_range"]}
+             if model == "affine" else {})
+    rows = stage_breakdown(cfg.model, shape=stack.shape[1:], batch_size=B, iters=10,
+                           device=CARD, **scene, **over)
+    costs = run_costs(cfg, B, stack.shape[1:])
+    emit({
+        "phase": "profile_stages", "model": model, "batch": B, "card": smi,
+        "timing": "honest_time (CUDA events), cumulative prefixes of the batch program",
+        "stage_breakdown": rows,
+        "achieved_rates": achieved_rates(costs, {k: v["incremental_ms"] / 1e3
+                                                 for k, v in rows.items() if isinstance(v, dict)}),
+        "platform": detect_platform(),
+    })
 
 
 def main() -> int:
@@ -2212,6 +2454,7 @@ def main() -> int:
 
     name, smi = phase_device()
     phase_build()
+    phase_link(smi)
     args = sys.argv[1:]
     if "--profile" in args:
         rest = args[args.index("--profile") + 1:]
@@ -2229,6 +2472,7 @@ def main() -> int:
         rows += new_rows
         emit({"phase": phase, **extra, "checked": [r["name"] for r in new_rows],
               "max_abs_err": {r["name"]: r["max_abs_err"] for r in new_rows}})
+    phase_selftest(smi)
     frames = {"rigid": 128, "rigid3d": 125}
     by_path = {PHASE[m] + ("_rigid" if m == "rigid" else ""): phase_e2e(smi, m, frames.get(m, 1000))
                for m in ("translation", "affine", "homography", "rigid", "piecewise",
@@ -2251,6 +2495,8 @@ def main() -> int:
         by_path["e2e_file"] = phase_e2e_file(smi, tmp)
         by_path["e2e_file_twopass"] = phase_e2e_file_twopass(smi, tmp)
         by_path["e2e_file_faults"] = phase_e2e_file_faults(smi, tmp)
+        # object-store ingest and egress (queue 1 item 15c)
+        by_path["e2e_object"] = phase_e2e_object(smi, tmp)
     for r in rows:
         r["launches"] = sum(line["launches"][r["name"]] for line in by_path.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

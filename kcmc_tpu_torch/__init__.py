@@ -6,8 +6,10 @@ photometric polish, with the JAX package's Pallas kernels rewritten as
 hand-written CUDA kernels for Hopper (`csrc/`). It covers translation,
 rigid, similarity, affine, homography and piecewise (T, H, W) stacks,
 single-scale or through the scale pyramid (`n_octaves`), and rigid3d
-(T, D, H, W) z-stacks, in memory or streamed from files with
-checkpoints and the robustness ladder. Imports torch and numpy only.
+(T, D, H, W) z-stacks, in memory or streamed from files or
+object-store buckets with checkpoints and the robustness ladder.
+`python -m kcmc_tpu_torch.selftest` holds every kernel against its plain
+version on the card. Imports torch and numpy only.
 
     from kcmc_tpu_torch import MotionCorrector
     res = MotionCorrector(model="translation").correct(stack)  # on the card

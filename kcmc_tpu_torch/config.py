@@ -135,6 +135,18 @@ class CorrectorConfig:
     io_workers: int = 0
     io_prefetch: int = 0
     writer_depth: int = 2
+    # object-store I/O (io/objectstore.py; emu:// or registered-scheme
+    # URLs as source or output): they shape when and how bytes move,
+    # never what a run computes. The per-attempt deadline of every
+    # object op, seconds (RetryPolicy.deadline_s); the hedged-read
+    # floor, milliseconds (a warm GET outlasting max(p95, this) fires
+    # one duplicate; 0 disables hedging); frames per egress chunk
+    # object (a resume reads it from the durable manifest); and the
+    # multipart threshold and part size, bytes
+    object_timeout_s: float = 30.0
+    object_hedge_ms: float = 50.0
+    object_chunk_frames: int = 64
+    object_part_bytes: int = 8 << 20
 
     def __post_init__(self):
         if self.model not in MODELS:
@@ -252,6 +264,26 @@ class CorrectorConfig:
             from kcmc_tpu_torch.utils.faults import FaultPlan
 
             FaultPlan.from_spec(self.fault_plan)
+        if self.object_timeout_s <= 0.0:
+            raise ValueError(
+                f"object_timeout_s must be positive seconds, got "
+                f"{self.object_timeout_s}"
+            )
+        if self.object_hedge_ms < 0.0:
+            raise ValueError(
+                "object_hedge_ms must be >= 0 milliseconds (0 disables "
+                f"hedging), got {self.object_hedge_ms}"
+            )
+        if self.object_chunk_frames < 1:
+            raise ValueError(
+                f"object_chunk_frames must be >= 1 frame, got "
+                f"{self.object_chunk_frames}"
+            )
+        if self.object_part_bytes < 1:
+            raise ValueError(
+                f"object_part_bytes must be >= 1 byte, got "
+                f"{self.object_part_bytes}"
+            )
         if self.writer_depth < 0:
             raise ValueError(
                 f"writer_depth must be >= 0 batches (0 = synchronous "
@@ -336,6 +368,7 @@ class CorrectorConfig:
 SIG_NEUTRAL_FIELDS = frozenset({
     "fault_plan", "retry_attempts", "retry_backoff_s", "retry_backoff_max_s",
     "retry_jitter", "failover_backend", "degrade_mark_failed",
+    "object_timeout_s", "object_hedge_ms", "object_chunk_frames", "object_part_bytes",
     "writer_depth", "io_workers", "io_prefetch",
     "mesh_devices",
 })

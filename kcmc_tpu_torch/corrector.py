@@ -18,9 +18,10 @@ correctors that share one backend. The port dispatches synchronously.
 
 File-scale runs (`correct_file`, kcmc_tpu/corrector.py:2110-2837) stream
 chunks through `io/` (native TIFF decoder, Zarr, HDF5, npy, raw; a
-prefetch thread or a decode pool) into the same dispatch core as
-`correct()`, write the corrected frames incrementally (TIFF, Zarr or
-HDF5, behind a background writer) and checkpoint the recovered
+prefetch thread or a decode pool; object-store URLs through
+`io/objectstore.py`) into the same dispatch core as `correct()`, write
+the corrected frames incrementally (TIFF, Zarr, HDF5 or an object-store
+bucket, behind a background writer) and checkpoint the recovered
 transforms with the writer's exact cursor, so a killed run resumes and
 writes the bytes of an uninterrupted one. Every batch runs under the
 degradation ladder (:864-1166): injected transient faults are retried
@@ -29,7 +30,6 @@ failed and interpolated; any other error of the batch program raises
 (chunk reads retry OS-level I/O errors on their own surface).
 `apply_correction_file` streams a stored registration onto another file,
 and `common_valid_region` gives the crop every corrected frame covers.
-Object-store URLs are queue 1 item 15c.
 """
 
 from __future__ import annotations
@@ -398,10 +398,16 @@ def _fingerprint(ref) -> str:
 
 
 def _input_fingerprint(path) -> list:
-    """Input identity of a local source path (corrector.py:94): [size,
+    """Input identity of a source path (corrector.py:94): [size,
     mtime_ns] of a file; for a directory store (Zarr) the total bytes,
     newest mtime and entry count of its tree, which change whenever any
-    chunk is rewritten."""
+    chunk is rewritten; for an object-store URL, which has no stat
+    identity, ["object", sha256 of its manifest]."""
+    from kcmc_tpu_torch.io import objectstore
+
+    if objectstore.is_object_url(path):
+        client = objectstore.client_for_url(path)
+        return ["object", objectstore.sha256_hex(client.get(objectstore.MANIFEST_KEY))]
     st = os.stat(path)
     if not os.path.isdir(path):
         return [int(st.st_size), int(st.st_mtime_ns)]
@@ -1168,12 +1174,16 @@ class MotionCorrector:
 
         `path`: a multi-page TIFF, a Zarr v2 store, an HDF5 file, a .npy,
         a headerless .raw/.bin (shape and dtype through
-        `reader_options`), an array or a reader object (io/formats.py).
+        `reader_options`), an object-store URL (``emu://``; hedged,
+        checksummed ranged reads under the run's retry policy and
+        fault plan, io/objectstore.py), an array or a reader object
+        (io/formats.py).
         Chunks of `chunk_size` frames (rounded up to whole batches)
         decode ahead of the card — the native threaded TIFF decoder, a
         decode pool with `io_workers >= 2` for GIL-bound codecs, else a
         prefetch thread — and with `output` the corrected frames stream
-        to a TIFF (Zarr by .zarr, HDF5 by .h5) behind a background
+        to a TIFF (Zarr by .zarr, HDF5 by .h5, a chunked bucket with a
+        durable manifest by an object-store URL) behind a background
         writer, so stacks larger than host memory run at steady state;
         `corrected` is then empty. `n_threads` (0 = `io_workers`) is the
         decode/encode worker budget.
@@ -1195,20 +1205,15 @@ class MotionCorrector:
         registration only (no `output`), the pass 1 of
         `apply_correction_file`.
         """
-        from kcmc_tpu_torch.io import ChunkedStackLoader, feeder, open_stack
+        from kcmc_tpu_torch.io import ChunkedStackLoader, feeder, objectstore, open_stack
         from kcmc_tpu_torch.io.async_writer import AsyncBatchWriter
-        from kcmc_tpu_torch.io.formats import is_object_url, make_writer, resume_writer
+        from kcmc_tpu_torch.io.formats import make_writer, resume_writer
         from kcmc_tpu_torch.utils.checkpoint import (
             load_stream_checkpoint,
             save_stream_checkpoint,
         )
+        from kcmc_tpu_torch.utils.faults import default_io_retry_policy
 
-        for url in (path, output):
-            if is_object_url(url):
-                raise NotImplementedError(
-                    f"object-store URLs ({url!r}) are not ported yet "
-                    "(ROADMAP.md queue 1 item 15c)"
-                )
         cfg = self.config
         B = cfg.batch_size
         chunk = chunk_size or max(B, 64)
@@ -1246,6 +1251,13 @@ class MotionCorrector:
 
         with open_stack(path, n_threads=n_threads if n_threads else cfg.io_workers,
                         **(reader_options or {})) as ts:
+            if isinstance(ts, objectstore.ObjectStack):
+                # the run's robustness wiring: the shared fault plan, the
+                # io retry policy (deadline-capped), retry/quarantine
+                # accounting and the hedge knobs
+                ts.arm(fault_plan=self._fault_plan, retry=self._io_retry_policy,
+                       report=self._robustness, hedge_ms=cfg.object_hedge_ms,
+                       timeout_s=cfg.object_timeout_s)
             decoder = getattr(ts, "backend", type(ts).__name__)  # which decode ran
             want = 3 if cfg.model == "rigid3d" else 2
             if len(ts.frame_shape) != want:
@@ -1282,6 +1294,18 @@ class MotionCorrector:
             n_parts = 0
             part_history: list = []
             ckpt_sig = None
+            object_opts = None
+            if output is not None and objectstore.is_object_url(output):
+                # egress wiring with its own retry policy (seed_offset=2):
+                # uploads run on the background writer's thread, and numpy
+                # Generators are not thread-safe across the read side's
+                object_opts = {
+                    "chunk_frames": cfg.object_chunk_frames,
+                    "part_bytes": cfg.object_part_bytes,
+                    "fault_plan": self._fault_plan,
+                    "retry": default_io_retry_policy(cfg, seed_offset=2),
+                    "report": self._robustness,
+                }
             if checkpoint is not None:
                 # everything that changes the results or the output file;
                 # the robustness and I/O knobs are normalized out, so a
@@ -1293,7 +1317,10 @@ class MotionCorrector:
                     "dtype": str(ts.dtype),
                     "input": _input_fingerprint(path),
                     "backend": self.backend_name,
-                    "output": os.path.abspath(output),
+                    # an object URL is already absolute; abspath would
+                    # glue the cwd onto its scheme
+                    "output": (str(output) if object_opts is not None
+                               else os.path.abspath(output)),
                     "reference": _fingerprint(self.reference),
                     "reference_window": self.reference_window,
                     "template_iters": self.template_iters,
@@ -1309,7 +1336,8 @@ class MotionCorrector:
                 if state is not None and state[0].get("sig") == ckpt_sig:
                     meta, segments = state
                     try:
-                        writer = resume_writer(output, meta["writer"], compression=compression)
+                        writer = resume_writer(output, meta["writer"], compression=compression,
+                                               object_opts=object_opts)
                         start = int(meta["done"])
                         outs = segments
                         n_parts = int(meta.get("n_parts", 0))
@@ -1331,6 +1359,7 @@ class MotionCorrector:
                 writer = make_writer(
                     output, len(ts), ts.frame_shape, out_dt, compression=compression,
                     bigtiff=_wants_bigtiff(len(ts), ts.frame_shape, out_dt),
+                    object_opts=object_opts,
                 )
             if writer is not None and cfg.writer_depth > 0:
                 # checkpoint saves flush it to the durable mark first
@@ -1528,9 +1557,18 @@ class MotionCorrector:
             "warp_escalated_at": self._escalated_at,
             "pipeline": {"template_updates": n_updates, "device_templates": bool(dev_tmpl)},
         })
-        if feed_stats.get("chunks"):
+        obj_stats = {}
+        if isinstance(ts, objectstore.ObjectStack):
+            # ingest counters (hedges, retries, throttles, live p95),
+            # shared per URL by the consumer and thread-flavor workers
+            obj_stats["ingest"] = ts.stats_snapshot()
+        if object_opts is not None:
+            obj_stats["egress"] = objectstore.stats_snapshot(str(output))
+        if feed_stats.get("chunks") or obj_stats:
             feed_stats.pop("single_core_advised", None)
             timing["feeder"] = dict(feed_stats, prefetch_chunks=feed_prefetch)
+            if obj_stats:
+                timing["feeder"]["object"] = obj_stats
         if checkpoint is not None:
             timing["restored_frames"] = restored
         transforms = self._finalize_robustness(

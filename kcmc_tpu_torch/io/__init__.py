@@ -1,6 +1,7 @@
-"""Stack I/O of the port (a copy of kcmc_tpu/io without the object
-store): TIFF read/write (native threaded decoder), pluggable streaming
-ingest (Zarr/HDF5/npy/raw/array via one reader protocol), chunked
+"""Stack I/O of the port (a copy of kcmc_tpu/io): TIFF read/write
+(native threaded decoder), pluggable streaming ingest (Zarr/HDF5/npy/
+raw/array via one reader protocol), object-store ingest and egress
+(the emu:// emulator, hedged reads, durable manifests), chunked
 prefetch loading, the sharded decode-pool feeder and the background
 writer. Imports numpy only, so decode-pool workers stay light."""
 
@@ -15,6 +16,12 @@ from kcmc_tpu_torch.io.formats import (
     ZarrStack,
     open_stack,
 )
+from kcmc_tpu_torch.io.objectstore import (
+    EmulatedObjectStore,
+    ObjectStack,
+    ObjectStoreWriter,
+    put_stack,
+)
 from kcmc_tpu_torch.io.reader import ChunkedStackLoader
 from kcmc_tpu_torch.io.tiff import TiffStack, read_stack, write_stack
 
@@ -23,13 +30,17 @@ __all__ = [
     "AsyncBatchWriter",
     "ChunkedStackLoader",
     "DecodePool",
+    "EmulatedObjectStore",
     "HDF5Stack",
     "NpyStack",
+    "ObjectStack",
+    "ObjectStoreWriter",
     "RawStack",
     "TiffStack",
     "ZarrStack",
     "feeder",
     "open_stack",
+    "put_stack",
     "read_stack",
     "write_stack",
 ]

@@ -1,5 +1,6 @@
 """Feeder-side scale-out: process-based decode pools + sharded ingest
-(the port's copy of kcmc_tpu/io/feeder.py, without the object store).
+(the port's copy of kcmc_tpu/io/feeder.py, without `host_local_range`,
+which comes with multi-device runs).
 
 Host TIFF decode on the single-core pure-Python deflate fallback binds
 far below what the card registers, and the single-producer prefetch
@@ -96,6 +97,7 @@ def classify_source(source) -> str | None:
     not thread-safe, and memmap-backed sources are one memcpy.
     """
     from kcmc_tpu_torch.io.formats import ZarrStack, _MiniZarr
+    from kcmc_tpu_torch.io.objectstore import ObjectStack
     from kcmc_tpu_torch.io.tiff import TiffStack
 
     if isinstance(source, TiffStack):
@@ -106,6 +108,13 @@ def classify_source(source) -> str | None:
         inner = source.source
         if isinstance(inner, _MiniZarr):
             return "process" if inner._zlib else "thread"
+    if isinstance(source, ObjectStack):
+        # ranged GETs block on I/O (GIL released in socket/file ops);
+        # deflate chunks add GIL-bound zlib decode on top, so they pay
+        # for real interpreters. Thread workers also share the per-URL
+        # hedge/latency state with the consumer; process workers keep
+        # their own.
+        return "process" if source.compression == "deflate" else "thread"
     return None
 
 
@@ -114,7 +123,13 @@ def source_spec(source, source_path, reader_options: dict | None):
     the source has no cross-process identity (in-memory arrays, reader
     objects without a path). Python-decode TIFF sources pin
     ``force_python=True`` so no worker races to build (or silently
-    switches to) the native decoder mid-run."""
+    switches to) the native decoder mid-run. Object-store sources
+    respec by URL — each worker's `open_stack` builds a per-worker
+    client connection (and self-arms any ``KCMC_FAULT_PLAN``)."""
+    from kcmc_tpu_torch.io.objectstore import ObjectStack
+
+    if isinstance(source, ObjectStack):
+        return ("stack", source.path, ())
     if source_path is None:
         return None
     from kcmc_tpu_torch.io.tiff import TiffStack

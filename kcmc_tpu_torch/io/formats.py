@@ -1,5 +1,5 @@
 """Pluggable streaming ingest: one reader protocol, many formats (the
-port's copy of kcmc_tpu/io/formats.py, without the object store).
+port's copy of kcmc_tpu/io/formats.py).
 
 The microscopy ecosystem ships HDF5 / Zarr / raw-binary stacks as often
 as TIFF. The whole file-scale streaming machinery (prefetch
@@ -24,6 +24,8 @@ This module provides that protocol over:
 * ``RawStack``    — headerless binary via ``np.memmap`` (shape + dtype
   supplied by the caller).
 * ``ArrayStack``  — any in-memory array-like with axis-0 slicing.
+* object-store URLs (``emu://...``) — ``io/objectstore.ObjectStack``
+  over the chunked bucket layout; ``ObjectStoreWriter`` writes one.
 
 ``open_stack`` dispatches on extension / source type and is what
 ``MotionCorrector.correct_file`` uses, so ``correct_file("stack.zarr",
@@ -527,28 +529,23 @@ class HDF5Writer:
         self._f.close()
 
 
-def is_object_url(source) -> bool:
-    """True when `source` is an object-store URL string (``emu://...``,
-    ``s3://...``, any ``scheme://``)."""
-    return isinstance(source, str) and "://" in source
-
-
-def _no_object_store(url) -> None:
-    if is_object_url(url):
-        raise NotImplementedError(
-            f"object-store URLs ({url!r}) are not ported yet (ROADMAP.md "
-            "queue 1 item 15c); pass a local path"
-        )
-
-
 def make_writer(
     output, n_frames: int, frame_shape: tuple, dtype,
     compression: str = "none", bigtiff: bool = False,
+    object_opts: dict | None = None,
 ):
     """Streaming-writer factory: dispatch on the output extension
-    (.zarr -> ZarrWriter, .h5/.hdf5 -> HDF5Writer, else TiffWriter).
-    Object-store URLs raise NotImplementedError."""
-    _no_object_store(output)
+    (.zarr -> ZarrWriter, .h5/.hdf5 -> HDF5Writer, object-store URLs
+    -> ObjectStoreWriter, else TiffWriter). `object_opts` carries the
+    object-path robustness wiring (chunk_frames/part_bytes/fault_plan/
+    retry/report/client) and applies to URL outputs only."""
+    from kcmc_tpu_torch.io import objectstore
+
+    if objectstore.is_object_url(output):
+        return objectstore.ObjectStoreWriter(
+            output, n_frames, frame_shape, dtype,
+            compression=compression, **dict(object_opts or {}),
+        )
     out = os.fspath(output).lower()
     if out.endswith(".zarr"):
         return ZarrWriter(
@@ -563,9 +560,17 @@ def make_writer(
     return TiffWriter(output, compression=compression, bigtiff=bigtiff)
 
 
-def resume_writer(output, state: dict, compression: str = "none"):
+def resume_writer(
+    output, state: dict, compression: str = "none",
+    object_opts: dict | None = None,
+):
     """Resume-side counterpart of `make_writer`."""
-    _no_object_store(output)
+    from kcmc_tpu_torch.io import objectstore
+
+    if objectstore.is_object_url(output):
+        return objectstore.ObjectStoreWriter.resume(
+            output, state, compression=compression, object_opts=object_opts
+        )
     out = os.fspath(output).lower()
     if out.endswith(".zarr"):
         return ZarrWriter.resume(output, state, compression=compression)
@@ -581,12 +586,12 @@ def open_stack(source, n_threads: int = 0, **reader_options):
     protocol.
 
     source: a path (dispatched on extension: .tif/.tiff, .zarr
-    directory, .h5/.hdf5, .npy, .raw/.bin/.dat), an
+    directory, .h5/.hdf5, .npy, .raw/.bin/.dat), an object-store URL
+    (``emu://...`` -> ObjectStack over the chunked bucket layout), an
     object already implementing the protocol (returned as-is), or an
     array-like (wrapped in ArrayStack). reader_options are
     format-specific (HDF5Stack's ``dataset``, RawStack's ``shape``/
-    ``dtype``/``offset``). Object-store URLs raise NotImplementedError
-    (ROADMAP.md queue 1 item 15c).
+    ``dtype``/``offset``).
     """
     def no_options(fmt):
         # Silently absorbing options a format doesn't take would let a
@@ -603,7 +608,11 @@ def open_stack(source, n_threads: int = 0, **reader_options):
         if hasattr(source, "read") and hasattr(source, "frame_shape"):
             return source  # already a protocol reader
         return ArrayStack(source)
-    _no_object_store(source)
+    from kcmc_tpu_torch.io import objectstore
+
+    if objectstore.is_object_url(source):
+        no_options("object-store")
+        return objectstore.ObjectStack(source, n_threads=n_threads)
     path = os.fspath(source)
     ext = os.path.splitext(path)[1].lower()
     if ext in (".tif", ".tiff"):

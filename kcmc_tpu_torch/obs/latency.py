@@ -1,0 +1,186 @@
+"""Request-latency telemetry: mergeable log-bucket histograms (the
+port's copy of `LatencyHistogram` and `merge_histograms` from
+kcmc_tpu/obs/latency.py).
+
+`LatencyHistogram` is a fixed log-scale-bucket histogram: bucket edges
+are a deterministic integer-nanosecond geometric ladder (2^(1/4)
+spacing from 1 µs to ~134 s), recording is O(1) (one bisect and three
+integer adds), and two histograms with the same scheme merge EXACTLY
+(integer counts, integer nanosecond sums) — associative and
+commutative, across threads and processes. The object store's per-URL
+read state keeps one (io/objectstore.py), and hedged reads fire past
+its live p95.
+
+Quantiles are estimated at the geometric midpoint of the covering
+bucket: with 2^(1/4) ≈ 1.19 bucket spacing the relative error of any
+reported percentile is bounded by 2^(1/8) - 1 ≈ 9%.
+
+Stdlib only: decode-pool workers that open object-store sources import
+it without torch.
+"""
+
+from __future__ import annotations
+
+import threading
+from bisect import bisect_left
+from math import ceil, sqrt
+
+# -- bucket scheme ---------------------------------------------------------
+#
+# Upper bucket edges in integer nanoseconds: T0 * 2^(i / PER_OCTAVE),
+# rounded — a pure function of the index, so every process computes the
+# identical ladder and cross-process merges line up bucket for bucket.
+# 1 µs resolution floor; 27 octaves tops out at ~134 s (a request
+# slower than that is a wedge, not a latency).
+T0_NS = 1_000
+PER_OCTAVE = 4
+N_OCTAVES = 27
+
+_EDGES_NS: tuple[int, ...] = tuple(
+    round(T0_NS * 2.0 ** (i / PER_OCTAVE))
+    for i in range(N_OCTAVES * PER_OCTAVE + 1)
+)
+_N_BUCKETS = len(_EDGES_NS) + 1  # + overflow
+
+_SCHEME = {"t0_ns": T0_NS, "per_octave": PER_OCTAVE, "octaves": N_OCTAVES}
+
+
+class LatencyHistogram:
+    """Fixed log-bucket histogram of durations (seconds in, exact
+    integer-nanosecond state inside).
+
+    NOT internally locked: a single owner thread may record freely;
+    concurrent producers hold their own lock around it (the object
+    store's per-URL state does). All state is integers, so `merge` is
+    exact — associative, commutative, order-independent.
+    """
+
+    __slots__ = ("counts", "count", "sum_ns", "max_ns")
+
+    def __init__(self):
+        self.counts = [0] * _N_BUCKETS
+        self.count = 0
+        self.sum_ns = 0
+        self.max_ns = 0
+
+    # -- recording ---------------------------------------------------------
+
+    def record(self, seconds: float, n: int = 1) -> None:
+        """O(1): one bisect over the precomputed integer edges plus
+        integer adds. `n` records the same duration n times (a batch
+        of frames sharing one measured seam)."""
+        ns = int(seconds * 1e9)
+        if ns < 0:
+            ns = 0
+        idx = bisect_left(_EDGES_NS, ns)
+        self.counts[idx] += n
+        self.count += n
+        self.sum_ns += ns * n
+        if ns > self.max_ns:
+            self.max_ns = ns
+
+    # -- merge (exact) -----------------------------------------------------
+
+    def merge(self, other: "LatencyHistogram") -> "LatencyHistogram":
+        """Fold `other` into self (exact integer addition); returns
+        self. Histograms always share the module's fixed scheme, so
+        any two merge."""
+        sc, oc = self.counts, other.counts
+        for i, c in enumerate(oc):
+            if c:
+                sc[i] += c
+        self.count += other.count
+        self.sum_ns += other.sum_ns
+        if other.max_ns > self.max_ns:
+            self.max_ns = other.max_ns
+        return self
+
+    def clone(self) -> "LatencyHistogram":
+        h = LatencyHistogram()
+        h.counts = list(self.counts)
+        h.count = self.count
+        h.sum_ns = self.sum_ns
+        h.max_ns = self.max_ns
+        return h
+
+    # -- quantiles ---------------------------------------------------------
+
+    def quantile(self, q: float) -> float | None:
+        """Estimated q-quantile (q in [0, 100]) in seconds: geometric
+        midpoint of the covering bucket, clamped to the observed max —
+        relative error bounded by the bucket ratio (≈9%). None when
+        empty."""
+        if self.count <= 0:
+            return None
+        rank = max(1, ceil(q / 100.0 * self.count))
+        acc = 0
+        for i, c in enumerate(self.counts):
+            acc += c
+            if acc >= rank:
+                est = self._bucket_value_ns(i)
+                return min(est, self.max_ns) / 1e9
+        return self.max_ns / 1e9  # unreachable; defensive
+
+    @staticmethod
+    def _bucket_value_ns(i: int) -> float:
+        if i == 0:
+            return _EDGES_NS[0] / 2.0
+        if i >= len(_EDGES_NS):
+            return float(_EDGES_NS[-1])
+        return sqrt(float(_EDGES_NS[i - 1]) * float(_EDGES_NS[i]))
+
+    # -- export ------------------------------------------------------------
+
+    def summary(self) -> dict:
+        """The reference's per-histogram schema: count / sum_s /
+        p50_s / p90_s / p99_s / max_s."""
+
+        def _r(v):
+            return None if v is None else round(v, 6)
+
+        return {
+            "count": int(self.count),
+            "sum_s": round(self.sum_ns / 1e9, 6),
+            "p50_s": _r(self.quantile(50)),
+            "p90_s": _r(self.quantile(90)),
+            "p99_s": _r(self.quantile(99)),
+            "max_s": round(self.max_ns / 1e9, 6),
+        }
+
+    def to_dict(self) -> dict:
+        """JSON state: sparse bucket counts + integer sums. Two
+        histograms fed the same samples in any split produce the SAME
+        dict — the bit-identity contract a cross-process merge needs."""
+        return {
+            "scheme": dict(_SCHEME),
+            "counts": {
+                str(i): c for i, c in enumerate(self.counts) if c
+            },
+            "count": int(self.count),
+            "sum_ns": int(self.sum_ns),
+            "max_ns": int(self.max_ns),
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "LatencyHistogram":
+        if d.get("scheme") != _SCHEME:
+            raise ValueError(
+                f"incompatible latency-histogram scheme {d.get('scheme')!r}"
+                f" (this build uses {_SCHEME})"
+            )
+        h = cls()
+        for k, c in (d.get("counts") or {}).items():
+            h.counts[int(k)] = int(c)
+        h.count = int(d.get("count", 0))
+        h.sum_ns = int(d.get("sum_ns", 0))
+        h.max_ns = int(d.get("max_ns", 0))
+        return h
+
+
+def merge_histograms(*hists: LatencyHistogram) -> LatencyHistogram:
+    """Pure merge of any number of histograms (exact; empty in, empty
+    out)."""
+    out = LatencyHistogram()
+    for h in hists:
+        out.merge(h)
+    return out

@@ -11,10 +11,11 @@ transient I/O errors and corrupt checkpoints instead of dying at frame
   `io.reader.ChunkedStackLoader` and the decode pool), per-batch device
   execution (``device``, in `MotionCorrector`'s dispatch), the failover
   rung (``failover``) and checkpoint part load (``checkpoint``, in
-  `utils.checkpoint.load_stream_checkpoint`). The serve, fleet and
-  object surfaces of the reference's grammar (``transport``,
-  ``scheduler``, ``journal``, ``fleet``, ``object``) parse, but nothing
-  in the port arms them yet. Activated via
+  `utils.checkpoint.load_stream_checkpoint`) and object-store ops
+  (``object``, inside the client of `io/objectstore.py`). The serve and
+  fleet surfaces of the reference's grammar (``transport``,
+  ``scheduler``, ``journal``, ``fleet``) parse, but nothing in the port
+  arms them yet. Activated via
   `CorrectorConfig(fault_plan=...)` or the ``KCMC_FAULT_PLAN``
   environment variable — so chaos runs need no code changes.
 
@@ -69,6 +70,13 @@ Example — the chaos trifecta::
 `times=` counts *attempts*, so ``device:step=7:times=2:transient``
 fails the first two attempts at batch 7 and lets the third (the second
 retry) succeed — the canonical "retries absorb the fault" scenario.
+
+The ``object`` surface is armed inside the object-store client
+(`io/objectstore.py`): every GET/PUT/multipart op draws one op index,
+and the client interprets the clause action itself via `take_action` —
+raising actions become dropped-connection/throttle errors, ``truncate``
+and ``flip`` mangle the returned/stored body so the checksum layer has
+something real to catch.
 """
 
 from __future__ import annotations
@@ -86,12 +94,15 @@ SURFACES = (
     "device",
     "failover",
     "checkpoint",
-    # the reference's serve, fleet and object-store surfaces: parsed
-    # (one grammar), armed by no code of the port yet
+    # the reference's serve and fleet surfaces: parsed (one grammar),
+    # armed by no code of the port yet
     "transport",
     "scheduler",
     "journal",
     "fleet",
+    # object-store client ops (io/objectstore.py): drop/throttle raise,
+    # truncate/flip mangle bodies, stall= simulates a slow ranged GET
+    # (what hedged reads absorb)
     "object",
 )
 
@@ -406,8 +417,14 @@ class RetryPolicy:
     ``backoff_s * 2**k`` clipped to `backoff_max_s`, multiplied by a
     uniform jitter in ``[1 - jitter, 1 + jitter]`` so a fleet of
     workers retrying a shared dependency doesn't thundering-herd it.
-    (The reference's per-attempt `deadline_s` serves only its object
-    store, ROADMAP queue 1 item 15c.)
+
+    `deadline_s` is the PER-ATTEMPT deadline cap for operations that
+    can wedge rather than fail (a stalled object-store GET): the
+    object-store client (io/objectstore.py passes it into every client
+    op) times the attempt out as a transient error, so one wedged
+    request costs at most deadline_s before the retry/hedge machinery
+    takes over. None = no cap (local-file reads fail fast on their
+    own).
     """
 
     attempts: int = 3
@@ -415,6 +432,7 @@ class RetryPolicy:
     backoff_max_s: float = 2.0
     jitter: float = 0.25
     seed: int = 0
+    deadline_s: float | None = None  # per-attempt cap (object I/O)
     sleep: object = time.sleep  # injectable for tests
 
     def __post_init__(self):
@@ -431,9 +449,10 @@ class RetryPolicy:
 def default_io_retry_policy(cfg=None, seed_offset: int = 1):
     """THE ingest-surface retry policy — the single construction point
     shared by `corrector._begin_robust_run` (which hands it to
-    `io/reader.py` and the feeder) and standalone readers. One
-    construction site means backoff/jitter semantics cannot
-    drift between ingest surfaces.
+    `io/reader.py` and the feeder), and the object-store path
+    (`io/objectstore.py` builds one for standalone readers/writers).
+    One construction site means backoff/jitter/deadline semantics
+    cannot drift between ingest surfaces.
 
     `cfg` is any object with the CorrectorConfig retry fields
     (duck-typed — no config import, so standalone io users can pass
@@ -452,4 +471,5 @@ def default_io_retry_policy(cfg=None, seed_offset: int = 1):
         backoff_max_s=cfg.retry_backoff_max_s,
         jitter=cfg.retry_jitter,
         seed=int(cfg.seed) + seed_offset,
+        deadline_s=getattr(cfg, "object_timeout_s", None),
     )

@@ -184,13 +184,18 @@ def test_config_checks_match(kw):
 
 def test_config_carries_robustness_fields_and_failover_names():
     jcfg = kcmc_tpu.CorrectorConfig(retry_attempts=5, fault_plan="device:step=1",
-                                    io_workers=3, writer_depth=0, failover_backend=None)
+                                    io_workers=3, writer_depth=0, failover_backend=None,
+                                    object_timeout_s=2.0, object_hedge_ms=0.0,
+                                    object_chunk_frames=8, object_part_bytes=1 << 20)
     cfg = kcmc_tpu_torch.config_from_dict(dataclasses.asdict(jcfg))
     for name in ("retry_attempts", "fault_plan", "io_workers", "writer_depth",
-                 "failover_backend"):
+                 "failover_backend", "object_timeout_s", "object_hedge_ms",
+                 "object_chunk_frames", "object_part_bytes"):
         assert getattr(cfg, name) == getattr(jcfg, name)
-    # the object store's knobs wait for the code that reads them (15c)
-    assert not any(f.name.startswith("object_") for f in dataclasses.fields(cfg))
+    # the object store's knobs, with the code that reads them
+    obj = [f.name for f in dataclasses.fields(cfg) if f.name.startswith("object_")]
+    assert sorted(obj) == ["object_chunk_frames", "object_hedge_ms", "object_part_bytes",
+                           "object_timeout_s"]
     with pytest.raises(ValueError, match="failover_backend"):
         kcmc_tpu_torch.MotionCorrector(device="cpu", failover_backend="jax")
 

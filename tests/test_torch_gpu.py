@@ -793,3 +793,29 @@ def test_device_stack_with_device_outputs(cuda):
     assert np.array_equal(dev.transforms.cpu().numpy(), host.transforms)
     ok = dev.diagnostics["warp_ok"].cpu().numpy()
     assert np.array_equal(dev.corrected.cpu().numpy()[ok], host.corrected[ok])
+
+
+def test_selftest_every_record_ok(cuda):
+    """`python -m kcmc_tpu_torch.selftest`'s checks: every hand kernel
+    (K1-K11) against its plain version at production sizes, the warps
+    against the gather, the match against XOR + popcount and a rigid
+    warp="auto" run against the gather warp, all ok."""
+    from kcmc_tpu_torch.selftest import run_selftest
+
+    results = run_selftest()
+    names = " ".join(r["name"] for r in results)
+    for k in range(1, 12):
+        assert f"K{k} " in names
+    assert [r for r in results if not r["ok"]] == []
+
+
+def test_honest_time_reads_cuda_event_time(cuda):
+    """honest_time on the card is CUDA-event time: a kernel that spins
+    the card for 4e6 clock cycles (~2 ms at the H100's 1.98 GHz) reads
+    milliseconds per call, though its launch returns at once."""
+    from kcmc_tpu_torch.utils.profiling import honest_time
+
+    t = honest_time(torch.cuda._sleep, 4_000_000, iters=10, min_warmup_s=0.05)
+    host = honest_time(lambda: None, iters=10, min_warmup_s=0.0, device="cpu")
+    assert 5e-4 < t < 0.05
+    assert host < t

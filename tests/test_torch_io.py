@@ -194,11 +194,25 @@ def test_open_stack_errors_match(tmp_path, source, kw, match):
 
 
 def test_object_urls_name_the_roadmap_item(tmp_path):
-    for call in (lambda: tformats.open_stack("emu://bucket/in"),
-                 lambda: tformats.make_writer("emu://bucket/out", 4, SHAPE, np.uint16),
-                 lambda: tformats.resume_writer("s3://b/out", {})):
-        with pytest.raises(NotImplementedError, match="15c"):
-            call()
+    """Object-store URLs route to the object store, as the reference's do
+    (they raised NotImplementedError naming the ROADMAP item until the
+    port had one): a bucket without a manifest, a checkpoint state of
+    another writer and a scheme with no registered client raise the
+    reference's errors with its messages."""
+    calls = [
+        (lambda m: m.open_stack(f"emu://{tmp_path}/none"), FileNotFoundError),
+        (lambda m: m.resume_writer("s3://b/out", {}), OSError),
+        (lambda m: m.make_writer("gs://b/out", 4, SHAPE, np.uint16), ValueError),
+    ]
+    for call, exc in calls:
+        errs = []
+        for mod in (jformats, tformats):
+            with pytest.raises(exc) as e:
+                call(mod)
+            errs.append(str(e.value).replace("kcmc_tpu_torch.", "kcmc_tpu."))
+        assert errs[0] == errs[1]
+    w = tformats.make_writer(f"emu://{tmp_path}/out", 4, SHAPE, np.uint16)
+    assert type(w).__name__ == "ObjectStoreWriter"
 
 
 def test_hdf5_reader_and_writer_match(tmp_path, frames):

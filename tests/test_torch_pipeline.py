@@ -209,7 +209,9 @@ def test_port_imports_neither_jax_nor_kcmc_tpu():
                 "ops.pyramid", "ops.warp_separable", "ops.match_banded", "ops.warp_field",
                 "utils.trajectory", "corrector", "ops.warp", "io", "io.tiff",
                 "io.formats", "io.feeder", "io.reader", "io.async_writer",
-                "utils.checkpoint", "utils.faults", "utils.dtypes", "obs.log"):
+                "utils.checkpoint", "utils.faults", "utils.dtypes", "obs.log",
+                "io.objectstore", "obs.latency", "utils.profiling", "analysis.roofline",
+                "selftest"):
         assert "kcmc_tpu_torch." + mod in names
     src = open(os.path.join(REPO, "chip_smoke.py")).read()
     assert "import jax" not in src and "from kcmc_tpu " not in src

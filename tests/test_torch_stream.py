@@ -196,11 +196,15 @@ def test_integer_cast_matches_reference(dtype):
     np.testing.assert_array_equal(got, want)
 
 
-def test_object_urls_and_frame_rank_raise(data):
+def test_object_urls_and_frame_rank_raise(data, tmp_path):
+    """correct_file takes object-store URLs (it raised NotImplementedError
+    for them until the port had an object store): a bucket without a
+    manifest and an output scheme with no registered client raise the
+    reference's errors."""
     mc = kcmc_tpu_torch.MotionCorrector(device="cpu", batch_size=4)
-    with pytest.raises(NotImplementedError, match="15c"):
-        mc.correct_file("emu://bucket/in")
-    with pytest.raises(NotImplementedError, match="15c"):
+    with pytest.raises(FileNotFoundError, match="no usable stack manifest"):
+        mc.correct_file(f"emu://{tmp_path}/none")
+    with pytest.raises(ValueError, match="no client registered for scheme 's3'"):
         mc.correct_file(data["tif"], output="s3://bucket/out")
     with pytest.raises(ValueError, match="3D frames"):
         kcmc_tpu_torch.MotionCorrector(model="rigid3d", device="cpu").correct_file(data["tif"])
