@@ -213,7 +213,20 @@ port's TiffWriter, the scene x 40000; escalation off):
     manifests) equals the uninterrupted one byte for byte with fewer
     PUTs; a fault storm on the object surface (drop, stall=0.2, flip,
     truncate, throttle; object_timeout_s=2): zero loss and the same
-    bucket, its retry and refetch counters printed.
+    bucket, its retry and refetch counters printed;
+23. e2e_plans: execution plans, config 1 with plan_buckets=(256, 512):
+    a cold process (fresh compile_cache_dir; warmup of float32 and
+    uint16 builds the kernel libraries into it), a warm one on the same
+    directory (stamp_misses 0, stamp_hits the cold one's, no nvcc) and
+    one without a warmup, each correcting a uint16 batch to uint16 (the
+    device cast) and timed from spawn to that batch; 512 frames cropped to 500x496 through the 512
+    bucket against the unbucketed run, polish off (keypoints and
+    warp_ok equal, equal transforms give equal frames, the describe
+    mean's corner gaps printed, as tests/plans_witness.py reads them in
+    the JAX package on the CPU) and on (RMSE within 0.02 px); an exact
+    512² run, an affine run (K7 on the canvas) and a 600² fallback under
+    the armed retrace sentinel (violations for the fallback only). The
+    phase prints its seconds.
 
 Every e2e line of a 2D model carries `roofline`: analysis/roofline's
 binding resource and fraction of peak on this card's row, for the work
@@ -2304,6 +2317,283 @@ def phase_e2e_object(smi: str, tmp: str) -> dict:
     return line
 
 
+# e2e_plans: the child process of the cold and warm starts. argv: mode
+# ("cold", "warm" or "nowarm"), the cache directory, the JSON file it
+# writes. Config 1's corrector with plan_buckets=PLAN_BUCKETS; "cold" and
+# "warm" run warmup(dtypes=("float32", "uint16")) first; then one batch
+# of config 1's scene cropped to PLAN_CROP, in uint16, is corrected to
+# uint16 (the warmed register and cast programs).
+PLAN_BUCKETS = (256, 512)
+PLAN_CROP = (500, 496)
+PLAN_CHILD = r"""
+import json, sys, time
+t_start = time.time()
+mode, cache, out = sys.argv[1:4]
+import numpy as np
+import torch
+from kcmc_tpu_torch import MotionCorrector
+from kcmc_tpu_torch.ops import cuda_build
+from kcmc_tpu_torch.utils.synthetic import make_drift_stack
+import_s = time.time() - t_start
+data = make_drift_stack(n_frames=32, shape=(512, 512), model="translation", seed=0)
+stack = np.clip(data.stack[:, :%d, :%d] * 40000, 0, 65535).astype(np.uint16)
+data_s = time.time() - t_start - import_s
+mc = MotionCorrector(model="translation", plan_buckets=%r, compile_cache_dir=cache,
+                     rescue_escalate=False)
+summary = None
+if mode != "nowarm":
+    summary = mc.warmup(dtypes=("float32", "uint16"))
+    summary.pop("plan_cache")
+t_warm = time.time()
+res = mc.correct(stack, output_dtype="input")
+torch.cuda.synchronize()
+t_first = time.time()
+pc = res.timing["plan_cache"]
+json.dump({"mode": mode, "t_first": t_first, "import_s": import_s, "data_s": data_s,
+           "correct_s": t_first - t_warm, "warmup": summary,
+           "nvcc_runs": cuda_build.NVCC_RUNS,
+           "libs_loaded": sorted({n for n, _ in cuda_build._LIBS}),
+           "lib_dir": str(cuda_build.lib_dir()),
+           "plan_cache": {k: pc[k] for k in ("bucket_exact", "bucket_padded", "bucket_fallback",
+                                             "stamp_hits", "stamp_misses", "compile_counts")},
+           "finite": bool(res.corrected.dtype == np.uint16
+                          and np.isfinite(res.transforms).all())}, open(out, "w"))
+""" % (PLAN_CROP + (PLAN_BUCKETS,))
+
+
+def _plan_child(mode: str, cache: str, tmp: str) -> dict:
+    """One cold- or warm-start process; its record plus the wall time
+    from its spawn to its first corrected batch."""
+    out = os.path.join(tmp, f"plan_{mode}.json")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    env.pop("KCMC_COMPILE_CACHE", None)
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-c", PLAN_CHILD, mode, cache, out], cwd=root,
+                          env=env, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"e2e_plans: the {mode} process failed:\n{proc.stderr[-4000:]}")
+    with open(out) as f:
+        rec = json.load(f)
+    rec["start_to_first_batch_s"] = rec.pop("t_first") - t0
+    return rec
+
+
+def _corner_gap(a: np.ndarray, b: np.ndarray, shape) -> np.ndarray:
+    """Per-frame largest displacement (px) between two (T, 3, 3) maps at
+    the frame's four corners."""
+    h, w = shape
+    c = np.array([[0, 0, 1], [w - 1, 0, 1], [0, h - 1, 1], [w - 1, h - 1, 1]], np.float64).T
+    pa, pb = a.astype(np.float64) @ c, b.astype(np.float64) @ c
+    pa, pb = pa[:, :2] / pa[:, 2:], pb[:, :2] / pb[:, 2:]
+    return np.abs(pa - pb).max(axis=(1, 2))
+
+
+def _plans_run(mc, stack):
+    """A warm-up correct() of one batch, then the timed correct() of the
+    stack, with the launch counters and the routing counters read as
+    deltas over that run: (result, seconds, launches, routing)."""
+    keys = ("bucket_exact", "bucket_padded", "bucket_fallback")
+    mc.correct(stack[:mc.config.batch_size])
+    torch.cuda.synchronize()
+    before = mc.backend.plan_cache_stats()
+    mc.backend.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = mc.correct(stack)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = mc.backend.launch_counts()
+    after = mc.backend.plan_cache_stats()
+    return res, seconds, launches, {k: after[k] - before[k] for k in keys}
+
+
+def phase_e2e_plans(smi: str, tmp: str) -> dict:
+    """Execution plans (queue 1 item 16), config 1 with
+    plan_buckets=(256, 512):
+    - cold: a process with a fresh compile_cache_dir runs
+      warmup(dtypes=("float32", "uint16")) (its nvcc round builds the
+      libraries into the cache), then corrects one uint16 batch of
+      500x496 to uint16; warm: a second process on the same directory
+      must report stamp_misses 0 (in its warmup and over the whole
+      process: the cold one stamped its batch's register and cast
+      programs), stamp_hits equal to the cold process's programs, every
+      library cached and no nvcc run; nowarm: a third process on the
+      same directory corrects without a warmup. Each process's time
+      from its spawn to its first corrected batch is printed (no limit);
+    - polish off: 512 frames of config 1's scene cropped to 500x496,
+      through the 512 bucket (16 batches padded) and unbucketed: equal
+      keypoint counts and warp_ok, the frames whose transforms are equal
+      equal within TOL of max|frame|; the transforms' corner gaps and
+      the frames whose match counts differ (the describe stage's mean
+      runs over the bucket canvas, pad zeros included, as the
+      reference's: tests/plans_witness.py reads the same divergence in
+      the JAX package's own bucketed and unbucketed runs on the CPU)
+      printed, RMSE of both <= 0.05 px within 0.005 px of
+      each other (no polish: ~0.065 px each, limit 0.1), every corner gap
+      under 0.05 px;
+    - polish on (config 1's default): the two routes' RMSE within 0.02
+      px of each other;
+    - exact: 128 frames of 512x512 count only bucket_exact, transforms
+      within 1e-3 px at the corners of the unbucketed run's;
+    - affine: 64 frames of 512x512 affine drift cropped to 500x496
+      (K1, K6, K7 on the canvas; polish on): RMSE <= 0.05 px both routes,
+      within 0.02 px of each other;
+    - fallback: 64 frames of 600x600 count bucket_fallback only; with the
+      retrace sentinel armed after every bucketed corrector's warmup, the
+      bucketed runs record no violation and the fallback run exactly
+      one each for 'reference' and 'register' at 600x600.
+    The line's launches are the bucketed and fallback runs'."""
+    from kcmc_tpu_torch import MotionCorrector
+    from kcmc_tpu_torch.analysis import sanitize
+    from kcmc_tpu_torch.plans.runtime import predict_compile_keys
+    from kcmc_tpu_torch.utils.metrics import relative_transforms
+    from kcmc_tpu_torch.utils.synthetic import make_drift_stack
+
+    t_phase = time.perf_counter()
+    cache = os.path.join(tmp, "plan_cache")
+    procs = {mode: _plan_child(mode, cache, tmp) for mode in ("cold", "warm", "nowarm")}
+    cold, warm = procs["cold"]["warmup"], procs["warm"]["warmup"]
+    processes_s = time.perf_counter() - t_phase
+
+    n, B = 512, 32
+    full, gt_rel, _ = _cell("translation", n)
+    h, w = PLAN_CROP
+    crop = np.ascontiguousarray(full[:, :h, :w])
+    aff = make_drift_stack(n_frames=64, shape=(512, 512), model="affine", seed=0)
+    aff_crop, aff_gt = np.ascontiguousarray(aff.stack[:, :h, :w]), relative_transforms(aff.transforms)
+    wide = make_drift_stack(n_frames=64, shape=(600, 600), model="translation", seed=0)
+    common = dict(rescue_escalate=False)
+
+    def corrector(model="translation", buckets=(), **kw):
+        return MotionCorrector(model=model, plan_buckets=buckets, **common, **kw)
+
+    # the unbucketed runs first: their first builds are not the ladder's
+    u0, u0_s, u0_l, _ = _plans_run(corrector(transform_polish=0), crop)
+    u1, u1_s, u1_l, _ = _plans_run(corrector(), crop)
+    ux, _, _, _ = _plans_run(corrector(), full[:128])
+    ua, _, ua_l, _ = _plans_run(corrector("affine"), aff_crop)
+    p0 = corrector(transform_polish=0, buckets=PLAN_BUCKETS)
+    p1 = corrector(buckets=PLAN_BUCKETS)
+    pa = corrector("affine", buckets=PLAN_BUCKETS)
+    for mc in (p0, p1, pa):
+        mc.warmup()
+    sanitize.take_violations()
+    runs = {}
+    with sanitize.retrace_sentinel(predicted=predict_compile_keys(p1.config), label="e2e_plans"):
+        for tag, mc, stack in (("polish_off", p0, crop), ("polish_on", p1, crop),
+                               ("exact", p1, full[:128]), ("affine", pa, aff_crop)):
+            runs[tag] = _plans_run(mc, stack)
+        bucketed_violations = sanitize.take_violations()
+        runs["fallback"] = _plans_run(p1, wide.stack)
+    fallback_violations = sanitize.take_violations()
+
+    r0, r1, rx, ra, rf = (runs[k][0] for k in ("polish_off", "polish_on", "exact", "affine",
+                                              "fallback"))
+    rmse = {k: _rmse(runs[k][0], g, s.shape[1:]) for k, g, s in (
+        ("polish_off", gt_rel, crop), ("polish_on", gt_rel, crop), ("exact", gt_rel[:128], full),
+        ("affine", aff_gt, aff_crop), ("fallback", relative_transforms(wide.transforms), wide.stack))}
+    rmse_plain = {"polish_off": _rmse(u0, gt_rel, crop.shape[1:]),
+                  "polish_on": _rmse(u1, gt_rel, crop.shape[1:]),
+                  "affine": _rmse(ua, aff_gt, aff_crop.shape[1:])}
+    gap = _corner_gap(r0.transforms, u0.transforms, PLAN_CROP)
+    same = np.all(r0.transforms == u0.transforms, axis=(1, 2))
+    kept = same & ~r0.diagnostics["warp_rescued"] & ~u0.diagnostics["warp_rescued"]
+    scale = float(np.abs(crop).max())
+    kept_gap = (float(np.abs(r0.corrected[kept] - u0.corrected[kept]).max()) / scale
+                if kept.any() else None)
+    diag_differ = {k: int((r0.diagnostics[k] != u0.diagnostics[k]).sum())
+                   for k in ("n_keypoints", "n_matches", "n_inliers", "rms_residual",
+                             "warp_rescued")}
+    exact_gap = float(_corner_gap(rx.transforms, ux.transforms, (512, 512)).max())
+    violations = [v for v in fallback_violations]
+    want_violations = {("reference", "600x600"), ("register", "600x600")}
+    got_violations = sorted((v.split("'")[1], v.split(" compiled at ")[1].split("/")[0])
+                            for v in violations)
+    launches = dict(ZERO)
+    for tag in runs:
+        for k, v in runs[tag][2].items():
+            launches[k] += v
+    line = {
+        "phase": "e2e_plans", "model": "translation", "buckets": list(PLAN_BUCKETS),
+        "crop": list(PLAN_CROP),
+        **{mode: {k: procs[mode][k] for k in ("start_to_first_batch_s", "correct_s", "import_s",
+                                              "data_s", "nvcc_runs", "libs_loaded",
+                                              "plan_cache")}
+           | {k: procs[mode]["warmup"][k] for k in (
+               "programs_built", "stamp_hits", "stamp_misses", "build_s", "libraries",
+               "libraries_s", "compile_s")}
+           for mode in ("cold", "warm")},
+        "nowarm": {k: procs["nowarm"][k] for k in ("start_to_first_batch_s", "correct_s",
+                                                  "import_s", "data_s", "nvcc_runs",
+                                                  "plan_cache")},
+        "processes_s": processes_s,
+        "runs": {tag: {"frames": len(s), "seconds": runs[tag][1],
+                       "frames_per_s": len(s) / runs[tag][1], "rmse_px": rmse[tag],
+                       "routing": runs[tag][3],
+                       "launches": {k: v for k, v in runs[tag][2].items() if v}}
+                 for tag, s in (("polish_off", crop), ("polish_on", crop), ("exact", full[:128]),
+                                ("affine", aff_crop), ("fallback", wide.stack))},
+        "unbucketed": {"rmse_px": rmse_plain,
+                       "frames_per_s": {"polish_off": n / u0_s, "polish_on": n / u1_s},
+                       "launches": {"polish_off": {k: v for k, v in u0_l.items() if v},
+                                    "affine": {k: v for k, v in ua_l.items() if v}}},
+        "polish_off_parity": {
+            "max_corner_gap_px": float(gap.max()), "frames_within_1e-3_px": int((gap <= 1e-3).sum()),
+            "frames_equal_transforms": int(same.sum()), "kept_frames_gap": kept_gap,
+            "frames_differing": diag_differ},
+        "exact_max_corner_gap_px": exact_gap,
+        "sentinel": {"bucketed_violations": len(bucketed_violations),
+                     "fallback_violations": got_violations},
+        "launches": launches, "seconds": time.perf_counter() - t_phase, "card": smi,
+    }
+    emit(line)
+    for tag in rmse:
+        # without the polish config 1 reads ~0.065 px on either route
+        _check_rmse(f"e2e_plans {tag}", rmse[tag], 0.1 if tag == "polish_off" else 0.05)
+    fails = []
+    if warm["stamp_misses"] != 0 or warm["stamp_hits"] != cold["stamp_hits"] + cold["stamp_misses"]:
+        fails.append("warm process stamps")
+    if procs["warm"]["plan_cache"]["stamp_misses"] or procs["nowarm"]["plan_cache"]["stamp_misses"]:
+        # their uint16 batch (register, cast) was stamped by the cold one
+        fails.append("warm process's first batch missed a stamp")
+    if procs["warm"]["nvcc_runs"] or procs["nowarm"]["nvcc_runs"] or not all(
+            v["cached"] for v in warm["libraries"].values()):
+        fails.append("warm process ran nvcc")
+    for mode in ("cold", "warm"):
+        if not set(procs[mode]["libs_loaded"]) <= set(cold["libraries"]):
+            fails.append(f"{mode} process loaded a library its warmup did not build")
+        if not procs[mode]["lib_dir"].startswith(cache):
+            fails.append(f"{mode} process's libraries are not under the cache")
+    if cold["stamp_misses"] < cold["programs_built"] or not all(
+            procs[m]["finite"] for m in procs):
+        fails.append("cold process")
+    if diag_differ["n_keypoints"] or diag_differ["warp_rescued"]:
+        fails.append("polish-off keypoints or warp_ok differ")
+    if gap.max() > 0.05 or abs(rmse["polish_off"] - rmse_plain["polish_off"]) > 0.005:
+        fails.append("polish-off transforms")
+    if kept_gap is not None and kept_gap > TOL:
+        fails.append("polish-off kept frames")
+    if runs["polish_off"][3] != {"bucket_exact": 0, "bucket_padded": n // B, "bucket_fallback": 0}:
+        fails.append("polish-off routing")
+    if abs(rmse["polish_on"] - rmse_plain["polish_on"]) > 0.02:
+        fails.append("polish-on plateau")
+    if abs(rmse["affine"] - rmse_plain["affine"]) > 0.02:
+        fails.append("affine plateau")
+    if runs["exact"][3] != {"bucket_exact": 4, "bucket_padded": 0, "bucket_fallback": 0} \
+            or exact_gap > 1e-3:
+        fails.append("exact run")
+    if runs["fallback"][3] != {"bucket_exact": 0, "bucket_padded": 0, "bucket_fallback": 2}:
+        fails.append("fallback routing")
+    if bucketed_violations or len(violations) != 2 or set(got_violations) != want_violations:
+        fails.append("retrace sentinel")
+    if not (runs["polish_off"][2]["detect_response"] and runs["polish_off"][2]["warp_translation"]
+            and runs["affine"][2]["warp_batch_matrix"]):
+        fails.append("kernel launches")
+    if fails:
+        raise AssertionError(f"e2e_plans: {fails}")
+    return line
+
+
 def phase_selftest(smi: str) -> dict:
     """`python -m kcmc_tpu_torch.selftest` in this process: every record
     printed; any record that is not ok fails the smoke."""
@@ -2497,6 +2787,8 @@ def main() -> int:
         by_path["e2e_file_faults"] = phase_e2e_file_faults(smi, tmp)
         # object-store ingest and egress (queue 1 item 15c)
         by_path["e2e_object"] = phase_e2e_object(smi, tmp)
+        # execution plans (queue 1 item 16)
+        by_path["e2e_plans"] = phase_e2e_plans(smi, tmp)
     for r in rows:
         r["launches"] = sum(line["launches"][r["name"]] for line in by_path.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -19,7 +19,11 @@ version on the card. Imports torch and numpy only.
     other = apply_correction(channel2, res.transforms)  # same motion
     res = MotionCorrector().correct_file("in.tif", output="out.tif",
                                          checkpoint="run.ckpt.npz")
+    mc = MotionCorrector(plan_buckets=(256, 512), compile_cache_dir="cache")
+    mc.warmup()  # shape buckets, warm programs, kernels kept in "cache"
 """
+
+__version__ = "0.1.0"
 
 __all__ = [
     "CorrectionResult",

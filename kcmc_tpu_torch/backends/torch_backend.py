@@ -44,6 +44,19 @@ global frame index into `key(seed)`, so results do not depend on batch
 boundaries. Tensors live on `device`; on the card every kernel runs as
 CUDA, on the CPU as its plain version.
 
+Execution plans (plans/, jax_backend.py:382-440, :587-679): with
+`plan_buckets`, a routable 2D batch (`PlanRuntime.routable`) whose shape
+is not a bucket is zero-padded bottom/right to the smallest covering
+bucket after the upload and before the float32 cast, and registered on
+that canvas with its true extent `valid_hw`: the sanitize statistics
+cover the valid rectangle, selection is masked to the valid extent,
+every warp's output is zeroed where its source sample left the valid
+extent (`mask_valid_extent`: K3, K7 and the gather alike) and the
+polish gates its regions by it; the corrected frames are sliced back on
+the device before the quality metrics and the download. The first run
+of each program (`reference`, `register`, `update_reference`,
+`quality`, `cast`) is timed and stamped by the backend's `PlanRuntime`.
+
 With `match_radius` the dense match of every 2D path is the banded
 matcher (`ops/match_banded.py`): geometry once per frame shape, the
 reference bucketed once per batch, its Matches fed to the consensus,
@@ -58,6 +71,7 @@ from __future__ import annotations
 
 import functools
 import math
+import weakref
 
 import numpy as np
 import torch
@@ -82,6 +96,7 @@ from kcmc_tpu_torch.ops.warp import (
     coverage_mask,
     coverage_mask_3d,
     coverage_mask_flow,
+    valid_rect_mask,
     warp_batch,
     warp_batch_with_ok,
     warp_frame_flow,
@@ -93,19 +108,43 @@ from kcmc_tpu_torch.ops.warp_field import (
     warp_batch_rigid3d,
 )
 from kcmc_tpu_torch.ops.warp_separable import warp_batch_affine
+from kcmc_tpu_torch.plans.plan import kernel_libraries
+from kcmc_tpu_torch.plans.runtime import PlanRuntime
 from kcmc_tpu_torch.utils import prng
 from kcmc_tpu_torch.utils.device import resolve_device, set_full_precision
+from kcmc_tpu_torch.utils.dtypes import int_clip_bounds
 
 
-def sanitize_nonfinite(frames: torch.Tensor) -> torch.Tensor:
+def sanitize_nonfinite(frames: torch.Tensor,
+                       valid_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Replace the non-finite pixels of a (B, ...) batch by each frame's
-    finite mean (jax_backend.py:72, `sanitize_input`)."""
+    finite mean (jax_backend.py:72-86, `sanitize_input`). `valid_mask`
+    (bool, broadcastable) restricts the mean to the valid extent of
+    bucket-padded frames, so the value equals the unpadded frame's."""
     finite = torch.isfinite(frames)
+    stat = finite if valid_mask is None else finite & valid_mask
     axes = tuple(range(1, frames.dim()))
-    n = torch.clamp(finite.sum(dim=axes, keepdim=True), min=1)
+    n = torch.clamp(stat.sum(dim=axes, keepdim=True), min=1)
     zero = torch.zeros((), dtype=frames.dtype, device=frames.device)
-    mean = torch.where(finite, frames, zero).sum(dim=axes, keepdim=True) / n
+    mean = torch.where(stat, frames, zero).sum(dim=axes, keepdim=True) / n
     return torch.where(finite, frames, mean)
+
+
+def mask_valid_extent(corrected: torch.Tensor, transforms: torch.Tensor,
+                      valid_hw: torch.Tensor) -> torch.Tensor:
+    """Zero the warped pixels of a bucket-padded batch whose source
+    sample lies outside the valid (h, w) extent (jax_backend.py:89-108):
+    the unpadded warp writes 0 there, and a bilinear read straddling the
+    valid edge would blend real pixels with pad zeros."""
+    return corrected * coverage_mask(tuple(corrected.shape[1:]), transforms, valid_hw)
+
+
+def cast_corrected(corrected: torch.Tensor, dtype: np.dtype) -> torch.Tensor:
+    """Float32 frames rounded, clipped and cast to an integer dtype on the
+    device (jax_backend.py:56-68), with bounds exact in float32."""
+    lo, hi = int_clip_bounds(dtype, np.float32)
+    tdt = getattr(torch, np.dtype(dtype).name)
+    return torch.clamp(torch.round(corrected), float(lo), float(hi)).to(tdt)
 
 
 def template_corr(corrected: torch.Tensor, ref_frame: torch.Tensor,
@@ -153,7 +192,9 @@ class TorchBackend:
     # build or kernel error always raises (faults.classify_device_transient).
     transient_error_types = ()
 
-    def __init__(self, config: CorrectorConfig, device=None):
+    def __init__(self, config: CorrectorConfig, device=None, plan_routing: bool = True):
+        """`plan_routing=False` ignores `plan_buckets` (the CPU failover
+        backend, as the reference's numpy backend ignores them)."""
         missing = config.unsupported()
         if missing:
             raise NotImplementedError(
@@ -167,6 +208,17 @@ class TorchBackend:
         self._base_key = prng.key(config.seed, device=self.device)
         self._geometries = {}  # frame shape -> banded geometry
         self.precision = config.resolved_match_precision(self.device.type == "cuda")
+        # shape buckets, the persistent kernel cache and build accounting
+        # (a weak reference: no cycle keeps the backend's tensors alive)
+        backend = weakref.ref(self)
+        self._plan = PlanRuntime(config, backend_name=self.name, device=self.device,
+                                 routing=plan_routing,
+                                 libraries=lambda program: kernel_libraries(backend(), (program,)))
+
+    def plan_cache_stats(self) -> dict:
+        """The execution-plan snapshot (routing counters, first builds,
+        plan-stamp hits and misses) that lands in timing["plan_cache"]."""
+        return self._plan.stats()
 
     # -- launch counters ---------------------------------------------------
 
@@ -180,11 +232,13 @@ class TorchBackend:
 
     # -- reference ---------------------------------------------------------
 
-    def _detect_describe(self, frames: torch.Tensor, multi_scale: bool = True):
+    def _detect_describe(self, frames: torch.Tensor, multi_scale: bool = True,
+                         valid_hw: torch.Tensor | None = None):
         """(Keypoints, desc) of a (B, H, W) frame batch (through the scale
-        pyramid when n_octaves > 1 and `multi_scale`) or, for rigid3d, a
-        (B, D, H, W) volume batch (K9 and K10; the reference's window
-        sigma and Harris k of 3D detection, border <= min(D, H, W) // 4)."""
+        pyramid when n_octaves > 1 and `multi_scale`; selection masked to
+        `valid_hw` on a bucket canvas) or, for rigid3d, a (B, D, H, W)
+        volume batch (K9 and K10; the reference's window sigma and Harris
+        k of 3D detection, border <= min(D, H, W) // 4)."""
         cfg = self.config
         if frames.dim() == 4:
             kps, smooth = detect_keypoints_3d_batch(
@@ -212,6 +266,7 @@ class TorchBackend:
             octave_scale=cfg.octave_scale,
             multi_scale=multi_scale,
             precision=self.precision,
+            valid_hw=valid_hw,
         )
 
     # -- warp policy -------------------------------------------------------
@@ -327,9 +382,48 @@ class TorchBackend:
         else:
             frame = torch.as_tensor(np.array(ref_frame, np.float32), device=self.device)
         if self.config.sanitize_input:
+            # at the true shape, before any bucket padding
             frame = sanitize_nonfinite(frame[None])[0]
-        kps, desc = self._detect_describe(frame[None].contiguous())
-        return {"xy": kps.xy[0], "desc": desc[0], "valid": kps.valid[0], "frame": frame}
+        shape = tuple(frame.shape)
+        if len(shape) == 3:
+            kps, desc = self._detect_describe(frame[None].contiguous())
+            return {"xy": kps.xy[0], "desc": desc[0], "valid": kps.valid[0], "frame": frame}
+        bucket = self._plan.route(shape)
+        plan_frame, valid_hw = frame, None
+        if bucket is not None:
+            # detect on the frame zero-padded to its bucket, selection
+            # masked to the true extent (jax_backend.py:382-440); the
+            # true-shape template stays in "frame", the canvas goes to
+            # "_plan_frame" for the batch program's polish
+            plan_frame = self._pad_to(frame[None], bucket)[0]
+            valid_hw = torch.tensor(shape, dtype=torch.int32, device=self.device)
+        program = "reference_pyramid" if self.config.n_octaves > 1 else "reference"
+        with self._plan.maybe_timed(program, tuple(plan_frame.shape), "float32"):
+            kps, desc = self._detect_describe(plan_frame[None].contiguous(), valid_hw=valid_hw)
+        ref = {"xy": kps.xy[0], "desc": desc[0], "valid": kps.valid[0], "frame": frame}
+        if bucket is not None:
+            ref["_plan_frame"] = plan_frame
+        return ref
+
+    @staticmethod
+    def _pad_to(frames: torch.Tensor, bucket) -> torch.Tensor:
+        """(B, h, w) frames zero-padded bottom and right to (B, *bucket),
+        in their own dtype (a uint16 batch pads in uint16)."""
+        B, h, w = frames.shape
+        if (h, w) == tuple(bucket):
+            return frames
+        canvas = torch.zeros((B,) + tuple(bucket), dtype=frames.dtype, device=frames.device)
+        canvas[:, :h, :w] = frames
+        return canvas
+
+    def _plan_template(self, ref: dict, bucket) -> torch.Tensor:
+        """The polish template of a bucketed batch: ref["_plan_frame"], or
+        ref["frame"] padded when the reference was prepared elsewhere
+        (reference_from_numpy, a non-routing backend)."""
+        tmpl = ref.get("_plan_frame")
+        if tmpl is None or tuple(tmpl.shape) != tuple(bucket):
+            tmpl = self._pad_to(ref["frame"].to(torch.float32)[None], bucket)[0]
+        return tmpl
 
     def reference_from_numpy(self, ref: dict) -> dict:
         """A prepared reference from numpy arrays (e.g. one prepared by
@@ -361,7 +455,9 @@ class TorchBackend:
                             for c in tail_corrected])[-window:]
         ok = torch.cat([torch.as_tensor(k, device=dev).to(torch.bool)
                         for k in tail_ok])[-window:]
-        with stage("update_reference"):
+        with stage("update_reference"), self._plan.maybe_timed(
+                "update_reference", tuple(frames.shape), "float32"):
+            # at the true shape; the re-preparation routes through the bucket
             new_frame = blend_template(ref["frame"].to(torch.float32), frames, ok, alpha)
         return self.prepare_reference(new_frame)
 
@@ -388,7 +484,7 @@ class TorchBackend:
             return {k: v.cpu().numpy() for k, v in out.items()}
 
     def process_batch(self, frames, ref: dict, frame_indices, seed=None,
-                      to_host: bool = True) -> dict:
+                      to_host: bool = True, cast_dtype=None) -> dict:
         """Register and correct a (B, H, W) batch (rigid3d: (B, D, H, W);
         numpy or a tensor on any device) against a prepared reference.
         Returns numpy arrays (tensors on the device with `to_host=False`):
@@ -396,27 +492,58 @@ class TorchBackend:
         for piecewise), corrected, warp_ok and the per-frame diagnostics
         (with `quality_metrics`, template_corr and coverage, unless
         ref["_skip_quality"]). `seed` = (transform, ok): the warm start's
-        consensus seed, shared by the batch (matrix models)."""
+        consensus seed, shared by the batch (matrix models). A routable
+        batch runs on its shape bucket (jax_backend.py:587-679).
+        `cast_dtype` (an integer dtype) rounds, clips and casts the
+        corrected frames on the device before the download."""
         cfg = self.config
+        plan = self._plan
         with stage("upload"):
             frames = torch.as_tensor(frames, device=self.device)
-            frames = frames.to(torch.float32).contiguous()
-            if cfg.sanitize_input:
-                frames = sanitize_nonfinite(frames)
-            idx = torch.as_tensor(np.asarray(frame_indices, np.int64), device=self.device)
-            keys = prng.fold_in(self._base_key, idx)
-        with stage("match_consensus"):
-            banded = self._banded(tuple(frames.shape[1:]), ref)
-        with stage("detect_describe"):
-            kps, desc = self._detect_describe(frames)
-        if cfg.model == "piecewise":
-            out = self._piecewise_tail(frames, kps, desc, ref, keys, banded)
-        else:
-            out = self._matrix_tail(frames, kps, desc, ref, keys, banded, seed)
+            shape = tuple(frames.shape[1:])
+            bucket = plan.route(shape) if plan.active else None
+            valid_hw = valid_rect = None
+            if bucket is not None:
+                # pad in the upload dtype, before the float32 cast
+                plan.note_route("bucket_exact" if bucket == shape else "bucket_padded")
+                frames = self._pad_to(frames, bucket)
+                valid_hw = torch.tensor(shape, dtype=torch.int32, device=self.device)
+                valid_rect = valid_rect_mask(bucket, valid_hw)
+            elif plan.active and plan.routable(shape):
+                plan.note_route("bucket_fallback")
+            program_shape = shape if bucket is None else bucket
+            in_dtype = str(frames.dtype).removeprefix("torch.")
+        with plan.maybe_timed("register", program_shape, in_dtype):
+            with stage("upload"):
+                frames = frames.to(torch.float32).contiguous()
+                if cfg.sanitize_input:
+                    frames = sanitize_nonfinite(frames, valid_rect)
+                idx = torch.as_tensor(np.asarray(frame_indices, np.int64), device=self.device)
+                keys = prng.fold_in(self._base_key, idx)
+            with stage("match_consensus"):
+                banded = self._banded(tuple(frames.shape[1:]), ref)
+            with stage("detect_describe"):
+                kps, desc = self._detect_describe(frames, valid_hw=valid_hw)
+            if cfg.model == "piecewise":
+                out = self._piecewise_tail(frames, kps, desc, ref, keys, banded)
+            else:
+                plan_ref = ref
+                if bucket is not None:
+                    plan_ref = dict(ref, frame=self._plan_template(ref, bucket))
+                out = self._matrix_tail(frames, kps, desc, plan_ref, keys, banded, seed,
+                                        valid_hw=valid_hw)
+            if bucket is not None and bucket != shape:
+                # back to the true extent on the device, before the
+                # quality metrics, the cast, the rescue and the download
+                out["corrected"] = out["corrected"][:, : shape[0], : shape[1]]
         if cfg.quality_metrics and not ref.get("_skip_quality"):
-            with stage("quality"):
+            with stage("quality"), plan.maybe_timed("quality", shape, "float32"):
                 out["template_corr"], out["coverage"] = self.quality(
                     out["corrected"], out, ref["frame"])
+        if cast_dtype is not None and np.issubdtype(np.dtype(cast_dtype), np.integer):
+            dt = np.dtype(cast_dtype)
+            with plan.maybe_timed("cast", shape, dt.name):
+                out["corrected"] = cast_corrected(out["corrected"], dt)
         return self.to_host(out) if to_host else out
 
     def _piecewise_tail(self, frames, kps, desc, ref, keys, banded=None) -> dict:
@@ -490,12 +617,21 @@ class TorchBackend:
             "rms_residual": res.rms_residual,
         }
 
-    def _matrix_tail(self, frames, kps, desc, ref, keys, banded=None, seed=None) -> dict:
+    def _matrix_tail(self, frames, kps, desc, ref, keys, banded=None, seed=None,
+                     valid_hw=None) -> dict:
         """Match, consensus (seeded with `seed`), the pyramid's
         coarse-to-fine refine, bounded warp and the transform polish loop
-        (rigid3d has no polish, jax_backend.py:1323)."""
+        (rigid3d has no polish, jax_backend.py:1323). With `valid_hw`
+        (a bucket canvas) every warp's output is masked to the valid
+        extent and the polish gates its regions by it."""
         cfg = self.config
         batch_warp = self._resolve_batch_warp(frames.shape[1:])
+        if valid_hw is not None:
+            canvas_warp = batch_warp
+
+            def batch_warp(fr, Ms):
+                corrected, ok = canvas_warp(fr, Ms)
+                return mask_valid_extent(corrected, Ms, valid_hw), ok
         out = self._register(kps, desc, ref, keys, banded, seed)
         if frames.dim() == 3 and cfg.n_octaves > 1 and cfg.pyramid_refine:
             # warp by the coarse (multi-scale) estimate and register the
@@ -522,7 +658,8 @@ class TorchBackend:
             # they keep their transform for the rescue path
             with stage("polish"):
                 newM = polish_transforms(
-                    corrected, ref["frame"], M, cfg.model, grid=cfg.polish_grid
+                    corrected, ref["frame"], M, cfg.model, grid=cfg.polish_grid,
+                    valid_hw=valid_hw,
                 )
                 M = torch.where(ok[:, None, None], newM, M).contiguous()
             with stage("warp"):

@@ -5,11 +5,12 @@ homography, piecewise and rigid3d, single-scale or through the scale
 pyramid, with the options of `correct()`, and the retry, fault and
 file-streaming knobs of `correct_file()`) read, under the names and
 defaults of `kcmc_tpu.config.CorrectorConfig`, so a JAX config carries
-across with `config_from_dict(dataclasses.asdict(cfg))`. Knobs the port
-does not implement yet (`plan_buckets`, `mesh_devices`) are still
-declared: `unsupported()` names each non-default one with the ROADMAP.md
-item that will port it, and the backend raises `NotImplementedError`
-with that list instead of ignoring them. Warp
+across with `config_from_dict(dataclasses.asdict(cfg))`. `plan_buckets`
+is normalized through plans/buckets.py, as the reference normalizes it.
+The knob the port does not implement yet (`mesh_devices`) is still
+declared: `unsupported()` names it when set, with the ROADMAP.md item
+that will port it, and the backend raises `NotImplementedError` with
+that list instead of ignoring it. Warp
 policies and knob values the reference rejects raise `ValueError` here
 with the reference's messages (kcmc_tpu/config.py:750-767, :1018-1047).
 """
@@ -17,6 +18,8 @@ with the reference's messages (kcmc_tpu/config.py:750-767, :1018-1047).
 from __future__ import annotations
 
 import dataclasses
+
+from kcmc_tpu_torch.plans.buckets import normalize_buckets
 
 # Oriented describe takes the bins-first route from this many keypoints
 # on, the small-K route through K6 below it
@@ -107,7 +110,11 @@ class CorrectorConfig:
     sanitize_input: bool = False
     # rolling-template updates blend on the device (update_reference)
     device_templates: bool = True
+    # execution plans (plans/): the (H, W) shape buckets frames pad to,
+    # and the persistent cache directory of the kernel libraries and
+    # the plan stamps (also KCMC_COMPILE_CACHE)
     plan_buckets: tuple = ()
+    compile_cache_dir: str | None = None
     mesh_devices: int = 0
 
     # robustness (utils/faults.py; the degradation ladder of correct()
@@ -236,7 +243,17 @@ class CorrectorConfig:
         self._check_robustness()
         object.__setattr__(self, "polish_grid", tuple(self.polish_grid))
         object.__setattr__(self, "patch_grid", tuple(self.patch_grid))
-        object.__setattr__(self, "plan_buckets", tuple(self.plan_buckets))
+        # the bucket ladder in its canonical spelling, so the frozen
+        # config hashes and digests on one form (config.py:1008)
+        object.__setattr__(self, "plan_buckets", normalize_buckets(self.plan_buckets))
+        if self.compile_cache_dir is not None and (
+            not isinstance(self.compile_cache_dir, str)
+            or not self.compile_cache_dir.strip()
+        ):
+            raise ValueError(
+                "compile_cache_dir must be a non-empty path string or "
+                f"None, got {self.compile_cache_dir!r}"
+            )
 
     def _check_robustness(self) -> None:
         """The reference's checks of the retry, fault, object-store and
@@ -352,8 +369,6 @@ class CorrectorConfig:
         """Non-default knobs the port does not implement yet, each with
         the ROADMAP.md queue-1 item that will port it."""
         out = []
-        if self.plan_buckets:
-            out.append("plan_buckets (ROADMAP queue 1 item 16)")
         if self.mesh_devices:
             out.append("mesh_devices (ROADMAP queue 1 item 17)")
         return out
@@ -363,14 +378,15 @@ class CorrectorConfig:
 # topology but never what a run computes (kcmc_tpu/config.py:1094-1170,
 # for the fields the port declares): pinned to their defaults in
 # correct_file's resume signature, so changing them between a killed
-# run and its rerun resumes instead of restarting. `device_templates`
-# and `plan_buckets` are deliberately not neutral.
+# run and its rerun resumes instead of restarting. `compile_cache_dir`
+# only changes when kernels build, never what a run computes.
+# `device_templates` and `plan_buckets` are deliberately not neutral.
 SIG_NEUTRAL_FIELDS = frozenset({
     "fault_plan", "retry_attempts", "retry_backoff_s", "retry_backoff_max_s",
     "retry_jitter", "failover_backend", "degrade_mark_failed",
     "object_timeout_s", "object_hedge_ms", "object_chunk_frames", "object_part_bytes",
     "writer_depth", "io_workers", "io_prefetch",
-    "mesh_devices",
+    "mesh_devices", "compile_cache_dir",
 })
 
 

@@ -582,6 +582,41 @@ class MotionCorrector:
                                    else template_update_alpha),
         )
 
+    # -- execution plans (plans/) ------------------------------------------
+
+    def warmup(self, buckets=None, dtypes=None, programs=None, progress=False) -> dict:
+        """Run every hot program once for the declared shape buckets
+        (`plan_buckets`, or `buckets=`), on zero-filled inputs through
+        the backend's real entry points (corrector.py:798-822), so the
+        first real batch finds its kernel libraries loaded, its allocator
+        blocks and library handles made. The kernel libraries the
+        programs launch are built first, in one parallel nvcc round.
+
+        With `compile_cache_dir` / KCMC_COMPILE_CACHE the libraries live
+        in that directory and every program is stamped there: a new
+        process running the same warmup builds nothing (`stamp_misses
+        == 0`, every library `cached`).
+
+        dtypes: input dtypes to warm per bucket (default float32;
+        integer dtypes also warm the device-side output cast).
+        programs: subset of ("reference", "register",
+        "update_reference", "apply"); default all that apply. Returns
+        the build summary (programs built, stamp hits and misses,
+        seconds, the libraries built and their seconds, and the
+        backend's plan-cache snapshot)."""
+        from kcmc_tpu_torch.plans.plan import ExecutionPlan
+
+        return ExecutionPlan(self, buckets=buckets, dtypes=dtypes,
+                             programs=programs).build(progress=progress)
+
+    def _plan_timing(self, timing: dict) -> None:
+        """Attach the backend's plan-cache snapshot to a run's timing
+        whenever execution plans are configured or any program was built
+        (corrector.py:824-837)."""
+        stats = self.backend.plan_cache_stats()
+        if stats.get("enabled") or stats.get("programs_compiled"):
+            timing["plan_cache"] = stats
+
     def _reset_rescue_policy(self) -> None:
         """Out-of-bound telemetry, the escalation decision and the warm
         start's seed, reset at the start of every correct()
@@ -805,7 +840,8 @@ class MotionCorrector:
         sub = {k: host[k][bad] for k in ("transform", "field") if k in host}
         rescued = self.backend.rescue_warp(batch[:n][bad], sub, ref=ref)
         corrected = np.array(host["corrected"])
-        corrected[bad] = rescued
+        # rounded and clipped like the batch when it came back cast
+        corrected[bad] = _cast_output(rescued, corrected.dtype)
         host["corrected"] = corrected
         if "transform" in sub:
             # the rescue polished the flagged frames' transforms
@@ -859,7 +895,10 @@ class MotionCorrector:
         if not name or name == self.backend_name:
             return None
         if self._failover_backend is None:
-            self._failover_backend = TorchBackend(self.config, device="cpu")
+            # the buckets are ignored there, as by the reference's
+            # numpy backend (tests/test_plans.py:224-235)
+            self._failover_backend = TorchBackend(self.config, device="cpu",
+                                                  plan_routing=False)
         return self._failover_backend
 
     def _failover_reference(self, fb, ref: dict) -> dict:
@@ -907,7 +946,7 @@ class MotionCorrector:
         return self._apply_out_options(out, emit_frames)
 
     def _ladder_batch(self, first_exc, backend, batch, ref, idx, seed, step,
-                      n: int, emit_frames: bool) -> tuple[dict, bool]:
+                      n: int, emit_frames: bool, cast_dtype=None) -> tuple[dict, bool]:
         """Walk the degradation ladder for one failed batch
         (corrector.py:1019): (1) bounded retries with backoff on the same
         backend, (2) the failover backend, (3) mark the frames failed.
@@ -920,6 +959,7 @@ class MotionCorrector:
         marked failed)."""
         plan, policy, report = self._fault_plan, self._retry_policy, self._robustness
         extra = backend.transient_error_types
+        cast_kw = {} if cast_dtype is None else {"cast_dtype": cast_dtype}
         if not faults.classify_device_transient(first_exc, extra):
             raise first_exc
         last = first_exc
@@ -931,7 +971,7 @@ class MotionCorrector:
                 if plan is not None:
                     plan.maybe_fail("device", step)
                 out = self._apply_out_options(
-                    backend.process_batch(batch, ref, idx, seed=seed), emit_frames)
+                    backend.process_batch(batch, ref, idx, seed=seed, **cast_kw), emit_frames)
                 self._note_out_template(out)
                 return out, False
             except Exception as e:
@@ -945,7 +985,7 @@ class MotionCorrector:
                     plan.maybe_fail("failover", step)
                 fb_ref = self._failover_reference(fb, ref)
                 out = self._apply_out_options(
-                    fb.process_batch(batch, fb_ref, idx, seed=seed), emit_frames)
+                    fb.process_batch(batch, fb_ref, idx, seed=seed, **cast_kw), emit_frames)
                 self._note_out_template(out)
                 report.backend_failovers += 1
                 report.failover_frame_indices.extend(int(i) for i in idx[:n])
@@ -1002,7 +1042,7 @@ class MotionCorrector:
 
     def _dispatch_batches(self, batches, ref, drain, to_host: bool = True,
                           keep_frames: bool = False, emit_frames: bool = True,
-                          on_dispatched=None) -> None:
+                          on_dispatched=None, cast_dtype=None) -> None:
         """The dispatch core of `correct()` and `correct_file()`
         (corrector.py:1577): for each (n_valid, frames, indices) of
         `batches`, run the batch program on the current backend (the
@@ -1014,8 +1054,11 @@ class MotionCorrector:
         `keep_frames` hands the input frames to drain (the rescue needs
         them); `emit_frames=False` drops the corrected frames before
         they leave the device; `on_dispatched(n, out, idx)` sees every
-        batch's outputs first (the device template's tail)."""
+        batch's outputs first (the device template's tail); `cast_dtype`
+        (an integer dtype) casts the corrected frames on the device."""
         cfg = self.config
+        cast_dtype = cast_dtype if emit_frames else None
+        cast_kw = {} if cast_dtype is None else {"cast_dtype": cast_dtype}
         warm = cfg.warm_start and cfg.model != "piecewise"
         plan = self._fault_plan
         for n, batch, idx in batches:
@@ -1026,7 +1069,8 @@ class MotionCorrector:
             try:
                 if plan is not None:
                     plan.maybe_fail("device", step)
-                out = backend.process_batch(batch, ref, idx, seed=seed, to_host=False)
+                out = backend.process_batch(batch, ref, idx, seed=seed, to_host=False,
+                                            **cast_kw)
                 if on_dispatched is not None:
                     on_dispatched(n, out, idx)
                 res = self._apply_out_options(out, emit_frames)
@@ -1035,7 +1079,7 @@ class MotionCorrector:
                     res = backend.to_host(res)
             except Exception as e:
                 res, failed = self._ladder_batch(e, backend, batch, ref, idx, seed,
-                                                 step, n, emit_frames)
+                                                 step, n, emit_frames, cast_dtype)
                 if on_dispatched is not None:
                     on_dispatched(n, res, idx)
                 if failed:
@@ -1096,6 +1140,12 @@ class MotionCorrector:
         ref = self.backend.prepare_reference(ref_frame)
         B = cfg.batch_size
         do_rescue = cfg.rescue_warp and not device_outputs
+        out_dt = None if device_outputs else _resolve_dtype(output_dtype, _stack_dtype(stack))
+        # integer targets are cast on the card before the download (half
+        # the bytes for uint16); rolling templates keep float32 frames so
+        # the template blends unrounded pixels (corrector.py:1401-1412)
+        cast = (out_dt if out_dt is not None and np.issubdtype(out_dt, np.integer)
+                and self.template_update_every <= 0 else None)
         segs = self._segment_bounds(start_frame, T)
         dev_tmpl = len(segs) > 1 and cfg.device_templates
         E = self.template_update_every
@@ -1123,6 +1173,7 @@ class MotionCorrector:
             self._dispatch_batches(
                 batches(slo, shi), ref, drain, to_host=not device_outputs,
                 keep_frames=do_rescue, on_dispatched=on_dispatched if dev_tmpl else None,
+                cast_dtype=cast,
             )
             if si < len(segs) - 1:  # rolling template update
                 W = min(self.template_window, shi - slo)
@@ -1145,7 +1196,7 @@ class MotionCorrector:
         seconds = time.perf_counter() - t0
         corrected = merged.pop("corrected", empty)
         if not device_outputs:
-            corrected = _cast_output(corrected, _resolve_dtype(output_dtype, _stack_dtype(stack)))
+            corrected = _cast_output(corrected, out_dt)  # a no-op when cast on the card
         n_frames = max(T - start_frame, 0)
         timing = {
             "seconds": seconds,
@@ -1156,6 +1207,7 @@ class MotionCorrector:
             "pipeline": {"template_updates": n_updates,
                          "device_templates": bool(dev_tmpl)},
         }
+        self._plan_timing(timing)
         fields = merged.pop("field", None)
         transforms = self._finalize_robustness(
             merged, merged.pop("transform", None), start_frame, n_frames, timing,
@@ -1431,7 +1483,7 @@ class MotionCorrector:
                     while have - len(tail[0]["corrected"]) >= W_roll:
                         have -= len(tail.pop(0)["corrected"])
                 if corrected is not None:
-                    corrected = _cast_output(corrected, out_dt)
+                    corrected = _cast_output(corrected, out_dt)  # no-op if cast on the card
                 if writer is not None and corrected is not None:
                     writer.append_batch(corrected, n_threads=io_workers)
                 elif corrected is not None and emit_frames:
@@ -1468,6 +1520,10 @@ class MotionCorrector:
             def on_dispatched(n, out, idx):
                 self._collect_tail(dev_tail, n, out, W_roll)
 
+            # integer outputs are cast on the card (half the bytes of
+            # the download), except on rolling runs, whose template must
+            # blend unrounded pixels: drain casts those on the host
+            cast = out_dt if np.issubdtype(out_dt, np.integer) and not roll else None
             watchdog = (_StallWatchdog(stall_abort, lambda: cursor["done"], len(ts))
                         if stall_abort else None)
             seg_bounds = self._segment_bounds(start, len(ts))
@@ -1504,6 +1560,7 @@ class MotionCorrector:
                                     emit_frames=emit2 and not (
                                         dev_tmpl and not emit_frames),
                                     on_dispatched=on_dispatched if dev_tmpl else None,
+                                    cast_dtype=cast,
                                 )
                             finally:
                                 batch_gen.close()
@@ -1557,6 +1614,7 @@ class MotionCorrector:
             "warp_escalated_at": self._escalated_at,
             "pipeline": {"template_updates": n_updates, "device_templates": bool(dev_tmpl)},
         })
+        self._plan_timing(timing)
         obj_stats = {}
         if isinstance(ts, objectstore.ObjectStack):
             # ingest counters (hedges, retries, throttles, live p95),

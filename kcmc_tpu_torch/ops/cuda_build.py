@@ -2,14 +2,18 @@
 
 Each `csrc/*.cu` file is compiled by `nvcc` into its own shared library
 with a plain C interface and loaded with `ctypes`. Libraries live in
-`build/kcmc_tpu_torch/` at the root of the checkout, named by a hash of
-the source and the flags, so a changed source rebuilds and an unchanged
-one loads at once. `build()` starts one `nvcc` per missing library, all
-together. Nothing here runs when the package is imported: a kernel is
-built at its first launch (or by an explicit `build()`).
+`build/kcmc_tpu_torch/` at the root of the checkout or in the directory
+given to `set_lib_dir` (plans/cache.py points it at
+`<cache_dir>/kcmc_tpu_torch_kernels/` while a persistent cache
+directory is active); either way they are named by a hash of the
+source and the flags, so a changed source rebuilds and an unchanged one
+loads at once. `build()` starts one `nvcc` per missing
+library, all together. Nothing here runs when the package is imported:
+a kernel is built at its first launch (or by an explicit `build()`).
 
 `LAUNCHES` counts kernel launches, one per successful wrapper launch;
-the plain-version route never touches it.
+the plain-version route never touches it. `NVCC_RUNS` counts the nvcc
+processes this process started.
 """
 
 from __future__ import annotations
@@ -43,8 +47,10 @@ LAUNCHES: dict[str, int] = {
     "extract_blended_3d": 0, "extract_patches": 0,
 }
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict[tuple, ctypes.CDLL] = {}  # by (name, the directory it was loaded from)
 BUILD_INFO: dict[str, dict] = {}
+NVCC_RUNS = 0
+_LIB_DIR: Path | None = None  # set_lib_dir(); None: BUILD_DIR
 
 
 def reset_launches() -> None:
@@ -66,6 +72,18 @@ def _nvcc() -> str:
     return path
 
 
+def set_lib_dir(path) -> None:
+    """Build and load the libraries in `path` from now on (None: back to
+    `BUILD_DIR`). Libraries already loaded stay loaded."""
+    global _LIB_DIR
+    _LIB_DIR = None if path is None else Path(path)
+
+
+def lib_dir() -> Path:
+    """The directory the libraries are built in and loaded from."""
+    return BUILD_DIR if _LIB_DIR is None else _LIB_DIR
+
+
 def target(name: str) -> Path:
     """Path of the built library for `name`, named by a hash of its
     source, the shared headers and the flags."""
@@ -74,7 +92,7 @@ def target(name: str) -> Path:
         p.read_bytes() for p in sorted(CSRC.glob("*.cuh"))
     )
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{h}.so"
+    return lib_dir() / f"{name}-{h}.so"
 
 
 def build(names=None) -> dict[str, dict]:
@@ -83,16 +101,17 @@ def build(names=None) -> dict[str, dict]:
     {"seconds", "cached", "ptxas": [register, shared-memory, spill,
     warning and performance-note lines]}; raises with the compiler
     output if any build fails."""
+    global NVCC_RUNS
     names = list(SOURCES) if names is None else list(names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
+    got = {}
     t0 = time.perf_counter()
     for name in names:
         out = target(name)
         if out.exists():
-            BUILD_INFO.setdefault(
-                name, {"seconds": 0.0, "cached": True, "ptxas": []}
-            )
+            got[name] = {"seconds": 0.0, "cached": True, "ptxas": []}
+            BUILD_INFO.setdefault(name, got[name])
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
@@ -103,6 +122,7 @@ def build(names=None) -> dict[str, dict]:
             ),
             tmp, out,
         )
+        NVCC_RUNS += 1
     failed = []
     for name, (p, tmp, out) in procs.items():
         log, _ = p.communicate()
@@ -110,7 +130,7 @@ def build(names=None) -> dict[str, dict]:
             failed.append(f"--- {name} (exit {p.returncode})\n{log}")
             continue
         os.replace(tmp, out)
-        BUILD_INFO[name] = {
+        BUILD_INFO[name] = got[name] = {
             "seconds": time.perf_counter() - t0,
             "cached": False,
             "ptxas": [
@@ -121,12 +141,13 @@ def build(names=None) -> dict[str, dict]:
         }
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    return {n: BUILD_INFO[n] for n in names}
+    return {n: got[n] for n in names}
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for `name`, building it first if needed."""
-    lib = _LIBS.get(name)
+    key = (name, _LIB_DIR)
+    lib = _LIBS.get(key)
     if lib is None:
         out = name
         try:
@@ -140,7 +161,7 @@ def load(name: str) -> ctypes.CDLL:
             # a build or load failure is a fault of the program, never
             # an I/O hiccup the robustness ladder may retry or fail over
             raise RuntimeError(f"cannot build or load {out}: {e}") from e
-        _LIBS[name] = lib
+        _LIBS[key] = lib
     return lib
 
 

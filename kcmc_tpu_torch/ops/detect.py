@@ -13,6 +13,10 @@ Selection rules that must match the reference exactly:
 * a stable descending sort of the tile winners, lowest index first on
   ties (`torch.sort(-vals, stable=True)`, never `torch.topk`);
 * the threshold is relative to the peak over the border-excluded region.
+
+`valid_hw` (a (2,) int tensor, optional) restricts selection to the
+top-left (h, w) valid extent of a frame zero-padded to a shape bucket
+(`valid_extent_mask`, the execution plans of plans/).
 """
 
 from __future__ import annotations
@@ -68,6 +72,32 @@ def harris_response(
     det = ixx * iyy - ixy * ixy
     trace = ixx + iyy
     return (det - k * trace * trace).reshape(img.shape)
+
+
+def valid_extent_mask(shape, border: int, valid_hw: torch.Tensor) -> torch.Tensor:
+    """(H, W) bool: the selectable region [border, h-border) x [border,
+    w-border) of a frame zero-padded to `shape` whose content is the
+    top-left `valid_hw` = (h, w) extent (detect.py:159-185). Masking the
+    NMS field to -inf outside it makes padded detection equal to
+    detection on the unpadded frame: the zero pad and the SAME zero
+    padding of the convolutions leave every response inside the valid
+    region the same, and the pad boundary's response ridge never enters
+    the selection or its peak."""
+    H, W = shape
+    h, w = valid_hw[0], valid_hw[1]
+    ys = torch.arange(H, dtype=torch.int32, device=valid_hw.device)[:, None]
+    xs = torch.arange(W, dtype=torch.int32, device=valid_hw.device)[None, :]
+    return (ys >= border) & (ys < h - border) & (xs >= border) & (xs < w - border)
+
+
+def _mask_extent(nms_resp: torch.Tensor, border: int, valid_hw) -> torch.Tensor:
+    """nms_resp (B, H, W) at -inf outside the valid extent (a no-op
+    without `valid_hw`)."""
+    if valid_hw is None:
+        return nms_resp
+    keep = valid_extent_mask(tuple(nms_resp.shape[-2:]), border,
+                             valid_hw.to(nms_resp.device))
+    return torch.where(keep, nms_resp, torch.full_like(nms_resp, _NEG_INF))
 
 
 def _maxpool_same(x: torch.Tensor, size: int) -> torch.Tensor:
@@ -203,12 +233,15 @@ def detect_keypoints(
     harris_k: float = 0.04,
     window_sigma: float = WINDOW_SIGMA,
     cand_tile: int = CAND_TILE,
+    valid_hw: torch.Tensor | None = None,
 ) -> Keypoints:
     """Harris corners of one (H, W) frame through the plain separate
-    passes (the JAX package's jnp route)."""
+    passes (the JAX package's jnp route); `valid_hw` masks selection to
+    the valid extent of a padded frame."""
     resp = harris_response(img[None], k=harris_k, window_sigma=window_sigma)
     is_max = resp >= _maxpool_same(resp, nms_size)
     nms_resp = torch.where(is_max, resp, torch.full_like(resp, _NEG_INF))
+    nms_resp = _mask_extent(nms_resp, border, valid_hw)
     ox_f, oy_f = _subpixel_fields(resp)
     kps = _select_keypoints(
         nms_resp, ox_f, oy_f, max_keypoints, threshold, border, cand_tile
@@ -226,6 +259,7 @@ def detect_keypoints_batch(
     smooth_sigma: float | None = None,
     window_sigma: float = WINDOW_SIGMA,
     cand_tile: int = CAND_TILE,
+    valid_hw: torch.Tensor | None = None,
 ):
     """Keypoints of a (B, H, W) float32 batch from the fused K1 fields.
 
@@ -233,7 +267,9 @@ def detect_keypoints_batch(
     the kernel computes on the side for the describe stage. `border`
     must be >= 1: K1's subpixel fields zero-extend the response, so the
     1-px frame ring (where they differ from the jnp route's edge
-    replication) must stay unselectable."""
+    replication) must stay unselectable. `valid_hw` masks the NMS field
+    to the valid extent of bucket-padded frames before selection
+    (detect.py:450-454); K1 runs unchanged on the padded canvas."""
     if border < 1:
         raise ValueError(
             "border must be >= 1 for the fused detection fields (their "
@@ -244,6 +280,7 @@ def detect_keypoints_batch(
         window_sigma=window_sigma, smooth_sigma=smooth_sigma,
     )
     kps = _select_keypoints(
-        out[0], out[1], out[2], max_keypoints, threshold, border, cand_tile
+        _mask_extent(out[0], border, valid_hw), out[1], out[2], max_keypoints,
+        threshold, border, cand_tile,
     )
     return (kps, out[3]) if smooth_sigma is not None else kps

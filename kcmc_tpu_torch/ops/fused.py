@@ -36,6 +36,7 @@ def fused_detect_describe(
     octave_scale: float = 1.5,
     multi_scale: bool = True,
     precision: str = "bf16",
+    valid_hw: torch.Tensor | None = None,
 ):
     """(Keypoints, desc) of a (B, H, W) float32 batch: K1 fields and
     blur, selection, then the upright describe route through K2 or,
@@ -44,7 +45,11 @@ def fused_detect_describe(
     `multi_scale`, the same stage runs on every octave of the pyramid at
     `per_octave_k` keypoints and border min(border, min(H_o, W_o) // 4),
     merged octave-major in base coordinates. `precision="float32"`
-    describes through the unquantized route (K11) at every K."""
+    describes through the unquantized route (K11) at every K.
+    `valid_hw` masks selection to the valid extent of bucket-padded
+    frames (single scale only: bucket routing gates pyramid configs
+    out). The describe stage's finite mean stays over the whole canvas,
+    pad zeros included, as the reference's (fused.py:111-120)."""
 
     def stage(fr, k, b):
         kps, smooth = detect_keypoints_batch(
@@ -57,6 +62,7 @@ def fused_detect_describe(
             smooth_sigma=blur_sigma,
             window_sigma=window_sigma,
             cand_tile=cand_tile,
+            valid_hw=valid_hw,
         )
         desc = describe_keypoints_batch(
             fr, kps, blur_sigma=blur_sigma, smooth=smooth, oriented=oriented,

@@ -18,7 +18,7 @@ import torch
 
 from kcmc_tpu_torch.models.transforms import get_model
 from kcmc_tpu_torch.ops.describe import edge_pad
-from kcmc_tpu_torch.ops.warp import coverage_mask
+from kcmc_tpu_torch.ops.warp import coverage_mask, valid_rect_mask
 
 
 def region_window(sh: int, sw: int, window_frac: float, device=None,
@@ -162,14 +162,24 @@ def polish_transforms(
     model_name: str,
     grid=(4, 4),
     window_frac: float = 0.25,
+    valid_hw: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One photometric polish pass of (B, 3, 3) ref -> frame maps
     (polish.py:264). Frames with fewer than 2 * min_samples significant,
-    covered regions keep their transform."""
+    covered regions keep their transform. `valid_hw`: the true (h, w)
+    extent of frames bucket-padded to (H, W); a region is then covered
+    only where the output pixel lies in the valid rectangle and its
+    source sample in the valid extent (polish.py:307-318), so the pad
+    edge, which correlates perfectly at zero shift, drops out of the
+    fit."""
     model = get_model(model_name)
     B, H, W = corrected.shape
     d, sig = measure_shifts(corrected, template, grid, window_frac)
-    cov = coverage_mask((H, W), transforms)
+    if valid_hw is None:
+        cov = coverage_mask((H, W), transforms)
+    else:
+        vhw = valid_hw.to(corrected.device)
+        cov = valid_rect_mask((H, W), vhw)[None] & coverage_mask((H, W), transforms, vhw)
     covw = _windowed_mean(cov.to(torch.float32), grid, window_frac)
     sig = sig & (covw >= 0.98)
     centers = region_centers(grid, (H, W), device=corrected.device).reshape(1, -1, 2)

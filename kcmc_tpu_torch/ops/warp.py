@@ -99,11 +99,32 @@ def warp_frame_flow(frames: torch.Tensor, flows: torch.Tensor) -> torch.Tensor:
     return bilinear_sample(frames, xs + flows[..., 0], ys + flows[..., 1])
 
 
-def coverage_mask(shape, transforms: torch.Tensor) -> torch.Tensor:
-    """(B, H, W) bool: output pixels whose source sample is in bounds."""
+def coverage_mask(shape, transforms: torch.Tensor,
+                  valid_hw: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, H, W) bool: output pixels whose source sample is in bounds.
+    `valid_hw` (a (2,) int tensor) bounds the source check by the
+    top-left (h, w) valid extent of a bucket-padded canvas instead of
+    the whole canvas (warp.py:92-117): the one source-bounds test of the
+    plain coverage, the valid-extent masking of the bucketed batch
+    program and the polish's coverage gate."""
     H, W = shape
     sx, sy = _source_coords(shape, transforms)
-    return (sx >= 0) & (sx <= W - 1) & (sy >= 0) & (sy <= H - 1)
+    if valid_hw is None:
+        wmax, hmax = float(W - 1), float(H - 1)
+    else:
+        vhw = valid_hw.to(device=sx.device, dtype=torch.float32)
+        wmax, hmax = vhw[1] - 1.0, vhw[0] - 1.0
+    return (sx >= 0) & (sx <= wmax) & (sy >= 0) & (sy <= hmax)
+
+
+def valid_rect_mask(shape, valid_hw: torch.Tensor) -> torch.Tensor:
+    """(H, W) bool: the top-left (h, w) valid extent of a bucket-padded
+    canvas (warp.py:120-133), shared by the batch program's sanitize
+    statistics and the polish's coverage gate."""
+    H, W = shape
+    ys = torch.arange(H, dtype=torch.int32, device=valid_hw.device)[:, None]
+    xs = torch.arange(W, dtype=torch.int32, device=valid_hw.device)[None, :]
+    return (ys < valid_hw[0]) & (xs < valid_hw[1])
 
 
 def coverage_mask_flow(flows: torch.Tensor) -> torch.Tensor:

@@ -278,7 +278,9 @@ def test_matrix_bounds_and_config_carry_across():
 @pytest.mark.parametrize(
     "kw",
     [
-        {"model": "affine", "max_keypoints": 4096, "plan_buckets": ((128, 128),)},
+        # plan_buckets is ported (tests/test_torch_plans.py): the mesh raises
+        {"model": "affine", "max_keypoints": 4096, "plan_buckets": ((128, 128),),
+         "mesh_devices": 2},
         {"model": "similarity", "max_keypoints": 4096, "mesh_devices": 2},
     ],
 )

@@ -819,3 +819,60 @@ def test_honest_time_reads_cuda_event_time(cuda):
     host = honest_time(lambda: None, iters=10, min_warmup_s=0.0, device="cpu")
     assert 5e-4 < t < 0.05
     assert host < t
+
+
+@pytest.mark.parametrize("model,shape,bucket,tol", [
+    ("translation", (50, 70), (64, 80), 1e-4),
+    ("affine", (100, 120), (128, 128), 1e-3),
+])
+def test_bucketed_batch_on_card_matches_cpu_route(cuda, model, shape, bucket, tol):
+    """A bucket-padded run (execution plans) on the card: K1, K2 or K6,
+    and K3 or K7 on the bucket canvas, against the same bucketed run
+    through the plain versions on the CPU, at the card-vs-CPU tolerances
+    of the unbucketed slices above."""
+    data = make_drift_stack(8, shape, model=model, max_drift=5.0, seed=1)
+    kw = dict(model=model, batch_size=4, max_keypoints=128, plan_buckets=(bucket,))
+    warp = "warp_translation" if model == "translation" else "warp_batch_matrix"
+    before = cuda_build.launch_counts()[warp]
+    mc = MotionCorrector(**kw)
+    on_card = mc.correct(data.stack)
+    assert cuda_build.launch_counts()[warp] > before
+    on_cpu = MotionCorrector(device="cpu", **kw).correct(data.stack)
+    assert np.abs(on_card.transforms - on_cpu.transforms).max() <= tol
+    assert np.abs(on_card.diagnostics["n_inliers"] - on_cpu.diagnostics["n_inliers"]).max() <= (
+        0 if model == "translation" else 2)
+    assert on_card.corrected.shape == data.stack.shape
+    pc, pc_cpu = on_card.timing["plan_cache"], on_cpu.timing["plan_cache"]
+    assert pc["bucket_padded"] == pc_cpu["bucket_padded"] == 2
+
+
+def test_warmup_on_card_second_backend_builds_nothing(cuda, tmp_path):
+    """warmup in a fresh cache directory builds the kernel libraries
+    there and stamps every program; a second corrector on the same
+    directory reports zero stamp misses and runs no nvcc."""
+    from kcmc_tpu_torch.plans.cache import disable_compile_cache
+
+    kw = dict(batch_size=4, max_keypoints=64, plan_buckets=((64, 80),),
+              compile_cache_dir=str(tmp_path / "cache"))
+    try:
+        w1 = MotionCorrector(**kw).warmup(dtypes=("float32", "uint16"))
+        # reference, register x 2 and apply; the uint16 cast (which
+        # correct() runs for integer outputs) is stamped too
+        assert (w1["programs_built"], w1["stamp_misses"]) == (4, 5)
+        assert set(w1["libraries"]) == {"detect", "patch", "warp", "warp_matrix"}
+        assert str(cuda_build.lib_dir()).startswith(str(tmp_path))
+        runs = cuda_build.NVCC_RUNS
+        w2 = MotionCorrector(**kw).warmup(dtypes=("float32", "uint16"))
+        assert w2["stamp_misses"] == 0
+        assert w2["stamp_hits"] == w1["stamp_hits"] + w1["stamp_misses"]
+        assert all(v["cached"] for v in w2["libraries"].values())
+        assert cuda_build.NVCC_RUNS == runs
+        # with the libraries wiped, warmup rebuilds them and every program
+        # that launches one misses its stamp; the cast launches none
+        for lib in cuda_build.lib_dir().glob("*.so"):
+            lib.unlink()
+        w3 = MotionCorrector(**kw).warmup(dtypes=("float32", "uint16"))
+        assert (w3["stamp_misses"], w3["stamp_hits"]) == (4, 1)
+        assert cuda_build.NVCC_RUNS == runs + 4
+    finally:
+        disable_compile_cache()

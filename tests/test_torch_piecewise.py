@@ -265,7 +265,8 @@ def test_piecewise_config_carries_across():
     "kw",
     [
         {"model": "piecewise", "mesh_devices": 2},
-        {"model": "rigid", "plan_buckets": ((64, 64),)},
+        # plan_buckets is ported (tests/test_torch_plans.py): the mesh raises
+        {"model": "rigid", "plan_buckets": ((64, 64),), "mesh_devices": 2},
     ],
 )
 def test_unported_knobs_still_raise(kw):
@@ -280,6 +281,7 @@ def test_unported_knobs_still_raise(kw):
         {"model": "rigid3d", "sanitize_input": True},
         {"model": "homography", "sanitize_input": True},
         {"model": "piecewise", "quality_metrics": True},
+        {"model": "rigid", "plan_buckets": ((64, 64),)},
     ],
 )
 def test_ported_knobs_now_accepted(kw):

@@ -135,7 +135,10 @@ def test_config_carries_across():
 
 @pytest.mark.parametrize(
     "kw",
-    [{"plan_buckets": ((128, 128),)}, {"mesh_devices": 2}, {"mesh": object()}],
+    # plan_buckets is ported (tests/test_torch_plans.py); beside a mesh
+    # the mesh still raises
+    [{"mesh_devices": 2}, {"mesh": object()},
+     {"mesh_devices": 2, "plan_buckets": ((128, 128),)}],
 )
 def test_unported_knobs_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -211,7 +214,8 @@ def test_port_imports_neither_jax_nor_kcmc_tpu():
                 "io.formats", "io.feeder", "io.reader", "io.async_writer",
                 "utils.checkpoint", "utils.faults", "utils.dtypes", "obs.log",
                 "io.objectstore", "obs.latency", "utils.profiling", "analysis.roofline",
-                "selftest"):
+                "selftest", "plans", "plans.buckets", "plans.cache", "plans.runtime",
+                "plans.plan", "analysis.sanitize", "obs.manifest"):
         assert "kcmc_tpu_torch." + mod in names
     src = open(os.path.join(REPO, "chip_smoke.py")).read()
     assert "import jax" not in src and "from kcmc_tpu " not in src
