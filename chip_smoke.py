@@ -131,7 +131,8 @@ launch counts:
     line's;
 11. e2e_escalate_affine, e2e_escalate_pyramid: config 2 and the pyramid
     row at the defaults: the out-of-bound escalation must trip once (its
-    frame and the batch that tripped it printed); the batches after it
+    frame and the batch that tripped it printed; decided at that batch's
+    drain, it takes effect three batches later); the batches after it
     take the warp="jnp" backend, so K7 launches only before it; RMSE <=
     0.05 px;
 12. e2e_homography_separable (config 4 scene, 128 frames; K1/K6 5, no
@@ -227,6 +228,21 @@ port's TiffWriter, the scene x 40000; escalation off):
     512² run, an affine run (K7 on the canvas) and a 600² fallback under
     the armed retrace sentinel (violations for the fallback only). The
     phase prints its seconds.
+24. e2e_overlap: the pipelined dispatch on config 1 (1000 frames,
+    float32): correct() with upload_overlap on (the default) and off,
+    equal sha256 and transforms, K1/K2/K3 33/33/64 each way,
+    timing["pipeline"] (31 staged uploads waited on, one drain flush),
+    the stalls and peak memory; e2e_file's uint16 TIFF through a serial
+    correct_file, equal to e2e_file's overlapped and resumed outputs
+    by sha256; and `dispatch_profile` of 224 frames each way (the copies'
+    device time by direction and kind, device busy time, idle share);
+25. e2e_mesh: config 1 through mesh_devices=1 and a two-shard mesh on
+    cuda:0 (collective_chunks 0 and 2), config 4 through the two-shard
+    mesh, each against its one-device run (integers equal, transforms
+    within MESH_GAP_PX; launches per shard: K1, K2/K6 1 + 2 x 32, K3/K7
+    2 x 64), a one-rank NCCL group (its gather and ring equal the
+    input; a 32-frame sharded run under it) and mesh_devices beyond the
+    card count raising.
 
 Every e2e line of a 2D model carries `roofline`: analysis/roofline's
 binding resource and fraction of peak on this card's row, for the work
@@ -239,7 +255,9 @@ The line before the last holds the kernels table; the last line is
 instead runs the device and build phases and then profiles six batches
 (32 frames; 8 volumes for rigid3d) of that config's batch program (host
 wall time, device busy time and idle share, the kcmc.* stage ranges,
-the top device operations), for PERF.md's breakdown, and for the 2D
+the top device operations), for PERF.md's breakdown (for translation
+also `profile_dispatch`: `dispatch_profile` of correct() over the same
+frames with the upload overlap on and off), and for the 2D
 matrix models utils/profiling.stage_breakdown (cumulative prefixes of
 the batch program timed with CUDA events by honest_time) beside
 analysis/roofline.achieved_rates.
@@ -1516,7 +1534,9 @@ def phase_e2e_escalate(smi: str, model: str) -> dict:
                     "rmse_px", err, {
                         "warp_escalated": res.timing["warp_escalated"],
                         "escalated_at_frame": at,
-                        "tripped_by_batch": None if at is None else at // B - 1,
+                        # decided at that batch's drain, with three batches
+                        # in flight: it takes effect three batches later
+                        "tripped_by_batch": None if at is None else at // B - 3,
                         "warning": warned})
     if not res.timing["warp_escalated"] or len(warned) != 1:
         raise AssertionError(f"e2e_escalate_{model}: the escalation did not trip once: {warned}")
@@ -1679,7 +1699,12 @@ def phase_e2e_templates(smi: str) -> tuple[dict, np.ndarray]:
         runs[dev] = (res, seconds, launches, err)
         check_launches(f"e2e_templates[device_templates={dev}]", launches, want)
         _check_rmse(f"e2e_templates[device_templates={dev}]", err)
-        if res.timing["pipeline"] != {"template_updates": 3, "device_templates": dev}:
+        # four segments of four batches: three staged uploads waited on
+        # in each; the device blend keeps the window in flight across the
+        # boundaries (one drain), the host blend drains every segment
+        if res.timing["pipeline"] != {"template_updates": 3, "device_templates": dev,
+                                      "drain_flushes": 1 if dev else 4,
+                                      "upload_overlap": True, "upload_waits": 12}:
             raise AssertionError(f"e2e_templates: pipeline {res.timing['pipeline']}")
     res, seconds, launches, err = runs[True]
     host = runs[False][0]
@@ -2611,6 +2636,210 @@ def phase_selftest(smi: str) -> dict:
     return line
 
 
+def dispatch_profile(mc, stack) -> dict:
+    """Where a correct() of `stack` spends the card's time, per batch: the
+    wall time of an unprofiled run, then one torch.profiler pass of the
+    same run for the device busy time (the union of kernel and copy
+    intervals), the idle share (1 - busy / wall), and the host-to-card
+    and card-to-host copies' device time with their kinds (pageable or
+    pinned, from the copy's name)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    B = mc.config.batch_size
+    nb = -(-len(stack) // B)
+    mc.correct(stack[:B])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mc.correct(stack)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / nb
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        mc.correct(stack)
+        torch.cuda.synchronize()
+    work = [e for e in prof.events()
+            if e.device_type == DeviceType.CUDA and not e.name.startswith("kcmc.")]
+    busy, end = 0.0, -1.0
+    for e in sorted(work, key=lambda e: e.time_range.start):
+        lo, hi = max(e.time_range.start, end), e.time_range.end
+        if hi > lo:
+            busy += hi - lo
+        end = max(end, hi)
+    copies: dict[str, list] = {}
+    for e in work:
+        for way in ("HtoD", "DtoH"):
+            if way in e.name:
+                c = copies.setdefault(way, [0.0, 0, set()])
+                c[0] += e.time_range.end - e.time_range.start
+                c[1] += 1
+                c[2].add(e.name)
+    busy_ms = busy / 1e3 / nb
+    return {
+        "batches": nb, "wall_ms_per_batch": wall_ms, "device_busy_ms_per_batch": busy_ms,
+        "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+        **{f"{way.lower()}_ms_per_batch": c[0] / 1e3 / nb for way, c in copies.items()},
+        "copies": {way: {"calls_per_batch": c[1] / nb, "kinds": sorted(c[2])}
+                   for way, c in copies.items()},
+    }
+
+
+def _digest(a: np.ndarray) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def phase_e2e_overlap(smi: str, tmp: str) -> dict:
+    """The pipelined dispatch on config 1 (1000 frames of 512², float32
+    host stack, K=512, batch 32): correct() with upload_overlap on (the
+    default) and off, equal sha256 of the corrected frames and equal
+    transforms, both at K1/K2/K3 33/33/64, with timing["pipeline"], the
+    stalls and peak device memory of each; e2e_file's uint16 TIFF
+    through a serial correct_file, whose output must have the sha256 of
+    e2e_file's overlapped and its killed-and-resumed outputs; and the
+    dispatch profile (copies' device time, idle share) of 224 frames
+    each way."""
+    from kcmc_tpu_torch.utils.metrics import relative_transforms
+
+    stack, gt, on = path_input("translation", 1000)
+    off = path_input("translation", 1000, upload_overlap=False)[2]
+    lines = {}
+    for tag, mc in (("overlap", on), ("serial", off)):
+        res, seconds, launches, _ = counted_run(mc, stack)
+        check_launches(f"e2e_overlap:{tag}", launches, WANT_LAUNCHES["translation"])
+        lines[tag] = (res, {
+            "frames_per_s": len(stack) / seconds, "seconds": seconds,
+            "rmse_px": _rmse(res, relative_transforms(gt), stack.shape[1:]),
+            "pipeline": res.timing["pipeline"], "stalls_s": res.timing.get("stalls_s", {}),
+            "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "robustness": check_robust_clean(f"e2e_overlap:{tag}", res),
+            "launches": launches, "sha256": _digest(res.corrected)[:16]})
+    (r_on, on_line), (r_off, off_line) = lines["overlap"], lines["serial"]
+    same = (_digest(r_on.corrected) == _digest(r_off.corrected)
+            and np.array_equal(r_on.transforms, r_off.transforms))
+    src = os.path.join(tmp, "config1.tif")
+    ser = path_input("translation", 1000, upload_overlap=False)[2]
+    fres, fsec, flaunch, _ = file_run(ser, src, output=os.path.join(tmp, "serial.tif"))
+    file_sha = {k: _sha256(os.path.join(tmp, f)) for k, f in (
+        ("serial", "serial.tif"), ("overlap", "out.tif"), ("overlap_resumed", "resumed.tif"))}
+    prof = {"overlap": dispatch_profile(on, stack[:224]),
+            "serial": dispatch_profile(off, stack[:224])}
+    line = {"phase": "e2e_overlap", "model": "translation", "frames": len(stack),
+            "outputs_equal": same, "overlap": on_line, "serial": off_line,
+            "file": {"serial_frames_per_s": len(stack) / fsec, "launches": flaunch,
+                     "pipeline": fres.timing["pipeline"],
+                     "sha256_equal": len(set(file_sha.values())) == 1,
+                     "sha256": file_sha["serial"][:16]},
+            "profile_224_frames": prof, "card": smi}
+    emit(line)
+    for tag in ("overlap", "serial"):
+        _check_rmse(f"e2e_overlap:{tag}", lines[tag][1]["rmse_px"])
+    if not (same and line["file"]["sha256_equal"]):
+        raise AssertionError(f"e2e_overlap: outputs differ: {line}")
+    if not (on_line["pipeline"]["upload_overlap"] and on_line["pipeline"]["upload_waits"] == 31
+            and not off_line["pipeline"]["upload_overlap"]):
+        raise AssertionError(f"e2e_overlap: pipeline {on_line['pipeline']} / {off_line['pipeline']}")
+    check_launches("e2e_overlap:file", flaunch, WANT_LAUNCHES["translation"])
+    total = {k: on_line["launches"][k] + off_line["launches"][k] + flaunch[k] for k in ZERO}
+    return {**line, "launches": total}
+
+
+# A shard's transforms against the one-device run's. Translation holds
+# the reference's 1e-4 px. Homography's consensus on the card depends on
+# the batch it runs in (16-frame halves against the 32-frame batch: equal
+# inliers, transforms 5.3e-4 px apart, detect, describe, warp and polish
+# bit-equal); it is held at the homography float32 bound of
+# tests/test_torch_homography.py::test_homography_consensus_identical_inliers.
+MESH_GAP_PX = {"translation": 1e-4, "homography": 2e-3}
+
+
+def _mesh_gap(res, one) -> dict:
+    """A mesh run against the single-device run of the same stack."""
+    ints = {k: bool(np.array_equal(res.diagnostics[k], one.diagnostics[k]))
+            for k in ("n_keypoints", "n_matches", "n_inliers", "warp_ok")}
+    return {"max_transform_gap_px": float(np.abs(res.transforms - one.transforms).max()),
+            "max_frame_gap": float(np.abs(res.corrected - one.corrected).max()),
+            "integers_equal": ints}
+
+
+def phase_e2e_mesh(smi: str) -> dict:
+    """The frame-axis mesh on the card: config 1 (1000 frames) through
+    mesh_devices=1 and through an explicit two-shard mesh on cuda:0 (the
+    split, the pad and the gather on the card; collective_chunks 0 and
+    2), config 4 (homography: K1, K6, K7; 1000 frames) through the
+    two-shard mesh, each against its single-device run: integer outputs
+    equal, transforms within MESH_GAP_PX; a one-rank NCCL process group
+    (initialize_multihost), its all-gather and ring, and a sharded batch
+    under it; mesh_devices beyond the visible cards raises."""
+    from kcmc_tpu_torch import MotionCorrector
+    from kcmc_tpu_torch.parallel import initialize_multihost, make_mesh, mesh_size
+    from kcmc_tpu_torch.parallel import sharded as tsharded
+    from kcmc_tpu_torch.utils.metrics import relative_transforms
+
+    two = (torch.device("cuda", 0),) * 2
+    runs = {}
+    for model, cases in (("translation", (("mesh_devices_1", {"mesh_devices": 1}),
+                                          ("two_shards", {"mesh": two}),
+                                          ("two_shards_ring2", {"mesh": two,
+                                                                "collective_chunks": 2}))),
+                         ("homography", (("two_shards", {"mesh": two}),))):
+        stack, gt, mc = path_input(model, 1000)
+        one, one_s, one_l, _ = counted_run(mc, stack)
+        runs[f"{model}:single"] = {"frames_per_s": len(stack) / one_s, "launches": one_l}
+        for tag, kw in cases:
+            mc = path_input(model, 1000, **kw)[2]
+            res, seconds, launches, _ = counted_run(mc, stack)
+            n_shards = len(mc.backend.mesh)
+            want = {k: (1 + n_shards * (v - 1) if k in ("detect_response", "extract_blended",
+                                                        "extract_blended_moments")
+                        else n_shards * v) if v else 0
+                    for k, v in WANT_LAUNCHES[model].items()}
+            check_launches(f"e2e_mesh:{model}:{tag}", launches, want)
+            gap = _mesh_gap(res, one)
+            err = _rmse(res, relative_transforms(gt), stack.shape[1:])
+            runs[f"{model}:{tag}"] = {
+                "shards": n_shards, "frames_per_s": len(stack) / seconds, "rmse_px": err,
+                "launches": launches, **gap,
+                "robustness": check_robust_clean(f"e2e_mesh:{model}:{tag}", res),
+                "warp_rescued": int(np.sum(res.diagnostics.get("warp_rescued", 0))),
+                "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9}
+            if (gap["max_transform_gap_px"] > MESH_GAP_PX[model]
+                    or not all(gap["integers_equal"].values())):
+                raise AssertionError(f"e2e_mesh {model} {tag}: {runs[f'{model}:{tag}']}")
+    try:
+        MotionCorrector(mesh_devices=torch.cuda.device_count() + 1)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    initialize_multihost(f"127.0.0.1:{port}", num_processes=1, process_id=0, timeout_s=120)
+    try:
+        x = torch.arange(512 * 2, dtype=torch.float32, device="cuda").reshape(512, 2)
+        gathered = {c: bool(torch.equal(tsharded._process_all_gather(x, c), x)) for c in (0, 2)}
+        mesh = make_mesh()
+        stack, gt, mc = path_input("translation", 32, mesh=mesh)
+        res = mc.correct(stack)
+        nccl = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+                "mesh": [str(d) for d in mesh], "mesh_size": mesh_size(mesh),
+                "all_gather_equal": gathered,
+                "rmse_px": _rmse(res, relative_transforms(gt), stack.shape[1:])}
+    finally:
+        dist.destroy_process_group()
+    line = {"phase": "e2e_mesh", "runs": runs, "nccl_one_rank": nccl,
+            "oversubscribed_mesh_raises": raised, "card": smi}
+    emit(line)
+    if raised is None or not all(gathered.values()):
+        raise AssertionError(f"e2e_mesh: {line}")
+    total = {k: sum(r["launches"][k] for r in runs.values()) for k in ZERO}
+    return {**line, "launches": total}
+
+
 def phase_link(smi: str, frames: int = 256) -> dict:
     """The host-to-card copy rate of a 512x512 float32 stack of `frames`
     frames, from pageable and from pinned host memory (CUDA events
@@ -2715,6 +2944,12 @@ def phase_profile(smi: str, model: str, n_batches: int = 6) -> None:
             for k, v in top
         ],
     })
+    if model == "translation":
+        # the pipelined dispatch through correct(): the copies' device
+        # time and the idle share with the upload overlap on and off
+        off = path_input(model, n, upload_overlap=False)[2]
+        emit({"phase": "profile_dispatch", "model": model, "batch": B, "card": smi,
+              "overlap": dispatch_profile(mc, stack), "serial": dispatch_profile(off, stack)})
     if model in ("piecewise", "rigid3d"):
         return  # stage_breakdown covers the 2D matrix models
     from kcmc_tpu_torch.analysis.roofline import achieved_rates, detect_platform
@@ -2789,6 +3024,10 @@ def main() -> int:
         by_path["e2e_object"] = phase_e2e_object(smi, tmp)
         # execution plans (queue 1 item 16)
         by_path["e2e_plans"] = phase_e2e_plans(smi, tmp)
+        # the pipelined dispatch (queue 1 item 23), after e2e_file's TIFFs
+        by_path["e2e_overlap"] = phase_e2e_overlap(smi, tmp)
+    # the frame-axis mesh (queue 1 item 17)
+    by_path["e2e_mesh"] = phase_e2e_mesh(smi)
     for r in rows:
         r["launches"] = sum(line["launches"][r["name"]] for line in by_path.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -3,7 +3,7 @@
 
 Counterpart of `kcmc_tpu/backends/jax_backend.py` for the slices the
 port covers — the 2D `core` of `_build_local_2d` and the 3D one of
-`_build_local_3d` (no shape buckets or mesh):
+`_build_local_3d`:
 
     translation: K1 fields + blur -> selection -> K2 upright describe
         -> match -> consensus -> K3 warp -> polish -> K3 re-warp
@@ -44,6 +44,25 @@ global frame index into `key(seed)`, so results do not depend on batch
 boundaries. Tensors live on `device`; on the card every kernel runs as
 CUDA, on the CPU as its plain version.
 
+The dispatch seam (jax_backend.py:518-679): `stage_upload` moves a host
+batch, in its native dtype, through a ring of pinned staging buffers
+onto the card on a copy stream (the compute stream waits on its event;
+a slot is refilled only after its previous copy's event), so the
+corrector's upload worker can stage batch i+1 while batch i runs.
+`process_batch_async` runs the batch program and, for host outputs,
+starts the downloads into pooled pinned buffers on a second copy
+stream, recorded by an event; `to_host` waits on that event at drain
+and copies the arrays out. On the CPU the same seam runs without
+streams or pinning.
+
+The frame-axis mesh (parallel/, jax_backend.py:258-298, :632-649): with
+`mesh=` or `mesh_devices`, the prepared reference's keypoint arrays are
+padded to a multiple of the shard count, each batch is padded to the
+mesh by repeating its last frame, the single-device program runs per
+shard through `parallel.sharded.make_sharded_batch_fn` and the outputs
+are sliced back. The quality metrics, the integer cast and the
+downloads run on the mesh's first device, the backend's `device`.
+
 Execution plans (plans/, jax_backend.py:382-440, :587-679): with
 `plan_buckets`, a routable 2D batch (`PlanRuntime.routable`) whose shape
 is not a bucket is zero-padded bottom/right to the smallest covering
@@ -69,8 +88,10 @@ plain detection route (`ops/detect3d.py`).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
+import threading
 import weakref
 
 import numpy as np
@@ -108,6 +129,12 @@ from kcmc_tpu_torch.ops.warp_field import (
     warp_batch_rigid3d,
 )
 from kcmc_tpu_torch.ops.warp_separable import warp_batch_affine
+from kcmc_tpu_torch.parallel.mesh import resolve_mesh
+from kcmc_tpu_torch.parallel.sharded import (
+    make_sharded_batch_fn,
+    pad_batch_to_mesh,
+    pad_reference_to_mesh,
+)
 from kcmc_tpu_torch.plans.plan import kernel_libraries
 from kcmc_tpu_torch.plans.runtime import PlanRuntime
 from kcmc_tpu_torch.utils import prng
@@ -185,16 +212,147 @@ def stage(name: str):
     return torch.profiler.record_function(f"kcmc.{name}")
 
 
+class StagedBatch:
+    """A batch uploaded ahead of dispatch by `TorchBackend.stage_upload`:
+    the device tensor, the copy-stream event its users wait on (None on
+    the CPU) and the staging slot it came through."""
+
+    __slots__ = ("tensor", "event", "slot")
+
+    def __init__(self, tensor: torch.Tensor, event=None, slot=None):
+        self.tensor = tensor
+        self.event = event
+        self.slot = slot
+
+    def take(self, stream=None) -> torch.Tensor:
+        """The tensor, ordered after its upload on `stream` (the compute
+        stream): the stream waits on the copy's event, and the tensor,
+        allocated on the copy stream, is recorded on `stream` so the
+        allocator keeps its block until that stream's work is done."""
+        if self.event is not None and stream is not None:
+            stream.wait_event(self.event)
+            self.tensor.record_stream(stream)
+        return self.tensor
+
+
+class _StagingSlot:
+    __slots__ = ("buf", "event", "lock")
+
+    def __init__(self, buf: torch.Tensor):
+        self.buf = buf
+        self.event = None  # the event of the last copy out of buf
+        self.lock = threading.Lock()
+
+
+class _StagingRing:
+    """A ring of host staging buffers (pinned on the card) for uploads,
+    reused across batches and shared by the upload worker and the
+    dispatch thread. A slot is refilled only after the event of its
+    previous copy: a pinned buffer overwritten under an in-flight
+    non_blocking copy would corrupt frames without an error."""
+
+    def __init__(self, n_slots: int, pinned: bool):
+        self.n_slots = max(2, int(n_slots))
+        self.pinned = pinned
+        self._lock = threading.Lock()
+        self._slots: dict[tuple, list[_StagingSlot]] = {}
+        self._next: dict[tuple, int] = {}
+
+    def acquire(self, shape, dtype) -> _StagingSlot:
+        """The next slot for (shape, dtype), locked and free to refill
+        (its previous copy completed); release with `slot.lock`."""
+        key = (tuple(shape), dtype)
+        with self._lock:
+            ring = self._slots.get(key)
+            if ring is None:
+                # a failed pinned allocation raises: there is no
+                # pageable fallback
+                ring = self._slots[key] = [
+                    _StagingSlot(torch.empty(key[0], dtype=dtype, pin_memory=self.pinned))
+                    for _ in range(self.n_slots)]
+                self._next[key] = 0
+            i = self._next[key]
+            self._next[key] = (i + 1) % len(ring)
+            slot = ring[i]
+        slot.lock.acquire()
+        if slot.event is not None:
+            slot.event.synchronize()
+        return slot
+
+
+class _HostPool:
+    """Pooled host buffers (pinned on the card) the downloads land in; a
+    buffer returns to the pool once drain has copied its array out."""
+
+    def __init__(self, pinned: bool):
+        self.pinned = pinned
+        self._lock = threading.Lock()
+        self._free: dict[tuple, list[torch.Tensor]] = {}
+
+    def acquire(self, shape, dtype) -> torch.Tensor:
+        key = (tuple(shape), dtype)
+        with self._lock:
+            free = self._free.get(key)
+            if free:
+                return free.pop()
+        return torch.empty(key[0], dtype=dtype, pin_memory=self.pinned)
+
+    def release(self, buf: torch.Tensor) -> None:
+        with self._lock:
+            self._free.setdefault((tuple(buf.shape), buf.dtype), []).append(buf)
+
+
+class _Download:
+    """One batch's outputs on their way to the host: the pooled buffers
+    the copies go into and the event that marks them done."""
+
+    __slots__ = ("bufs", "event", "pool", "done")
+
+    def __init__(self, bufs: dict, event, pool: _HostPool):
+        self.bufs = bufs
+        self.event = event
+        self.pool = pool
+        self.done = None
+
+    def materialize(self) -> dict:
+        """Wait for the copies (a deferred device error surfaces here)
+        and copy the arrays out of the pooled buffers, once."""
+        if self.done is None:
+            if self.event is not None:
+                self.event.synchronize()
+            self.done = {k: np.array(b.numpy()) for k, b in self.bufs.items()}
+            for b in self.bufs.values():
+                self.pool.release(b)
+            self.bufs = {}
+        return self.done
+
+
+class BatchOutputs(dict):
+    """`process_batch_async`'s device outputs; `download` holds the
+    copies to the host it started (None for device outputs)."""
+
+    download: _Download | None = None
+
+
 class TorchBackend:
     name = "torch"
+    # The dispatch core may hand this backend batches in their native
+    # dtype (uint16 pages upload at half the bytes and widen on the card)
+    accepts_native_dtype = True
     # Device errors the robustness ladder may retry: none. A CUDA error
     # is sticky — no retry on the same context outlives it — so a launch,
     # build or kernel error always raises (faults.classify_device_transient).
     transient_error_types = ()
 
-    def __init__(self, config: CorrectorConfig, device=None, plan_routing: bool = True):
+    def __init__(self, config: CorrectorConfig, device=None, plan_routing: bool = True,
+                 mesh=None, mesh_devices: bool = True):
         """`plan_routing=False` ignores `plan_buckets` (the CPU failover
-        backend, as the reference's numpy backend ignores them)."""
+        backend, as the reference's numpy backend ignores them).
+        `mesh`: a tuple of devices (parallel.make_mesh) to shard every
+        batch over; None resolves `config.mesh_devices` (and
+        KCMC_DEVICES) on `device`, unless `mesh_devices=False` (the CPU
+        failover backend, as the reference's numpy backend ignores the
+        mesh). The backend's device is then the mesh's first."""
         missing = config.unsupported()
         if missing:
             raise NotImplementedError(
@@ -202,8 +360,25 @@ class TorchBackend:
             )
         self.config = config
         self.device = resolve_device(device)
+        if mesh is None and mesh_devices:
+            mesh = resolve_mesh(config.mesh_devices, device=self.device)
+        if mesh is not None:
+            mesh = tuple(torch.device(d) for d in mesh)
+            if len({d.type for d in mesh}) != 1:
+                raise ValueError(f"a mesh lies on one device type, got {mesh}")
+            for d in mesh:
+                resolve_device(d)  # a cuda mesh without a card raises
+            self.device = mesh[0]
+        self.mesh = mesh
+        self._batch_fns: dict = {}
         if self.device.type == "cuda":
             set_full_precision()
+        on_card = self.device.type == "cuda"
+        # the dispatch seam's staging ring, download pool and copy streams
+        self._staging = _StagingRing(3, pinned=on_card)
+        self._downloads = _HostPool(pinned=on_card)
+        self._h2d = torch.cuda.Stream(device=self.device) if on_card else None
+        self._d2h = torch.cuda.Stream(device=self.device) if on_card else None
         self.model = None if config.model == "piecewise" else get_model(config.model)
         self._base_key = prng.key(config.seed, device=self.device)
         self._geometries = {}  # frame shape -> banded geometry
@@ -212,7 +387,7 @@ class TorchBackend:
         # (a weak reference: no cycle keeps the backend's tensors alive)
         backend = weakref.ref(self)
         self._plan = PlanRuntime(config, backend_name=self.name, device=self.device,
-                                 routing=plan_routing,
+                                 routing=plan_routing, mesh=self.mesh,
                                  libraries=lambda program: kernel_libraries(backend(), (program,)))
 
     def plan_cache_stats(self) -> dict:
@@ -387,7 +562,8 @@ class TorchBackend:
         shape = tuple(frame.shape)
         if len(shape) == 3:
             kps, desc = self._detect_describe(frame[None].contiguous())
-            return {"xy": kps.xy[0], "desc": desc[0], "valid": kps.valid[0], "frame": frame}
+            return self._mesh_ref(
+                {"xy": kps.xy[0], "desc": desc[0], "valid": kps.valid[0], "frame": frame})
         bucket = self._plan.route(shape)
         plan_frame, valid_hw = frame, None
         if bucket is not None:
@@ -403,7 +579,14 @@ class TorchBackend:
         ref = {"xy": kps.xy[0], "desc": desc[0], "valid": kps.valid[0], "frame": frame}
         if bucket is not None:
             ref["_plan_frame"] = plan_frame
-        return ref
+        return self._mesh_ref(ref)
+
+    def _mesh_ref(self, ref: dict) -> dict:
+        """The reference's keypoint arrays padded with masked rows so K
+        divides the mesh (jax_backend.py:291); unchanged without one."""
+        if self.mesh is None:
+            return ref
+        return pad_reference_to_mesh(ref, len(self.mesh))
 
     @staticmethod
     def _pad_to(frames: torch.Tensor, bucket) -> torch.Tensor:
@@ -431,14 +614,14 @@ class TorchBackend:
         (K, 3); any K, such as a pyramid reference's n_octaves x
         per-octave slots) as this backend's tensors."""
         dev = self.device
-        return {
+        return self._mesh_ref({
             "xy": torch.as_tensor(np.array(ref["xy"], np.float32), device=dev),
             "desc": torch.as_tensor(
                 np.asarray(ref["desc"]).astype(np.uint32).astype(np.int64), device=dev
             ),
             "valid": torch.as_tensor(np.array(ref["valid"], bool), device=dev),
             "frame": torch.as_tensor(np.array(ref["frame"], np.float32), device=dev),
-        }
+        })
 
     def update_reference(self, ref: dict, tail_corrected, tail_ok, window: int,
                          alpha: float) -> dict:
@@ -479,63 +662,139 @@ class TorchBackend:
     # -- batch program -----------------------------------------------------
 
     def to_host(self, out: dict) -> dict:
-        """A batch's outputs as numpy arrays."""
+        """A batch's outputs as numpy arrays: the downloads
+        `process_batch_async` started (waited on and copied out of their
+        pinned buffers here), or, for outputs without one, a download of
+        every array now."""
         with stage("download"):
-            return {k: v.cpu().numpy() for k, v in out.items()}
+            dl = getattr(out, "download", None)
+            if dl is None:
+                dl = self._start_download(out)
+            return dl.materialize()
+
+    def _start_download(self, out: dict) -> _Download:
+        """Copy every array of `out` into pooled host buffers: on the
+        card on the download stream, after the compute stream's work so
+        far, non_blocking, closed by an event; each device tensor is
+        recorded on that stream so its block outlives the copy."""
+        pool = self._downloads
+        bufs = {k: pool.acquire(v.shape, v.dtype) for k, v in out.items()}
+        if self._d2h is None:
+            for k, v in out.items():
+                bufs[k].copy_(v)
+            return _Download(bufs, None, pool)
+        with torch.cuda.device(self.device):
+            self._d2h.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(self._d2h):
+                for k, v in out.items():
+                    bufs[k].copy_(v, non_blocking=True)
+                    v.record_stream(self._d2h)
+                event = torch.cuda.Event()
+                event.record(self._d2h)
+        return _Download(bufs, event, pool)
+
+    def stage_upload(self, frames) -> StagedBatch:
+        """Upload one host batch (numpy or a CPU tensor, native dtype)
+        ahead of its dispatch: copied into the next staging slot, then
+        on the card to a new device tensor on the upload stream,
+        non_blocking, closed by an event that also guards the slot's
+        next refill. A tensor already on the card passes through. Safe
+        on the upload worker thread: it touches only the ring, the
+        stream and a new tensor."""
+        if isinstance(frames, StagedBatch):
+            return frames
+        if isinstance(frames, torch.Tensor) and frames.device.type != "cpu":
+            return StagedBatch(frames.to(self.device))
+        host = frames if isinstance(frames, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(frames))
+        slot = self._staging.acquire(host.shape, host.dtype)
+        try:
+            slot.buf.copy_(host)
+            if self._h2d is None:
+                return StagedBatch(slot.buf.clone(), None, slot)
+            with torch.cuda.device(self.device), torch.cuda.stream(self._h2d):
+                dev = torch.empty(host.shape, dtype=host.dtype, device=self.device)
+                dev.copy_(slot.buf, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(self._h2d)
+            slot.event = event
+            return StagedBatch(dev, event, slot)
+        finally:
+            slot.lock.release()
+
+    def _upload(self, frames) -> torch.Tensor:
+        """The batch on the device, in its native dtype, ordered after its
+        upload on the compute stream: a staged batch, a host batch staged
+        inline, or a device tensor moved to this backend's device."""
+        staged = self.stage_upload(frames)
+        stream = torch.cuda.current_stream(self.device) if self._h2d is not None else None
+        return staged.take(stream)
 
     def process_batch(self, frames, ref: dict, frame_indices, seed=None,
                       to_host: bool = True, cast_dtype=None) -> dict:
         """Register and correct a (B, H, W) batch (rigid3d: (B, D, H, W);
-        numpy or a tensor on any device) against a prepared reference.
-        Returns numpy arrays (tensors on the device with `to_host=False`):
-        transform (B, 3, 3) ((B, 4, 4) for rigid3d; field (B, gh, gw, 2)
-        for piecewise), corrected, warp_ok and the per-frame diagnostics
-        (with `quality_metrics`, template_corr and coverage, unless
-        ref["_skip_quality"]). `seed` = (transform, ok): the warm start's
-        consensus seed, shared by the batch (matrix models). A routable
-        batch runs on its shape bucket (jax_backend.py:587-679).
-        `cast_dtype` (an integer dtype) rounds, clips and casts the
-        corrected frames on the device before the download."""
+        numpy, a staged batch or a tensor on any device) against a
+        prepared reference. Returns numpy arrays (tensors on the device
+        with `to_host=False`): transform (B, 3, 3) ((B, 4, 4) for
+        rigid3d; field (B, gh, gw, 2) for piecewise), corrected, warp_ok
+        and the per-frame diagnostics (with `quality_metrics`,
+        template_corr and coverage, unless ref["_skip_quality"]). See
+        `process_batch_async` for the rest."""
+        out = self.process_batch_async(frames, ref, frame_indices, seed=seed,
+                                       to_host=to_host, cast_dtype=cast_dtype)
+        return self.to_host(out) if to_host else dict(out)
+
+    def process_batch_async(self, frames, ref: dict, frame_indices, seed=None,
+                            to_host: bool = True, cast_dtype=None,
+                            emit_frames: bool = True) -> BatchOutputs:
+        """Run the batch program and return its device outputs; with
+        `to_host` the downloads of the outputs start now (all but the
+        corrected frames with `emit_frames=False`) and `to_host()`
+        materializes them later, at drain. `seed` = (transform, ok): the
+        warm start's consensus seed, shared by the batch (matrix
+        models). A routable batch runs on its shape bucket
+        (jax_backend.py:587-679); with a mesh the batch is padded to it
+        and sharded. `cast_dtype` (an integer dtype) rounds, clips and
+        casts the corrected frames on the device before the download."""
         cfg = self.config
         plan = self._plan
         with stage("upload"):
-            frames = torch.as_tensor(frames, device=self.device)
+            frames = self._upload(frames)
             shape = tuple(frames.shape[1:])
             bucket = plan.route(shape) if plan.active else None
-            valid_hw = valid_rect = None
+            valid_hw = None
             if bucket is not None:
                 # pad in the upload dtype, before the float32 cast
                 plan.note_route("bucket_exact" if bucket == shape else "bucket_padded")
                 frames = self._pad_to(frames, bucket)
                 valid_hw = torch.tensor(shape, dtype=torch.int32, device=self.device)
-                valid_rect = valid_rect_mask(bucket, valid_hw)
             elif plan.active and plan.routable(shape):
                 plan.note_route("bucket_fallback")
             program_shape = shape if bucket is None else bucket
             in_dtype = str(frames.dtype).removeprefix("torch.")
+            idx = torch.as_tensor(np.asarray(frame_indices, np.int64), device=self.device)
+        args = (frames, ref["xy"], ref["desc"], ref["valid"],
+                self._plan_template(ref, bucket) if bucket is not None else ref["frame"], idx)
+        extra = ()
+        if seed is not None:
+            extra = (torch.as_tensor(seed[0], device=self.device).to(torch.float32),
+                     torch.as_tensor(seed[1], device=self.device).to(torch.bool))
+        if valid_hw is not None:
+            extra = extra + (valid_hw,)
+        fn = self._batch_fn(bucket, shape, seed is not None)
+        B_caller = None
+        if self.mesh is not None:
+            # any batch size shards: pad to the mesh by repeating the
+            # last frame, slice the outputs back below
+            fr, ix, B_in = pad_batch_to_mesh(args[0], idx, len(self.mesh))
+            if int(fr.shape[0]) != B_in:
+                B_caller = B_in
+            args = (fr,) + args[1:5] + (ix,)
         with plan.maybe_timed("register", program_shape, in_dtype):
-            with stage("upload"):
-                frames = frames.to(torch.float32).contiguous()
-                if cfg.sanitize_input:
-                    frames = sanitize_nonfinite(frames, valid_rect)
-                idx = torch.as_tensor(np.asarray(frame_indices, np.int64), device=self.device)
-                keys = prng.fold_in(self._base_key, idx)
-            with stage("match_consensus"):
-                banded = self._banded(tuple(frames.shape[1:]), ref)
-            with stage("detect_describe"):
-                kps, desc = self._detect_describe(frames, valid_hw=valid_hw)
-            if cfg.model == "piecewise":
-                out = self._piecewise_tail(frames, kps, desc, ref, keys, banded)
-            else:
-                plan_ref = ref
-                if bucket is not None:
-                    plan_ref = dict(ref, frame=self._plan_template(ref, bucket))
-                out = self._matrix_tail(frames, kps, desc, plan_ref, keys, banded, seed,
-                                        valid_hw=valid_hw)
-            if bucket is not None and bucket != shape:
-                # back to the true extent on the device, before the
-                # quality metrics, the cast, the rescue and the download
-                out["corrected"] = out["corrected"][:, : shape[0], : shape[1]]
+            out = fn(*args, *extra)
+        if B_caller is not None:
+            out = {k: v[:B_caller] for k, v in out.items()}
+        out = BatchOutputs(out)
         if cfg.quality_metrics and not ref.get("_skip_quality"):
             with stage("quality"), plan.maybe_timed("quality", shape, "float32"):
                 out["template_corr"], out["coverage"] = self.quality(
@@ -544,7 +803,61 @@ class TorchBackend:
             dt = np.dtype(cast_dtype)
             with plan.maybe_timed("cast", shape, dt.name):
                 out["corrected"] = cast_corrected(out["corrected"], dt)
-        return self.to_host(out) if to_host else out
+        if to_host:
+            keep = {k: v for k, v in out.items() if emit_frames or k != "corrected"}
+            out.download = self._start_download(keep)
+        return out
+
+    def _batch_fn(self, bucket, shape, seeded: bool):
+        """The batch program for this routing: the single-device program,
+        or on a mesh its sharded wrapper (jax_backend.py:875-905), built
+        once per (true shape, bucket, seeded)."""
+        key = (shape, bucket, seeded)
+        fn = self._batch_fns.get(key)
+        if fn is None:
+            fn = functools.partial(self._local_program, bucket, shape, seeded)
+            if self.mesh is not None:
+                fn = make_sharded_batch_fn(
+                    fn, self.mesh,
+                    extra_replicated=(2 if seeded else 0) + (1 if bucket is not None else 0),
+                    collective_chunks=self.config.collective_chunks, processes=1)
+            self._batch_fns[key] = fn
+        return fn
+
+    def _local_program(self, bucket, shape, seeded: bool, frames, ref_xy, ref_desc, ref_valid,
+                       ref_frame, idx, *extra) -> dict:
+        """The single-device batch program on `frames` (native dtype, on
+        one device): the float32 cast, sanitize, the RANSAC keys of the
+        global indices `idx`, detect + describe and the model's tail,
+        the corrected frames sliced back to the true extent of a
+        bucket-padded batch. `extra`: the seed pair when `seeded`, then
+        the valid extent when bucketed. Every tensor it makes lies on
+        the frames' device, so a mesh shard runs it on its own."""
+        cfg = self.config
+        dev = frames.device
+        seed = (extra[0], extra[1]) if seeded else None
+        valid_hw = extra[-1] if bucket is not None else None
+        valid_rect = valid_rect_mask(bucket, valid_hw) if bucket is not None else None
+        ref = {"xy": ref_xy, "desc": ref_desc, "valid": ref_valid, "frame": ref_frame}
+        with stage("upload"):
+            frames = frames.to(torch.float32).contiguous()
+            if cfg.sanitize_input:
+                frames = sanitize_nonfinite(frames, valid_rect)
+            keys = prng.fold_in(self._base_key.to(dev), idx)
+        with stage("match_consensus"):
+            banded = self._banded(tuple(frames.shape[1:]), ref)
+        with stage("detect_describe"):
+            kps, desc = self._detect_describe(frames, valid_hw=valid_hw)
+        if cfg.model == "piecewise":
+            out = self._piecewise_tail(frames, kps, desc, ref, keys, banded)
+        else:
+            out = self._matrix_tail(frames, kps, desc, ref, keys, banded, seed,
+                                    valid_hw=valid_hw)
+        if bucket is not None and bucket != shape:
+            # back to the true extent on the device, before the quality
+            # metrics, the cast, the rescue and the download
+            out["corrected"] = out["corrected"][:, : shape[0], : shape[1]]
+        return out
 
     def _piecewise_tail(self, frames, kps, desc, ref, keys, banded=None) -> dict:
         """Match (dense or banded), per-patch field estimate, field warp
@@ -596,8 +909,8 @@ class TorchBackend:
         cfg = self.config
         seed_M = seed_ok = None
         if seed is not None:
-            seed_M = torch.as_tensor(seed[0], device=self.device).to(torch.float32)
-            seed_ok = torch.as_tensor(seed[1], device=self.device).to(torch.bool)
+            seed_M = torch.as_tensor(seed[0], device=kps.xy.device).to(torch.float32)
+            seed_ok = torch.as_tensor(seed[1], device=kps.xy.device).to(torch.bool)
         with stage("match_consensus"):
             res, n_matches = fused_match_consensus(
                 self.model, desc, kps.xy, kps.valid,

@@ -7,12 +7,14 @@ file-streaming knobs of `correct_file()`) read, under the names and
 defaults of `kcmc_tpu.config.CorrectorConfig`, so a JAX config carries
 across with `config_from_dict(dataclasses.asdict(cfg))`. `plan_buckets`
 is normalized through plans/buckets.py, as the reference normalizes it.
-The knob the port does not implement yet (`mesh_devices`) is still
-declared: `unsupported()` names it when set, with the ROADMAP.md item
-that will port it, and the backend raises `NotImplementedError` with
-that list instead of ignoring it. Warp
-policies and knob values the reference rejects raise `ValueError` here
-with the reference's messages (kcmc_tpu/config.py:750-767, :1018-1047).
+`config_from_dict` drops only the reference fields listed in
+`DROPPED_FIELDS`, each with the ROADMAP.md queue-1 item that will port
+it and why a one-shot run may ignore it; a non-default value of a field
+that would change what a one-shot run writes (`NOT_PORTED`) raises
+`NotImplementedError` naming its item, and a name no config has raises
+`TypeError`. Warp policies and knob values the reference
+rejects raise `ValueError` here with the reference's messages
+(kcmc_tpu/config.py:750-767, :976-985, :1018-1047).
 """
 
 from __future__ import annotations
@@ -115,7 +117,17 @@ class CorrectorConfig:
     # the plan stamps (also KCMC_COMPILE_CACHE)
     plan_buckets: tuple = ()
     compile_cache_dir: str | None = None
+    # the frame-axis mesh (parallel/): 0 = one device (or KCMC_DEVICES),
+    # N = the first N devices, -1 = every visible device; the reference
+    # keypoint gathers as one all-gather (collective_chunks 0 or 1) or
+    # as a ring of that many chunks per shard, value-identical
     mesh_devices: int = 0
+    collective_chunks: int = 0
+    # the pipelined dispatch stages the next batch's upload on a worker
+    # thread (through pinned buffers and a copy stream on the card)
+    # while the current batch runs; False uploads inline. Byte-identical
+    # either way
+    upload_overlap: bool = True
 
     # robustness (utils/faults.py; the degradation ladder of correct()
     # and correct_file()): total attempts per retryable operation (chunk
@@ -239,6 +251,16 @@ class CorrectorConfig:
         if int(self.transform_polish) < 0:
             raise ValueError(
                 f"transform_polish must be >= 0, got {self.transform_polish}"
+            )
+        if self.mesh_devices < -1:
+            raise ValueError(
+                "mesh_devices must be -1 (all devices), 0 (single-chip),"
+                f" or a positive device count, got {self.mesh_devices}"
+            )
+        if self.collective_chunks < 0:
+            raise ValueError(
+                "collective_chunks must be >= 0 chunks (0/1 = one "
+                f"monolithic all_gather), got {self.collective_chunks}"
             )
         self._check_robustness()
         object.__setattr__(self, "polish_grid", tuple(self.polish_grid))
@@ -367,11 +389,10 @@ class CorrectorConfig:
 
     def unsupported(self) -> list[str]:
         """Non-default knobs the port does not implement yet, each with
-        the ROADMAP.md queue-1 item that will port it."""
-        out = []
-        if self.mesh_devices:
-            out.append("mesh_devices (ROADMAP queue 1 item 17)")
-        return out
+        the ROADMAP.md queue-1 item that will port it (none left among
+        the declared fields; `config_from_dict` guards the undeclared
+        ones)."""
+        return []
 
 
 # Fields that shape failure recovery, IO scheduling or execution
@@ -386,13 +407,65 @@ SIG_NEUTRAL_FIELDS = frozenset({
     "retry_jitter", "failover_backend", "degrade_mark_failed",
     "object_timeout_s", "object_hedge_ms", "object_chunk_frames", "object_part_bytes",
     "writer_depth", "io_workers", "io_prefetch",
-    "mesh_devices", "compile_cache_dir",
+    "mesh_devices", "collective_chunks", "upload_overlap", "compile_cache_dir",
 })
+
+# Reference fields the port does not declare and a one-shot, single-
+# process run may drop: field -> (ROADMAP.md queue-1 item, why dropping
+# it changes nothing such a run computes or writes).
+_SERVE = ("19c", "read only by the serve and fleet layers, which a one-shot run does not start")
+DROPPED_FIELDS = {
+    **{f: _SERVE for f in (
+        "serve_queue_depth", "serve_inflight", "serve_degrade_watermark",
+        "serve_journal_dir", "serve_journal_every", "serve_session_timeout_s",
+        "serve_io_timeout_s", "serve_backend_strikes", "serve_latency_fill_floor",
+        "serve_latency_admission", "serve_latency_horizon_refresh_s",
+        "serve_latency_starvation_limit", "fleet_probe_interval_s",
+        "fleet_suspect_probes", "fleet_dead_probes", "fleet_wedge_threshold_s",
+        "fleet_queue_watermark", "fleet_scale_cooldown_s")},
+    "trace_shard_dir": ("19a", "span shards of serve processes; one-shot runs write none"),
+    "trace_shard_cap": ("19a", "bounds the serve span shards only"),
+    "slo_objectives": ("19a", "burn rates of the serve plane only"),
+    "latency_telemetry": ("19a", "one-shot runs record latency only when a trace, "
+                                 "records or a heartbeat is armed, which raise here"),
+    "donate_buffers": ("none", "an XLA buffer-aliasing knob; it changes no value"),
+    "autotune_tiles": ("none", "chooses among Pallas tilings; each hand kernel has one "
+                               "tiling and the knob changes no value"),
+}
+
+# Reference fields that arm output a one-shot run writes (a trace, the
+# per-frame records, a heartbeat): a value other than the default raises
+# until the item is ported.
+NOT_PORTED = {
+    "trace_path": ("19a", None),
+    "frame_records_path": ("19a", None),
+    "heartbeat_s": ("19a", 0.0),
+}
+
+
+def port_fields(d: dict) -> dict:
+    """The entries of `d` (reference field names) that the port declares.
+    The fields of `DROPPED_FIELDS` are dropped; a field of `NOT_PORTED`
+    set away from its default raises NotImplementedError naming its
+    ROADMAP.md queue-1 item; a name no config has raises TypeError."""
+    names = {f.name for f in dataclasses.fields(CorrectorConfig)}
+    kept = {}
+    for k, v in d.items():
+        if k in names:
+            kept[k] = v
+        elif k in NOT_PORTED:
+            item, default = NOT_PORTED[k]
+            if v != default:
+                raise NotImplementedError(
+                    f"{k}={v!r} is not ported yet (ROADMAP queue 1 item {item}): "
+                    "a run would write no trace, records or heartbeat"
+                )
+        elif k not in DROPPED_FIELDS:
+            raise TypeError(f"unknown config field {k!r}")
+    return kept
 
 
 def config_from_dict(d: dict) -> CorrectorConfig:
     """A port config from a dict such as `dataclasses.asdict` of a
-    `kcmc_tpu` CorrectorConfig: fields the port does not declare (serve,
-    fleet, I/O and other layers outside this slice) are dropped."""
-    names = {f.name for f in dataclasses.fields(CorrectorConfig)}
-    return CorrectorConfig(**{k: v for k, v in d.items() if k in names})
+    `kcmc_tpu` CorrectorConfig, through `port_fields`."""
+    return CorrectorConfig(**port_fields(d))

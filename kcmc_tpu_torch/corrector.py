@@ -14,7 +14,18 @@ escalate the remaining batches to the exact gather warp;
 kcmc_tpu/corrector.py:1990-2066), and the merge. `correct()` takes a
 host array or a tensor (sliced where it lies), a frame range with global
 frame indices, and `device_outputs`. `stream_view` gives per-stream
-correctors that share one backend. The port dispatches synchronously.
+correctors that share one backend.
+
+The dispatch is pipelined (kcmc_tpu/corrector.py:1560-1980): three
+batches in flight, the oldest drained; with `upload_overlap` (the
+default) a single upload worker stages the next batch's upload through
+the backend's pinned staging ring while the current batch runs, and the
+downloads, started at dispatch into pinned buffers, are materialized at
+drain. The rescue escalation is decided when the tripping batch
+drains, so the two batches dispatched after it still run the bounded
+warp. The output is byte-identical with `upload_overlap=False`. With `mesh=` or
+`mesh_devices` every batch is sharded over a frame-axis mesh of devices
+(parallel/).
 
 File-scale runs (`correct_file`, kcmc_tpu/corrector.py:2110-2837) stream
 chunks through `io/` (native TIFF decoder, Zarr, HDF5, npy, raw; a
@@ -34,7 +45,9 @@ and `common_valid_region` gives the crop every corrected frame covers.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import hashlib
 import os
 import sys
@@ -45,7 +58,7 @@ import numpy as np
 import torch
 
 from kcmc_tpu_torch.backends.torch_backend import TorchBackend
-from kcmc_tpu_torch.config import SIG_NEUTRAL_FIELDS, CorrectorConfig
+from kcmc_tpu_torch.config import SIG_NEUTRAL_FIELDS, CorrectorConfig, port_fields
 from kcmc_tpu_torch.obs.log import advise
 from kcmc_tpu_torch.ops.warp import (
     coverage_mask,
@@ -459,6 +472,23 @@ class _StallWatchdog:
         self._stop.set()
 
 
+class _UploadWorker:
+    """The single-thread upload executor of the pipelined dispatch
+    (`upload_overlap`, kcmc_tpu/corrector.py:172): it runs only
+    self-contained staging closures and touches no corrector state."""
+
+    def __init__(self):
+        from concurrent.futures import ThreadPoolExecutor
+
+        self._ex = ThreadPoolExecutor(max_workers=1, thread_name_prefix="kcmc-upload")
+
+    def submit(self, work):
+        return self._ex.submit(work)
+
+    def shutdown(self, wait: bool = True):
+        self._ex.shutdown(wait=wait)
+
+
 class MotionCorrector:
     """Register every frame of a (T, H, W) stack (model="rigid3d": every
     volume of a (T, D, H, W) z-stack series) to a reference and resample
@@ -477,7 +507,11 @@ class MotionCorrector:
     `template_update_every` / `template_update_alpha`: rolling template
     updates every that many frames, (1 - alpha) * template + alpha *
     the mean of the last `template_window` corrected frames.
-    `config` / **overrides: a CorrectorConfig or keyword overrides.
+    `mesh`: a tuple of devices (`parallel.make_mesh`) to shard every
+    batch over; `mesh_devices` (or KCMC_DEVICES) resolves one.
+    `config` / **overrides: a CorrectorConfig or keyword overrides
+    (reference fields that are not ported raise NotImplementedError
+    naming their ROADMAP.md item).
 
     `correct(stack)` registers an in-memory stack; `correct_file(path)`
     streams one from a file, with checkpoints and resume.
@@ -499,7 +533,7 @@ class MotionCorrector:
         **overrides,
     ):
         base = config if config is not None else CorrectorConfig()
-        self.config = base.replace(model=model, **overrides)
+        self.config = base.replace(model=model, **port_fields(overrides))
         if isinstance(backend, TorchBackend):
             if mesh is not None:
                 raise ValueError(
@@ -515,12 +549,7 @@ class MotionCorrector:
                 )
             self.backend = backend
         elif backend in (None, "torch"):
-            if mesh is not None:
-                raise NotImplementedError(
-                    "multi-device meshes are not ported yet (ROADMAP.md queue 1 "
-                    "item 17)"
-                )
-            self.backend = TorchBackend(self.config, device=device)
+            self.backend = TorchBackend(self.config, device=device, mesh=mesh)
         else:
             raise ValueError(f"backend must be 'torch' or a TorchBackend, got {backend!r}")
         self.reference = reference
@@ -635,8 +664,10 @@ class MotionCorrector:
         first time the escalation trips; it takes the reference prepared
         by the main backend."""
         if self._escalation_backend is None:
+            # on the main backend's mesh (corrector.py:1990-2000)
             self._escalation_backend = TorchBackend(
-                self.config.replace(warp="jnp"), device=self.backend.device
+                self.config.replace(warp="jnp"), device=self.backend.device,
+                mesh=self.backend.mesh, mesh_devices=False,
             )
         return self._escalation_backend
 
@@ -799,8 +830,9 @@ class MotionCorrector:
             "rescue path"
         )
         if cfg.rescue_escalate and self._escalation_allowed:
+            # decided at drain; the dispatch records the first frame the
+            # escalation backend takes (`_escalated_at`)
             self._escalated = True
-            self._escalated_at = self._rescue_seen
             advise(
                 f"kcmc: {detail}; switching the remaining batches to the "
                 "exact unbounded warp (one recompile, then full batch "
@@ -898,7 +930,7 @@ class MotionCorrector:
             # the buckets are ignored there, as by the reference's
             # numpy backend (tests/test_plans.py:224-235)
             self._failover_backend = TorchBackend(self.config, device="cpu",
-                                                  plan_routing=False)
+                                                  plan_routing=False, mesh_devices=False)
         return self._failover_backend
 
     def _failover_reference(self, fb, ref: dict) -> dict:
@@ -1040,64 +1072,205 @@ class MotionCorrector:
             timing["robustness"] = report.as_dict()
         return transforms
 
-    def _dispatch_batches(self, batches, ref, drain, to_host: bool = True,
+    @staticmethod
+    def _new_dispatch_state() -> dict:
+        """Cross-call state of the pipelined dispatch (corrector.py:1560):
+        the in-flight window, the upload worker and the telemetry.
+        Segmented runs pass one state through every `_dispatch_batches`
+        call, so the window survives segment boundaries."""
+        return {
+            "inflight": [],  # in-flight entries, oldest first
+            "flushes": 0,  # full drains of the window
+            "timer": None,  # StageTimer of the drain_sync / upload_wait stalls
+            "uploader": None,  # the upload worker, made at the first staging
+            "upload_waits": 0,  # staged uploads the dispatch waited on
+            "upload_overlap": False,  # whether any batch took a staged slot
+            "frames": 0,  # frames dispatched so far in the run
+        }
+
+    @staticmethod
+    def _close_dispatch(state: dict) -> None:
+        """Join the upload worker (its slot, if any, is finished first)
+        and drop what is still in flight: the end of a run or its
+        failure. Idempotent."""
+        uploader, state["uploader"] = state["uploader"], None
+        if uploader is not None:
+            uploader.shutdown(wait=True)
+        state["inflight"].clear()
+
+    def _dispatch_batches(self, batches, ref, drain, depth: int = 3, to_host: bool = True,
                           keep_frames: bool = False, emit_frames: bool = True,
-                          on_dispatched=None, cast_dtype=None) -> None:
-        """The dispatch core of `correct()` and `correct_file()`
-        (corrector.py:1577): for each (n_valid, frames, indices) of
-        `batches`, run the batch program on the current backend (the
+                          on_dispatched=None, cast_dtype=None, state=None,
+                          flush: bool = True, timer=None) -> None:
+        """The pipelined dispatch core of `correct()` and `correct_file()`
+        (corrector.py:1577-1923): for each (n_valid, frames, indices) of
+        `batches`, dispatch the batch program on the current backend (the
         escalation backend once the out-of-bound policy tripped), seeded
-        by the previous batch's transform with `warm_start`, and call
-        `drain(n, outputs[:n], frames or None, ref, failed)`. A batch
-        that raises goes down the degradation ladder. Outputs are host
-        numpy arrays, or device tensors with `to_host=False`;
-        `keep_frames` hands the input frames to drain (the rescue needs
-        them); `emit_frames=False` drops the corrected frames before
-        they leave the device; `on_dispatched(n, out, idx)` sees every
-        batch's outputs first (the device template's tail); `cast_dtype`
-        (an integer dtype) casts the corrected frames on the device."""
+        by the previous batch's transform with `warm_start`, keep `depth`
+        batches in flight and drain the oldest with `drain(n,
+        outputs[:n], frames or None, ref, failed)`, `ref` being the
+        reference the batch was dispatched against. With `upload_overlap`
+        the upload worker stages the next batch's upload
+        (`backend.stage_upload`) while this one dispatches; the dispatch
+        waits on it (the `upload_wait` stall). A slot staged for a
+        backend the escalation has since replaced is dropped and the
+        batch uploads inline. A batch that raises at dispatch drains the
+        window first, then goes down the degradation ladder; a deferred
+        device error surfaces at drain and enters the ladder there.
+        Outputs are host numpy arrays, or device tensors with
+        `to_host=False`; `keep_frames` hands the input frames to drain
+        (the rescue needs them); `emit_frames=False` never downloads the
+        corrected frames; `on_dispatched(n, out, idx)` sees every batch's
+        device outputs at dispatch (the device template's tail);
+        `cast_dtype` (an integer dtype) casts the corrected frames on the
+        device. `state` (`_new_dispatch_state`) carries the window across
+        calls; with `flush=False` the call returns with batches still in
+        flight."""
         cfg = self.config
         cast_dtype = cast_dtype if emit_frames else None
-        cast_kw = {} if cast_dtype is None else {"cast_dtype": cast_dtype}
         warm = cfg.warm_start and cfg.model != "piecewise"
         plan = self._fault_plan
-        for n, batch, idx in batches:
-            backend = self._get_escalation_backend() if self._escalated else self.backend
-            seed = (self._warm_seed, True) if warm and self._warm_seed is not None else None
-            step = plan.op_index("device") if plan is not None else None
-            kept = batch if keep_frames else None
-            try:
-                if plan is not None:
-                    plan.maybe_fail("device", step)
-                out = backend.process_batch(batch, ref, idx, seed=seed, to_host=False,
-                                            **cast_kw)
+        if state is None:
+            state = self._new_dispatch_state()
+        if timer is not None:
+            state["timer"] = timer
+        timer = state["timer"]
+        inflight = state["inflight"]
+        # the drain-time ladder re-runs a batch from its host frames
+        keep_for_ladder = self._robust_active() and to_host and (keep_frames or emit_frames)
+
+        def flush_inflight():
+            if inflight:
+                state["flushes"] += 1
+            while inflight:
+                self._drain_entry(inflight.pop(0), drain, to_host, state)
+
+        def stage_on(backend, nxt_batch):
+            """Submit the next batch's upload: (future, backend id), or
+            None with upload_overlap off."""
+            if not cfg.upload_overlap:
+                return None
+            if state["uploader"] is None:
+                state["uploader"] = _UploadWorker()
+            return state["uploader"].submit(
+                functools.partial(backend.stage_upload, nxt_batch)), id(backend)
+
+        it = iter(batches)
+        cur = next(it, None)
+        slot = None  # the staged upload of `cur`: (future, backend id)
+        try:
+            while cur is not None:
+                n, batch, idx = cur
+                backend = self._get_escalation_backend() if self._escalated else self.backend
+                if backend is not self.backend and self._escalated_at is None:
+                    self._escalated_at = state["frames"]
+                disp = batch  # what dispatch receives; `batch` stays the host frames
+                if slot is not None:
+                    (fut, owner), slot = slot, None
+                    t_wait = time.perf_counter()
+                    staged = fut.result()
+                    if timer is not None:
+                        timer.add_stall("upload_wait", time.perf_counter() - t_wait)
+                    state["upload_waits"] += 1
+                    if owner == id(backend):
+                        disp = staged
+                        state["upload_overlap"] = True
+                    # else: the escalation replaced the backend between
+                    # staging and dispatch; the batch uploads inline
+                seed = (self._warm_seed, True) if warm and self._warm_seed is not None else None
+                kept = batch if keep_frames else None
+                # the next batch's upload runs on the worker while this
+                # one dispatches and executes
+                cur = next(it, None)
+                if cur is not None:
+                    slot = stage_on(backend, cur[1])
+                step = plan.op_index("device") if plan is not None else None
+                state["frames"] += n
+                try:
+                    if plan is not None:
+                        plan.maybe_fail("device", step)
+                    out = backend.process_batch_async(disp, ref, idx, seed=seed,
+                                                      to_host=to_host, cast_dtype=cast_dtype,
+                                                      emit_frames=emit_frames)
+                except Exception as e:
+                    # the window drains first, so outputs stay in order
+                    # and the ladder's synthesis template exists
+                    flush_inflight()
+                    res, failed = self._ladder_batch(e, backend, batch, ref, idx, seed,
+                                                     step, n, emit_frames, cast_dtype)
+                    if on_dispatched is not None:
+                        on_dispatched(n, res, idx)
+                    kept = self._failed_kept(res, kept, failed)
+                    if not to_host:
+                        dev = self.backend.device
+                        res = {k: torch.as_tensor(v, device=dev) for k, v in res.items()}
+                    drain(n, {k: v[:n] for k, v in res.items()}, kept, ref, failed)
+                    continue
+                if warm:
+                    # the newest transform, still on the device, seeds
+                    # the next batch's consensus
+                    self._warm_seed = out["transform"][n - 1]
                 if on_dispatched is not None:
                     on_dispatched(n, out, idx)
-                res = self._apply_out_options(out, emit_frames)
-                if to_host:
-                    # a deferred CUDA error surfaces here, inside the try
-                    res = backend.to_host(res)
+                # the staged tensor rides in the entry until its batch drains
+                inflight.append((n, out, kept, batch if keep_for_ladder else None, idx, step,
+                                 backend, seed, emit_frames, cast_dtype, ref,
+                                 disp if disp is not batch else None))
+                if len(inflight) >= depth:
+                    self._drain_entry(inflight.pop(0), drain, to_host, state)
+            if flush:
+                flush_inflight()
+                self._close_dispatch(state)
+        except BaseException:
+            if slot is not None:
+                slot[0].cancel()
+            self._close_dispatch(state)
+            raise
+
+    def _drain_entry(self, entry, drain, to_host: bool, state: dict) -> None:
+        """Drain one in-flight batch (corrector.py:1925): its downloads
+        are materialized here (the `drain_sync` stall), where a deferred
+        device error surfaces and enters the degradation ladder against
+        the reference the batch was dispatched with."""
+        (n, out, kept, batch, idx, step, backend, seed, emit2, cast2, ref, _staged) = entry
+        failed = False
+        if to_host:
+            timer = state["timer"]
+            try:
+                with timer.stall("drain_sync") if timer is not None else contextlib.nullcontext():
+                    res = backend.to_host(out)
+                if self._robust_active():
+                    self._note_out_template(res)
             except Exception as e:
-                res, failed = self._ladder_batch(e, backend, batch, ref, idx, seed,
-                                                 step, n, emit_frames, cast_dtype)
-                if on_dispatched is not None:
-                    on_dispatched(n, res, idx)
-                if failed:
-                    if kept is not None and "warp_ok" in res:
-                        # the rescue skips a synthesized batch; its key stays
-                        res["warp_rescued"] = np.zeros(len(res["warp_ok"]), bool)
-                    kept = None
-                if not to_host:
-                    dev = self.backend.device
-                    res = {k: torch.as_tensor(v, device=dev) for k, v in res.items()}
-                drain(n, {k: v[:n] for k, v in res.items()}, kept, ref, failed)
-                continue
-            if warm:
-                # the newest transform seeds the next batch's consensus
-                self._warm_seed = out["transform"][n - 1]
-            if to_host and self._robust_active():
-                self._note_out_template(res)
-            drain(n, {k: v[:n] for k, v in res.items()}, kept, ref, False)
+                res, failed = self._ladder_batch(e, backend, batch, ref, idx, seed, step, n,
+                                                 emit2, cast2)
+                kept = self._failed_kept(res, kept, failed)
+        else:
+            res = self._apply_out_options(dict(out), emit2)
+        drain(n, {k: v[:n] for k, v in res.items()}, kept, ref, failed)
+
+    @staticmethod
+    def _failed_kept(out: dict, kept, failed: bool):
+        """A mark-failed batch's kept frames are withheld from drain, so
+        the rescue cannot re-warp its synthesized output; its
+        `warp_rescued` is preset to all False to keep the merged keys
+        uniform (corrector.py:1963)."""
+        if not failed:
+            return kept
+        if kept is not None and "warp_ok" in out:
+            out["warp_rescued"] = np.zeros(len(out["warp_ok"]), bool)
+        return None
+
+    @staticmethod
+    def _pipeline_report(state: dict, n_updates: int, dev_tmpl: bool) -> dict:
+        """timing["pipeline"] (corrector.py:1505-1511)."""
+        return {
+            "drain_flushes": state["flushes"],
+            "template_updates": n_updates,
+            "device_templates": bool(dev_tmpl),
+            "upload_overlap": state["upload_overlap"],
+            "upload_waits": state["upload_waits"],
+        }
 
     def correct(self, stack, start_frame: int = 0, end_frame: int | None = None,
                 progress: bool = False, device_outputs: bool = False,
@@ -1153,6 +1326,8 @@ class MotionCorrector:
         dev_tail: list[tuple] = []
         outs = []
         n_updates = 0
+        timer = StageTimer()
+        state = self._new_dispatch_state()
 
         def batches(slo, shi):
             for lo in range(slo, shi, B):
@@ -1169,22 +1344,29 @@ class MotionCorrector:
         def on_dispatched(n, out, idx):
             self._collect_tail(dev_tail, n, out, tail_window)
 
-        for si, (slo, shi) in enumerate(segs):
-            self._dispatch_batches(
-                batches(slo, shi), ref, drain, to_host=not device_outputs,
-                keep_frames=do_rescue, on_dispatched=on_dispatched if dev_tmpl else None,
-                cast_dtype=cast,
-            )
-            if si < len(segs) - 1:  # rolling template update
-                W = min(self.template_window, shi - slo)
-                n_updates += 1
-                if dev_tmpl:
-                    ref = self._update_reference_device(ref, dev_tail, W)
-                    ref_frame = ref["frame"]
-                else:
-                    tail_c, tail_ok = self._template_tail(outs, W)
-                    ref_frame = self._rolled_template(ref_frame, tail_c, tail_ok, W)
-                    ref = self.backend.prepare_reference(ref_frame)
+        try:
+            for si, (slo, shi) in enumerate(segs):
+                last = si == len(segs) - 1
+                # device templates keep the window in flight across the
+                # boundaries; the host blend needs the segment drained
+                self._dispatch_batches(
+                    batches(slo, shi), ref, drain, to_host=not device_outputs,
+                    keep_frames=do_rescue, on_dispatched=on_dispatched if dev_tmpl else None,
+                    cast_dtype=cast, state=state, flush=last or not dev_tmpl, timer=timer,
+                )
+                if not last:  # rolling template update
+                    W = min(self.template_window, shi - slo)
+                    n_updates += 1
+                    with timer.stall("template_update"):
+                        if dev_tmpl:
+                            ref = self._update_reference_device(ref, dev_tail, W)
+                            ref_frame = ref["frame"]
+                        else:
+                            tail_c, tail_ok = self._template_tail(outs, W)
+                            ref_frame = self._rolled_template(ref_frame, tail_c, tail_ok, W)
+                            ref = self.backend.prepare_reference(ref_frame)
+        finally:
+            self._close_dispatch(state)
         if device_outputs:
             cat = torch.cat
             empty = torch.empty((0,) + tuple(stack.shape[1:]), dtype=torch.float32,
@@ -1204,9 +1386,11 @@ class MotionCorrector:
             "device": str(self.backend.device),
             "warp_escalated": self._escalated,
             "warp_escalated_at": self._escalated_at,
-            "pipeline": {"template_updates": n_updates,
-                         "device_templates": bool(dev_tmpl)},
+            "pipeline": self._pipeline_report(state, n_updates, dev_tmpl),
         }
+        if timer.stalls:
+            timing["stalls_s"] = dict(timer.stalls)
+            timing["stall_counts"] = dict(timer.stall_counts)
         self._plan_timing(timing)
         fields = merged.pop("field", None)
         transforms = self._finalize_robustness(
@@ -1423,6 +1607,7 @@ class MotionCorrector:
             E = self.template_update_every
             W_roll = min(self.template_window, E) if roll else 0
             dev_tmpl = roll and cfg.device_templates
+            dp_state = self._new_dispatch_state()
             dev_tail: list[tuple] = []
             tail: list[dict] = []  # host path: last-window (corrected, warp_ok)
             # (boundary frame, template) pairs: a save pairs the drained
@@ -1540,7 +1725,7 @@ class MotionCorrector:
                                      if shi - W > slo else [(slo, shi, True)])
                         else:
                             spans = [(slo, shi, emit_frames)]
-                        for lo2, hi2, emit2 in spans:
+                        for spi, (lo2, hi2, emit2) in enumerate(spans):
                             loader = ChunkedStackLoader(
                                 ts, chunk_size=chunk, start=lo2, stop=hi2,
                                 prefetch=feed_prefetch, fault_plan=self._fault_plan,
@@ -1560,7 +1745,10 @@ class MotionCorrector:
                                     emit_frames=emit2 and not (
                                         dev_tmpl and not emit_frames),
                                     on_dispatched=on_dispatched if dev_tmpl else None,
-                                    cast_dtype=cast,
+                                    cast_dtype=cast, state=dp_state, timer=timer,
+                                    # device templates keep the window in
+                                    # flight; only the very last span flushes
+                                    flush=not dev_tmpl or (last_seg and spi == len(spans) - 1),
                                 )
                             finally:
                                 batch_gen.close()
@@ -1590,6 +1778,7 @@ class MotionCorrector:
                 if checkpoint is not None and cursor["done"] > cursor["saved"]:
                     save_ckpt()
             finally:
+                self._close_dispatch(dp_state)
                 if watchdog is not None:
                     watchdog.stop()
                 # stop the prefetch thread before the reader closes
@@ -1612,7 +1801,7 @@ class MotionCorrector:
             "decoder": decoder,
             "warp_escalated": self._escalated,
             "warp_escalated_at": self._escalated_at,
-            "pipeline": {"template_updates": n_updates, "device_templates": bool(dev_tmpl)},
+            "pipeline": self._pipeline_report(dp_state, n_updates, dev_tmpl),
         })
         self._plan_timing(timing)
         obj_stats = {}

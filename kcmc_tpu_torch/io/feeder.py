@@ -1,6 +1,6 @@
 """Feeder-side scale-out: process-based decode pools + sharded ingest
-(the port's copy of kcmc_tpu/io/feeder.py, without `host_local_range`,
-which comes with multi-device runs).
+(the port's copy of kcmc_tpu/io/feeder.py; `host_local_range` reads the
+rank and world size of an initialized torch.distributed group).
 
 Host TIFF decode on the single-core pure-Python deflate fallback binds
 far below what the card registers, and the single-producer prefetch
@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import atexit
 import os
+import sys
 import threading
 import time
 from collections import deque
@@ -81,6 +82,32 @@ def derive_prefetch(io_prefetch: int, batch: int, chunk: int, depth: int = 3) ->
 # ---------------------------------------------------------------------------
 # source classification + worker-side respec
 # ---------------------------------------------------------------------------
+
+
+def host_local_range(n_frames: int, process_index: int | None = None,
+                     process_count: int | None = None) -> tuple[int, int]:
+    """The [lo, hi) frame range this process decodes in a multi-process
+    run (kcmc_tpu/io/feeder.py:86-110): contiguous near-equal blocks in
+    rank order, the layout `parallel.shard_host_local_frames` assembles,
+    so no pixels cross processes. Explicit index and count make it a
+    pure function; the defaults read an initialized torch.distributed
+    group, else 0 and 1 (torch is not imported for that: a process that
+    has not imported it has no group)."""
+    if process_index is None or process_count is None:
+        process_index, process_count = 0, 1
+        dist = sys.modules.get("torch.distributed")
+        if dist is not None:
+            if dist.is_available() and dist.is_initialized():
+                process_index, process_count = dist.get_rank(), dist.get_world_size()
+    if process_count < 1 or not 0 <= process_index < process_count:
+        raise ValueError(
+            f"process_index {process_index} out of range for "
+            f"{process_count} process(es)"
+        )
+    n = int(n_frames)
+    per = -(-n // int(process_count))  # ceil: early processes take the slack
+    lo = min(int(process_index) * per, n)
+    return lo, min(lo + per, n)
 
 
 def classify_source(source) -> str | None:

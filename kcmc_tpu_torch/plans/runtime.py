@@ -91,8 +91,10 @@ def device_name(device: torch.device) -> str:
 
 class PlanRuntime:
     def __init__(self, config, backend_name: str = "torch", device=None,
-                 routing: bool = True, libraries=None):
+                 routing: bool = True, libraries=None, mesh=None):
         self.config = config
+        # the mesh's shape is part of every stamp key (runtime.py:79-80)
+        self.mesh_shape = (len(mesh),) if mesh is not None else None
         # program -> the kernel libraries (cuda_build names) it launches:
         # a stamp is a hit only while they are in the cache directory
         self.libraries = libraries or (lambda program: ())
@@ -193,7 +195,8 @@ class PlanRuntime:
         """What a build of this program depends on: the package version
         and code fingerprint (the kernel sources included), torch and
         its CUDA version, the device, the backend, the config digest,
-        and the program's name, shape, dtype and rung."""
+        the mesh's shape, and the program's name, shape, dtype and
+        rung."""
         from kcmc_tpu_torch import __version__
 
         return self.cache.program_key(
@@ -207,6 +210,7 @@ class PlanRuntime:
             program=program,
             shape=tuple(int(s) for s in shape),
             dtype=str(dtype),
+            mesh=self.mesh_shape,
             rung=self.rung,
         )
 

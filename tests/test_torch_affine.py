@@ -278,10 +278,11 @@ def test_matrix_bounds_and_config_carry_across():
 @pytest.mark.parametrize(
     "kw",
     [
-        # plan_buckets is ported (tests/test_torch_plans.py): the mesh raises
+        # plan_buckets and the mesh are ported (tests/test_torch_plans.py,
+        # tests/test_torch_mesh.py): the unported trace knobs raise
         {"model": "affine", "max_keypoints": 4096, "plan_buckets": ((128, 128),),
-         "mesh_devices": 2},
-        {"model": "similarity", "max_keypoints": 4096, "mesh_devices": 2},
+         "mesh_devices": 2, "trace_path": "run.trace.json"},
+        {"model": "similarity", "max_keypoints": 4096, "heartbeat_s": 1.0},
     ],
 )
 def test_unported_affine_knobs_raise(kw):

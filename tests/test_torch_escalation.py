@@ -89,6 +89,90 @@ def test_rescue_policy_matches_reference(case, escalate):
         assert tripped == [1]
 
 
+class _StubBackend:
+    """A batch program that only reports the warp_ok of a fed sequence
+    (the bounded backend) or all True (the escalation backend), and logs
+    which backend took each dispatched batch."""
+
+    accepts_native_dtype = True
+
+    def __init__(self, name, oks, log):
+        self.name, self.oks, self.log = name, oks, log
+
+    def process_batch_async(self, frames, ref, idx, **kw):
+        b = len(self.log)
+        self.log.append(self.name)
+        n = len(idx)
+        ok = self.oks[b] if self.name == "bounded" else np.ones(n, bool)
+        return {"warp_ok": ok, "corrected": np.zeros((n, 4, 4), np.float32),
+                "transform": np.tile(np.eye(3, dtype=np.float32), (n, 1, 1))}
+
+    def stage_upload(self, frames):
+        return frames
+
+    def to_host(self, out):
+        return {k: np.asarray(v) for k, v in out.items()}
+
+    def rescue_warp(self, frames, out, ref=None):
+        return np.zeros_like(frames)
+
+
+def _dispatch_trace(mc, counts, B, port: bool):
+    """Feed the warp_ok sequence through mc's pipelined dispatch core with
+    stub backends: the backend that took each batch, in order."""
+    oks, batches, lo = [], [], 0
+    for n, bad in counts:
+        ok = np.ones(B, bool)
+        ok[n - bad:n] = False
+        oks.append(ok)
+        idx = np.concatenate([np.arange(lo, lo + n), np.full(B - n, lo + n - 1)])
+        batches.append((n, np.zeros((B, 4, 4), np.float32), idx))
+        lo += n
+    log = []
+    mc.backend = _StubBackend("bounded", oks, log)
+    esc = _StubBackend("escalation", oks, log)
+    mc._get_escalation_backend = lambda: esc
+    mc._begin_robust_run()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        if port:
+            mc._reset_rescue_policy()
+
+            def drain(n, host, kept, ref, failed):
+                mc._rescue_flagged(host, kept, n, ref)
+
+            mc._dispatch_batches(iter(batches), None, drain, keep_frames=True)
+        else:
+            def drain(entry):
+                n, host, kept, ref = entry
+                mc._rescue_flagged(dict(host), kept, n, ref)
+
+            mc._dispatch_batches(iter(batches), None, drain, keep_frames=True)
+    return log
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_drain_time_escalation_matches_reference(case):
+    """The escalation is decided when the tripping batch drains, with
+    three batches in flight: in both packages the same batches take the
+    escalation backend, the first of them three after the batch that
+    tripped the policy (the port flipped on the next batch before its
+    dispatch was pipelined)."""
+    kw = dict(batch_size=B)
+    want = _dispatch_trace(kcmc_tpu.MotionCorrector(backend="jax", **kw), CASES[case], B,
+                           port=False)
+    got = _dispatch_trace(kcmc_tpu_torch.MotionCorrector(device="cpu", **kw), CASES[case], B,
+                          port=True)
+    assert got == want and len(got) == len(CASES[case])
+    trips = [i for i, (msg, _) in enumerate(_policy_trace(
+        kcmc_tpu_torch.MotionCorrector(device="cpu", **kw), CASES[case], B)) if msg]
+    first = got.index("escalation") if "escalation" in got else None
+    if trips and trips[0] + 3 < len(got):
+        assert first == trips[0] + 3
+    else:
+        assert first is None
+
+
 def _shifted_stack(n_in, n_out, seed=2):
     """n_in frames shifted within K3's +-128 px window, then n_out shifted
     140 px, beyond it (the construction of test_torch_pipeline's rescue
@@ -105,7 +189,10 @@ def _shifted_stack(n_in, n_out, seed=2):
 
 @pytest.fixture(scope="module")
 def escalation_runs():
-    stack = _shifted_stack(2, 6)
+    # the flip is decided at drain, with three batches in flight: the
+    # batch that trips it (batch 1) reaches drain after batch 3 is
+    # dispatched, so batch 4 is the first on the escalation backend
+    stack = _shifted_stack(2, 10)
     kw = dict(device="cpu", batch_size=2, max_keypoints=256)
     runs = {}
     for name, extra in (("auto", {}), ("warn_only", {"rescue_escalate": False}),
@@ -118,20 +205,21 @@ def escalation_runs():
 
 
 def test_escalation_end_to_end(escalation_runs):
-    """Batch 1 (frames 2-3) leaves K3's window: the policy warns and
-    the remaining batches take the warp="jnp" backend, whose frames equal
-    a warp="jnp" run's bit for bit (the RANSAC keys fold the global frame
-    index). Before the flip the bounded route's frames and its rescues
-    stand."""
+    """Batch 1 (frames 2-3) leaves K3's window: the policy warns at its
+    drain, and the batches dispatched after it, from batch 4 on (batches
+    2 and 3 were in flight), take the warp="jnp" backend, whose frames
+    equal a warp="jnp" run's bit for bit (the RANSAC keys fold the global
+    frame index). Before the flip the bounded route's frames and its
+    rescues stand."""
     stack, runs = escalation_runs
     res, msgs = runs["auto"]
-    assert res.timing["warp_escalated"] is True and res.timing["warp_escalated_at"] == 4
+    assert res.timing["warp_escalated"] is True and res.timing["warp_escalated_at"] == 8
     assert len(msgs) == 1 and "switching the remaining batches" in msgs[0]
     np.testing.assert_array_equal(res.diagnostics["warp_rescued"],
-                                  [False, False, True, True] + [False] * 4)
+                                  [False, False] + [True] * 6 + [False] * 4)
     jnp_res = runs["jnp"][0]
-    np.testing.assert_array_equal(res.corrected[4:], jnp_res.corrected[4:])
-    np.testing.assert_array_equal(res.transforms[4:], jnp_res.transforms[4:])
+    np.testing.assert_array_equal(res.corrected[8:], jnp_res.corrected[8:])
+    np.testing.assert_array_equal(res.transforms[8:], jnp_res.transforms[8:])
     assert np.abs(res.transforms[2:, 0, 2] - 140.25).max() < 0.1
 
 
@@ -142,7 +230,7 @@ def test_escalation_warn_only_and_warns(escalation_runs):
     res, msgs = runs["warn_only"]
     assert res.timing["warp_escalated"] is False and res.timing["warp_escalated_at"] is None
     assert len(msgs) == 1 and "Use warp='jnp'" in msgs[0]
-    np.testing.assert_array_equal(res.diagnostics["warp_rescued"], [False, False] + [True] * 6)
+    np.testing.assert_array_equal(res.diagnostics["warp_rescued"], [False, False] + [True] * 10)
     assert runs["jnp"][0].timing["warp_escalated"] is False and not runs["jnp"][1]
     with pytest.warns(RuntimeWarning, match="exceeded the bounded warp kernel"):
         kcmc_tpu_torch.MotionCorrector(device="cpu", batch_size=2, max_keypoints=256).correct(
@@ -151,13 +239,16 @@ def test_escalation_warn_only_and_warns(escalation_runs):
 
 def test_policy_state_resets_per_correct(escalation_runs):
     """Every correct() starts with the counters at zero and the bounded
-    warp: an escalated warm-up does not carry into the next run."""
+    warp: an escalated warm-up does not carry into the next run. (Batch 0
+    of the ten out-of-window frames trips the policy at its drain;
+    batch 3, frame 6 of the run, is the first on the escalation
+    backend.)"""
     stack, _ = escalation_runs
     mc = kcmc_tpu_torch.MotionCorrector(device="cpu", batch_size=2, max_keypoints=256,
                                         reference=stack[0])
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        assert mc.correct(stack[2:6]).timing["warp_escalated_at"] == 2
+        assert mc.correct(stack[2:]).timing["warp_escalated_at"] == 6
         res = mc.correct(stack[:2])
     assert res.timing["warp_escalated"] is False and mc._rescue_seen == 2
 
@@ -170,6 +261,43 @@ def test_step3_knobs_carry_across():
               "match_radius"):
         assert getattr(cfg, f) == getattr(jcfg, f), f
     assert cfg.unsupported() == []
+
+
+@pytest.mark.parametrize("knob", [("trace_path", "/tmp/x.json"),
+                                  ("frame_records_path", "/tmp/r.jsonl"),
+                                  ("heartbeat_s", 1.0)], ids=lambda k: k[0])
+def test_fault_e_unported_observability_knobs_raise(knob):
+    """Queue 3 fault E: a reference config that arms a trace, per-frame
+    records or a heartbeat does not convert silently into a port config
+    that writes none of them; it raises naming item 19a, through
+    config_from_dict and through MotionCorrector's keywords alike."""
+    name, value = knob
+    jcfg = kcmc_tpu.CorrectorConfig(collective_chunks=4, **{name: value})
+    with pytest.raises(NotImplementedError, match="item 19a"):
+        kcmc_tpu_torch.config_from_dict(dataclasses.asdict(jcfg))
+    with pytest.raises(NotImplementedError, match="item 19a"):
+        kcmc_tpu_torch.MotionCorrector(device="cpu", **{name: value})
+
+
+def test_fault_e_only_the_named_fields_are_dropped():
+    """The reference fields the port does not declare are exactly the
+    named table of dropped fields (each with its item and reason) and
+    the three that raise; upload_overlap and collective_chunks carry
+    across; a name no config has raises TypeError."""
+    from kcmc_tpu_torch.config import DROPPED_FIELDS, NOT_PORTED
+
+    ref = {f.name for f in dataclasses.fields(kcmc_tpu.CorrectorConfig)}
+    port = {f.name for f in dataclasses.fields(kcmc_tpu_torch.CorrectorConfig)}
+    assert ref - port == set(DROPPED_FIELDS) | set(NOT_PORTED)
+    assert all(item and reason for item, reason in DROPPED_FIELDS.values())
+    jcfg = kcmc_tpu.CorrectorConfig(collective_chunks=4, upload_overlap=False, mesh_devices=2,
+                                    serve_queue_depth=8, donate_buffers=False)
+    cfg = kcmc_tpu_torch.config_from_dict(dataclasses.asdict(jcfg))
+    assert (cfg.collective_chunks, cfg.upload_overlap, cfg.mesh_devices) == (4, False, 2)
+    with pytest.raises(TypeError, match="bogus_knob"):
+        kcmc_tpu_torch.config_from_dict({"model": "translation", "bogus_knob": 1})
+    with pytest.raises(TypeError, match="bogus_knob"):
+        kcmc_tpu_torch.MotionCorrector(device="cpu", bogus_knob=1)
 
 
 @pytest.mark.parametrize(

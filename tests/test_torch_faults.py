@@ -336,7 +336,8 @@ def test_real_batch_program_error_raises(tif, monkeypatch):
         calls.append(1)
         raise RuntimeError("CUDA error: an illegal memory access was encountered")
 
-    monkeypatch.setattr(mc.backend, "process_batch", broken)
+    # the seam the pipelined dispatch calls
+    monkeypatch.setattr(mc.backend, "process_batch_async", broken)
     with pytest.raises(RuntimeError, match="illegal memory access"):
         mc.correct_file(tif, chunk_size=8)
     assert len(calls) == 1 and mc._robustness.device_retries == 0
@@ -358,7 +359,8 @@ def test_batch_program_os_error_raises(tif, monkeypatch, exc):
         calls.append(1)
         raise exc
 
-    monkeypatch.setattr(mc.backend, "process_batch", broken)
+    # the seam the pipelined dispatch calls
+    monkeypatch.setattr(mc.backend, "process_batch_async", broken)
     with pytest.raises(type(exc)):
         mc.correct_file(tif, chunk_size=8)
     assert len(calls) == 1 and mc._robustness.device_retries == 0

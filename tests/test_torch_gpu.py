@@ -876,3 +876,93 @@ def test_warmup_on_card_second_backend_builds_nothing(cuda, tmp_path):
         assert cuda_build.NVCC_RUNS == runs + 4
     finally:
         disable_compile_cache()
+
+
+def test_staging_slot_refilled_only_after_its_copy_event(cuda):
+    """Eight uint16 batches staged back to back through the three-slot
+    pinned ring, with no sync between them: every slot handed out for a
+    refill has its previous copy's event complete, every staged tensor
+    holds its own batch, and the slots are pinned."""
+    be = TorchBackend(CorrectorConfig(), device="cuda")
+    ring = be._staging
+    done_at_refill = []
+    orig = ring.acquire
+
+    def acquire(shape, dtype):
+        slot = orig(shape, dtype)
+        done_at_refill.append(slot.event is None or slot.event.query())
+        return slot
+
+    ring.acquire = acquire
+    batches = [np.full((32, 512, 512), i + 1, np.uint16) for i in range(8)]
+    staged = [be.stage_upload(b) for b in batches]
+    got = [s.take(torch.cuda.current_stream()) for s in staged]
+    torch.cuda.synchronize()
+    assert done_at_refill == [True] * 8
+    for i, g in enumerate(got):
+        assert g.device.type == "cuda" and g.dtype == torch.uint16
+        g = g.to(torch.int32)  # CUDA has no uint16 min/max
+        assert int(g.min()) == int(g.max()) == i + 1
+    slots = ring._slots[((32, 512, 512), torch.uint16)]
+    assert len(slots) == 3
+    assert all(s.buf.is_pinned() for s in slots)
+
+
+def test_downloads_are_pinned_and_materialized_at_drain(cuda):
+    """process_batch_async starts the downloads into pooled pinned
+    buffers; to_host waits on their event and returns the arrays the
+    device outputs hold, and the buffers go back to the pool."""
+    data = make_drift_stack(8, (128, 128), seed=2)
+    be = TorchBackend(CorrectorConfig(batch_size=8, max_keypoints=128), device="cuda")
+    ref = be.prepare_reference(data.stack[0])
+    out = be.process_batch_async(data.stack, ref, np.arange(8))
+    assert out.download is not None
+    assert all(b.is_pinned() for b in out.download.bufs.values())
+    host = be.to_host(out)
+    for k, v in out.items():
+        np.testing.assert_array_equal(host[k], v.cpu().numpy())
+    assert out.download.bufs == {} and be._downloads._free
+
+
+def test_overlap_on_card_byte_identical(cuda):
+    """correct() with upload_overlap on and off on the card: the same
+    bytes, and the pipeline report of the staged run."""
+    data = make_drift_stack(40, (128, 128), seed=4)
+    u16 = np.clip(data.stack * 40000, 0, 65535).astype(np.uint16)
+    kw = dict(batch_size=8, max_keypoints=128)
+    for stack in (data.stack, u16):
+        on = MotionCorrector(**kw).correct(stack, output_dtype="input")
+        off = MotionCorrector(upload_overlap=False, **kw).correct(stack, output_dtype="input")
+        np.testing.assert_array_equal(on.corrected, off.corrected)
+        np.testing.assert_array_equal(on.transforms, off.transforms)
+        assert on.timing["pipeline"]["upload_overlap"] is True
+        assert on.timing["pipeline"]["upload_waits"] == 4
+
+
+def test_mesh_shard_runs_on_its_own_device(cuda):
+    """Each shard of a mesh runs its program with its own card current
+    and its tensors there (a two-shard mesh on cuda:0 where there is one
+    card, cuda:0 and cuda:1 where there are two); the sharded run
+    matches the single-device run (integers equal, transforms within
+    1e-4 px)."""
+    n = torch.cuda.device_count()
+    mesh = (torch.device("cuda", 0), torch.device("cuda", 1 if n > 1 else 0))
+    data = make_drift_stack(16, (128, 128), seed=5)
+    kw = dict(batch_size=8, max_keypoints=100)
+    one = MotionCorrector(**kw).correct(data.stack)
+    mc = MotionCorrector(mesh=mesh, **kw)
+    seen = []
+    orig = mc.backend._local_program
+
+    def spy(*a):
+        frames = a[3]
+        seen.append((torch.cuda.current_device(), frames.device.index))
+        return orig(*a)
+
+    mc.backend._local_program = spy
+    mc.backend._batch_fns.clear()
+    got = mc.correct(data.stack)
+    assert seen == [(d.index, d.index) for d in mesh] * 2
+    assert np.abs(got.transforms - one.transforms).max() <= 1e-4
+    for k in ("n_keypoints", "n_matches", "n_inliers", "warp_ok"):
+        np.testing.assert_array_equal(got.diagnostics[k], one.diagnostics[k])

@@ -322,8 +322,14 @@ def test_rolling_boundaries_do_not_depend_on_batch_size(drift):
                                             template_update_every=6, template_window=4,
                                             device_templates=dev)
         got[B, dev] = mc.correct(drift.stack)
-        assert got[B, dev].timing["pipeline"] == {"template_updates": 2,
-                                                  "device_templates": dev}
+        # device templates keep the window in flight across boundaries
+        # (one final drain); the host blend drains every segment. A
+        # segment stages every batch after its first: batches of 4 wait
+        # on one staged upload in each of the two full segments
+        assert got[B, dev].timing["pipeline"] == {
+            "template_updates": 2, "device_templates": dev,
+            "drain_flushes": 1 if dev else 3, "upload_overlap": B == 4,
+            "upload_waits": 2 if B == 4 else 0}
     for key in got:
         np.testing.assert_array_equal(got[key].transforms, got[8, True].transforms)
 
@@ -386,14 +392,14 @@ def test_warm_start_seeds_each_batch_from_the_last(drift, monkeypatch):
     mc = kcmc_tpu_torch.MotionCorrector(device="cpu", batch_size=6, max_keypoints=256,
                                         warm_start=True)
     seen = []
-    orig = mc.backend.process_batch
+    orig = mc.backend.process_batch_async  # the seam the dispatch calls
 
-    def spy(frames, ref, idx, seed=None, to_host=True):
-        out = orig(frames, ref, idx, seed=seed, to_host=to_host)
+    def spy(frames, ref, idx, seed=None, **kw):
+        out = orig(frames, ref, idx, seed=seed, **kw)
         seen.append((None if seed is None else seed[0].clone(), out["transform"].clone()))
         return out
 
-    monkeypatch.setattr(mc.backend, "process_batch", spy)
+    monkeypatch.setattr(mc.backend, "process_batch_async", spy)
     res = mc.correct(drift.stack[:10])
     mc.correct(drift.stack[:4])
     assert seen[0][0] is None and seen[2][0] is None  # each run starts unseeded

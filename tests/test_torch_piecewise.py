@@ -264,9 +264,10 @@ def test_piecewise_config_carries_across():
 @pytest.mark.parametrize(
     "kw",
     [
-        {"model": "piecewise", "mesh_devices": 2},
-        # plan_buckets is ported (tests/test_torch_plans.py): the mesh raises
-        {"model": "rigid", "plan_buckets": ((64, 64),), "mesh_devices": 2},
+        # the mesh is ported (tests/test_torch_mesh.py): the unported
+        # records and heartbeat knobs raise
+        {"model": "piecewise", "mesh_devices": 2, "frame_records_path": "r.jsonl"},
+        {"model": "rigid", "plan_buckets": ((64, 64),), "heartbeat_s": 0.5},
     ],
 )
 def test_unported_knobs_still_raise(kw):

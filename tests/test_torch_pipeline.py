@@ -135,10 +135,10 @@ def test_config_carries_across():
 
 @pytest.mark.parametrize(
     "kw",
-    # plan_buckets is ported (tests/test_torch_plans.py); beside a mesh
-    # the mesh still raises
-    [{"mesh_devices": 2}, {"mesh": object()},
-     {"mesh_devices": 2, "plan_buckets": ((128, 128),)}],
+    # plan_buckets and the mesh are ported (tests/test_torch_plans.py,
+    # tests/test_torch_mesh.py); the observability knobs (item 19a) raise
+    [{"trace_path": "t.json"}, {"frame_records_path": "r.jsonl", "mesh_devices": 2},
+     {"heartbeat_s": 1.0, "plan_buckets": ((128, 128),)}],
 )
 def test_unported_knobs_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -215,7 +215,8 @@ def test_port_imports_neither_jax_nor_kcmc_tpu():
                 "utils.checkpoint", "utils.faults", "utils.dtypes", "obs.log",
                 "io.objectstore", "obs.latency", "utils.profiling", "analysis.roofline",
                 "selftest", "plans", "plans.buckets", "plans.cache", "plans.runtime",
-                "plans.plan", "analysis.sanitize", "obs.manifest"):
+                "plans.plan", "analysis.sanitize", "obs.manifest", "parallel",
+                "parallel.mesh", "parallel.sharded"):
         assert "kcmc_tpu_torch." + mod in names
     src = open(os.path.join(REPO, "chip_smoke.py")).read()
     assert "import jax" not in src and "from kcmc_tpu " not in src

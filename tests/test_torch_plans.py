@@ -159,8 +159,11 @@ def test_config_fields_carry_across_and_unsupported_names_only_meshes():
     assert cfg.plan_buckets == jcfg.plan_buckets == ((64, 64), (64, 80))
     assert cfg.compile_cache_dir == "/tmp/x"
     assert cfg.unsupported() == []
-    assert CorrectorConfig(mesh_devices=2).unsupported() == [
-        "mesh_devices (ROADMAP queue 1 item 17)"]
+    # the mesh is ported (tests/test_torch_mesh.py); nothing declared is
+    # left unsupported, and the unported trace knob raises on the way in
+    assert CorrectorConfig(mesh_devices=2).unsupported() == []
+    with pytest.raises(NotImplementedError, match="item 19a"):
+        config_from_dict(dataclasses.asdict(jcfg.replace(trace_path="/tmp/t.json")))
     kcmc_tpu_torch.MotionCorrector(device="cpu", plan_buckets=(64,))  # no longer raises
 
 
