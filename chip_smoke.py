@@ -242,7 +242,18 @@ port's TiffWriter, the scene x 40000; escalation off):
     within MESH_GAP_PX; launches per shard: K1, K2/K6 1 + 2 x 32, K3/K7
     2 x 64), a one-rank NCCL group (its gather and ring equal the
     input; a 32-frame sharded run under it) and mesh_devices beyond the
-    card count raising.
+    card count raising;
+26. e2e_obs: config 1 (1000 frames, float32) with trace_path,
+    frame_records_path and heartbeat_s=1.0 armed and off, as interleaved
+    pairs (on, off, off, on): equal sha256 and transforms, K1/K2/K3
+    33/33/64 each run, the frames/s of each pair and their spread; the
+    trace's dispatch_batch (32), upload.stage (31, on the upload
+    worker's track) and frames_done (32) counts beside the expected,
+    every name in obs/registry; 1000 records with header and summary;
+    timing["latency"] and timing["stage_mean_s"]; the heartbeat's beats
+    and no thread left; e2e_file's TIFF through a killed and resumed
+    correct_file with frame_records_path (one record per frame, one
+    kcmc_run_resume marker, e2e_file's sha256).
 
 Every e2e line of a 2D model carries `roofline`: analysis/roofline's
 binding resource and fraction of peak on this card's row, for the work
@@ -1529,7 +1540,7 @@ def phase_e2e_escalate(smi: str, model: str) -> dict:
     res, seconds, launches, warned = counted_run(mc, stack)
     err = transform_rmse(res.transforms, relative_transforms(gt), stack.shape[1:])
     B = mc.config.batch_size
-    at = res.timing["warp_escalated_at"]
+    at = res.escalated_at
     line = e2e_line(mc, smi, f"e2e_escalate_{model}", model, stack, res, seconds, launches,
                     "rmse_px", err, {
                         "warp_escalated": res.timing["warp_escalated"],
@@ -2081,7 +2092,7 @@ def phase_e2e_file(smi: str, tmp: str) -> dict:
         "frames_per_s": n / seconds, "correct_frames_per_s": n / mem_s,
         "repeat_frames_per_s": n / repeat_s, "no_output_frames_per_s": n / nowrite_s,
         **roofline(mc, n, stack.shape[1:], seconds, stack.dtype.itemsize),
-        "write_tif_s": write_s, "decoder": res.timing["decoder"],
+        "write_tif_s": write_s, "decoder": res.timing["feeder"]["decoder"],
         "decoder_build_s": decoder_build_s, "stalls_s": _stalls(res),
         "output_equal_to_correct": equal, "transforms_equal": same_transforms,
         "launches": launches, "robustness": robust,
@@ -2744,6 +2755,147 @@ def phase_e2e_overlap(smi: str, tmp: str) -> dict:
     return {**line, "launches": total}
 
 
+def _trace_counts(trace: dict) -> dict:
+    """Span, instant and counter counts of a Chrome trace, and the
+    thread each upload.stage span ran on."""
+    from collections import Counter
+
+    evs = trace["traceEvents"]
+    tracks = {e["tid"]: e["args"]["name"] for e in evs if e["ph"] == "M"}
+    return {"names": Counter(e["name"] for e in evs if e["ph"] != "M"),
+            "upload_tracks": sorted({tracks.get(e["tid"], "?") for e in evs
+                                     if e["name"] == "upload.stage"}),
+            "dispatch_tracks": sorted({tracks.get(e["tid"], "?") for e in evs
+                                       if e["name"] == "dispatch_batch"})}
+
+
+def phase_e2e_obs(smi: str, tmp: str) -> dict:
+    """The one-shot run's observability on config 1 (1000 frames of
+    512², float32, K=512, batch 32): correct() with trace_path,
+    frame_records_path and heartbeat_s=1.0 armed against the same run
+    with them off, as interleaved pairs (on, off, off, on), each with
+    the launch counters set to 0 just before it: equal sha256 and
+    transforms, K1/K2/K3 33/33/64 each way. The armed run's trace: 32
+    dispatch_batch spans, one upload.stage span per staged batch (the
+    reference's rule: every batch after the first, kcmc_tpu/corrector.py:
+    1690-1764) on the upload worker's own track, the stage spans, one
+    frames_done counter per drained batch, every name in
+    obs/registry.SPAN_NAMES; its records: 1000 records with the header
+    and the summary; timing["latency"] and timing["stage_mean_s"]; at
+    least one heartbeat and no kcmc-heartbeat thread after the run.
+    Then e2e_file's uint16 TIFF through correct_file with
+    frame_records_path, killed by device:step=20:fatal and resumed: one
+    record per frame behind a kcmc_run_resume marker, and e2e_file's
+    output sha256."""
+    import threading
+
+    from kcmc_tpu_torch import MotionCorrector
+    from kcmc_tpu_torch.obs import heartbeat, records, registry
+    from kcmc_tpu_torch.utils.faults import FatalFaultError
+    from kcmc_tpu_torch.utils.metrics import relative_transforms
+
+    trace_p, recs_p = os.path.join(tmp, "obs_trace.json"), os.path.join(tmp, "obs.jsonl")
+    obs = dict(trace_path=trace_p, frame_records_path=recs_p, heartbeat_s=1.0)
+    stack, gt, on = path_input("translation", 1000, **obs)
+    off = path_input("translation", 1000)[2]
+    beats = []
+    emit_beat = heartbeat._default_emit
+
+    def counting_emit(message):
+        beats.append(message)
+        emit_beat(message)
+
+    heartbeat._default_emit = counting_emit
+    runs = []
+    try:
+        for tag, mc in (("on", on), ("off", off), ("off", off), ("on", on)):
+            n_beats = len(beats)
+            res, seconds, launches, _ = counted_run(mc, stack)
+            check_launches(f"e2e_obs:{tag}", launches, WANT_LAUNCHES["translation"])
+            runs.append((tag, res, seconds, launches, len(beats) - n_beats))
+    finally:
+        heartbeat._default_emit = emit_beat
+    shas = {_digest(r.corrected) for _, r, *_ in runs}
+    same = len(shas) == 1 and all(np.array_equal(r.transforms, runs[0][1].transforms)
+                                   for _, r, *_ in runs)
+    fps = {t: [len(stack) / s for tag, _, s, *_ in runs if tag == t] for t in ("on", "off")}
+    spread = {t: (max(v) - min(v)) / min(v) for t, v in fps.items()}
+    res = runs[-1][1]  # the last armed run wrote the trace and the records
+    trace = json.load(open(trace_p))
+    tc = _trace_counts(trace)
+    names = tc["names"]
+    n_batches = -(-len(stack) // on.config.batch_size)
+    header, recs, summary = records.read_jsonl(recs_p)
+    leaked = [t.name for t in threading.enumerate() if t.name == "kcmc-heartbeat"]
+    # e2e_file's TIFF: killed at batch 20 and resumed, with the records
+    src = os.path.join(tmp, "config1.tif")
+    frecs, fout, fck = (os.path.join(tmp, f) for f in ("file.jsonl", "obs_out.tif",
+                                                         "obs.ckpt.npz"))
+    killer = MotionCorrector(model="translation", rescue_escalate=False,
+                             fault_plan="device:step=20:fatal", frame_records_path=frecs)
+    try:
+        killer.correct_file(src, output=fout, checkpoint=fck, checkpoint_every=256)
+        killed = False
+    except FatalFaultError:
+        killed = True
+    resumer = path_input("translation", 1000, frame_records_path=frecs)[2]
+    fres, fsec, flaunch, _ = file_run(resumer, src, output=fout, checkpoint=fck,
+                                      checkpoint_every=256)
+    _, frec, fsum = records.read_jsonl(frecs)
+    resume_markers = sum('"kind": "kcmc_run_resume"' in ln for ln in open(frecs))
+    file_sha_equal = _sha256(fout) == _sha256(os.path.join(tmp, "out.tif"))
+    expect = {"dispatch_batch": n_batches, "upload.stage": n_batches - 1,
+              "frames_done": n_batches}
+    line = {
+        "phase": "e2e_obs", "model": "translation", "frames": len(stack),
+        "outputs_equal": same, "sha256": sorted(shas)[0][:16],
+        "launches_each": {tag: {k: v for k, v in l.items() if v} for tag, _, _, l, _ in runs},
+        "frames_per_s": {"order": [t for t, *_ in runs], "on": fps["on"], "off": fps["off"],
+                         "on_over_off": float(np.mean(fps["on"]) / np.mean(fps["off"])),
+                         "spread": spread},
+        "rmse_px": _rmse(res, relative_transforms(gt), stack.shape[1:]),
+        "trace": {"spans": dict(sorted(names.items())), "expected": expect,
+                  "upload_tracks": tc["upload_tracks"],
+                  "dispatch_tracks": tc["dispatch_tracks"],
+                  "unregistered": sorted(set(names) - registry.SPAN_NAMES),
+                  "bytes": os.path.getsize(trace_p)},
+        "records": {"n": len(recs), "header": bool(header), "summary": summary is not None,
+                    "bytes": os.path.getsize(recs_p)},
+        "latency": res.timing.get("latency"), "stage_mean_s": res.timing["stage_mean_s"],
+        "heartbeat": {"beats_per_run": [b for tag, *_, b in runs], "leaked_threads": leaked,
+                      "last": beats[-1] if beats else None},
+        "file_resume": {"killed": killed, "restored_frames": fres.timing["restored_frames"],
+                        "records": len(frec), "frames_unique": len({r["frame"] for r in frec}),
+                        "resume_markers": resume_markers, "summary": fsum is not None,
+                        "sha256_equal_e2e_file": file_sha_equal, "launches": flaunch},
+        "card": smi,
+    }
+    emit(line)
+    _check_rmse("e2e_obs", line["rmse_px"])
+    got = {k: names.get(k, 0) for k in expect}
+    if not same or got != expect or line["trace"]["unregistered"]:
+        raise AssertionError(f"e2e_obs: outputs or trace wrong: {line}")
+    if not (tc["upload_tracks"] and all(t.startswith("kcmc-upload") for t in tc["upload_tracks"])
+            and tc["dispatch_tracks"] == ["MainThread"]):
+        raise AssertionError(f"e2e_obs: spans on the wrong tracks: {tc}")
+    if not {"prepare_reference", "register_batches", "drain_sync"} <= set(names):
+        raise AssertionError(f"e2e_obs: stage spans missing: {sorted(names)}")
+    if [r["frame"] for r in recs] != list(range(len(stack))) or not (header and summary):
+        raise AssertionError(f"e2e_obs: records {line['records']}")
+    totals = (res.timing.get("latency") or {}).get("totals", {})
+    if {k: v["count"] for k, v in totals.items()} != dict.fromkeys(
+            ("request.dispatch", "request.device", "request.drain"), len(stack)):
+        raise AssertionError(f"e2e_obs: latency {totals}")
+    if not all(b >= 1 for tag, *_, b in runs if tag == "on") or leaked or any(
+            b for tag, *_, b in runs if tag == "off"):
+        raise AssertionError(f"e2e_obs: heartbeat {line['heartbeat']}")
+    if not (killed and file_sha_equal and resume_markers == 1
+            and [r["frame"] for r in frec] == list(range(len(stack)))):
+        raise AssertionError(f"e2e_obs: file resume {line['file_resume']}")
+    total = {k: sum(l[k] for _, _, _, l, _ in runs) + flaunch[k] for k in ZERO}
+    return {**line, "launches": total}
+
+
 # A shard's transforms against the one-device run's. Translation holds
 # the reference's 1e-4 px. Homography's consensus on the card depends on
 # the batch it runs in (16-frame halves against the 32-frame batch: equal
@@ -3026,6 +3178,8 @@ def main() -> int:
         by_path["e2e_plans"] = phase_e2e_plans(smi, tmp)
         # the pipelined dispatch (queue 1 item 23), after e2e_file's TIFFs
         by_path["e2e_overlap"] = phase_e2e_overlap(smi, tmp)
+        # the one-shot run's observability (queue 1 item 19a)
+        by_path["e2e_obs"] = phase_e2e_obs(smi, tmp)
     # the frame-axis mesh (queue 1 item 17)
     by_path["e2e_mesh"] = phase_e2e_mesh(smi)
     for r in rows:

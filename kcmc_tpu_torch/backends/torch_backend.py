@@ -136,7 +136,7 @@ from kcmc_tpu_torch.parallel.sharded import (
     pad_reference_to_mesh,
 )
 from kcmc_tpu_torch.plans.plan import kernel_libraries
-from kcmc_tpu_torch.plans.runtime import PlanRuntime
+from kcmc_tpu_torch.plans.runtime import PlanRuntime, _live_tracers
 from kcmc_tpu_torch.utils import prng
 from kcmc_tpu_torch.utils.device import resolve_device, set_full_precision
 from kcmc_tpu_torch.utils.dtypes import int_clip_bounds
@@ -389,6 +389,42 @@ class TorchBackend:
         self._plan = PlanRuntime(config, backend_name=self.name, device=self.device,
                                  routing=plan_routing, mesh=self.mesh,
                                  libraries=lambda program: kernel_libraries(backend(), (program,)))
+
+    def runtime_info(self) -> dict:
+        """The execution environment for the run manifest
+        (obs/manifest.py; jax_backend.py:214): the backend, torch and
+        CUDA versions, the device and every device the batches go to
+        (the mesh's when sharded) with the card's name and compute
+        capability, the mesh and the shape buckets. Never raises."""
+        import platform
+
+        info: dict = {"backend": self.name, "torch": torch.__version__,
+                      "cuda": torch.version.cuda, "device": str(self.device)}
+        try:
+            devs = list(self.mesh) if self.mesh is not None else [self.device]
+            rows = []
+            for j, d in enumerate(devs):
+                row = {"id": d.index if d.index is not None else j,
+                       "platform": "gpu" if d.type == "cuda" else d.type}
+                if d.type == "cuda":
+                    row["kind"] = torch.cuda.get_device_name(d)
+                    row["capability"] = list(torch.cuda.get_device_capability(d))
+                else:
+                    row["kind"] = platform.processor() or platform.machine()
+                rows.append(row)
+            info["devices"] = rows
+            if self.mesh is not None:
+                info["mesh_shape"] = {"frames": len(self.mesh)}
+                info["mesh_devices"] = int(self.config.mesh_devices)
+            if self._plan.enabled:
+                info["plan"] = {
+                    "buckets": [list(b) for b in self._plan.buckets],
+                    "compile_cache_dir": self._plan.cache_dir,
+                    "rung": self._plan.rung,
+                }
+        except Exception:
+            pass
+        return info
 
     def plan_cache_stats(self) -> dict:
         """The execution-plan snapshot (routing counters, first builds,
@@ -817,6 +853,14 @@ class TorchBackend:
         if fn is None:
             fn = functools.partial(self._local_program, bucket, shape, seeded)
             if self.mesh is not None:
+                chunks = int(self.config.collective_chunks)
+                if chunks >= 2:
+                    # a host-side breadcrumb of the ring layout, one per
+                    # sharded-program build (jax_backend.py:880-900)
+                    for tr in _live_tracers():
+                        tr.instant("collective.chunk", args={
+                            "chunks": chunks, "devices": len(self.mesh),
+                            "shape": list(shape)})
                 fn = make_sharded_batch_fn(
                     fn, self.mesh,
                     extra_replicated=(2 if seeded else 0) + (1 if bucket is not None else 0),

@@ -2,17 +2,16 @@
 
 The fields the ported slices (translation, rigid, similarity, affine,
 homography, piecewise and rigid3d, single-scale or through the scale
-pyramid, with the options of `correct()`, and the retry, fault and
-file-streaming knobs of `correct_file()`) read, under the names and
+pyramid, with the options of `correct()`, the retry, fault and
+file-streaming knobs of `correct_file()`, and the observability knobs
+of a one-shot run) read, under the names and
 defaults of `kcmc_tpu.config.CorrectorConfig`, so a JAX config carries
 across with `config_from_dict(dataclasses.asdict(cfg))`. `plan_buckets`
 is normalized through plans/buckets.py, as the reference normalizes it.
 `config_from_dict` drops only the reference fields listed in
 `DROPPED_FIELDS`, each with the ROADMAP.md queue-1 item that will port
-it and why a one-shot run may ignore it; a non-default value of a field
-that would change what a one-shot run writes (`NOT_PORTED`) raises
-`NotImplementedError` naming its item, and a name no config has raises
-`TypeError`. Warp policies and knob values the reference
+it and why a one-shot run may ignore it, and a name no config has
+raises `TypeError`. Warp policies and knob values the reference
 rejects raise `ValueError` here with the reference's messages
 (kcmc_tpu/config.py:750-767, :976-985, :1018-1047).
 """
@@ -167,6 +166,28 @@ class CorrectorConfig:
     object_chunk_frames: int = 64
     object_part_bytes: int = 8 << 20
 
+    # observability (obs/): the Chrome trace-event JSON path (None =
+    # off; stages, stalls, dispatches, uploads and writer appends become
+    # spans, the run manifest rides in its metadata); the per-frame
+    # quality-record JSONL path (None = off; one JSON object per frame,
+    # written behind a background writer); the heartbeat period in
+    # seconds (0 = off; one progress line to stderr per period); and
+    # whether a run with any of them armed records the dispatch /
+    # device / drain latency segments into timing["latency"]
+    trace_path: str | None = None
+    frame_records_path: str | None = None
+    heartbeat_s: float = 0.0
+    latency_telemetry: bool = True
+
+    @property
+    def observability_enabled(self) -> bool:
+        """True when any obs surface is armed: the one gate both the
+        corrector (skip telemetry setup entirely) and
+        `RunTelemetry.begin` (return None) consult."""
+        return bool(
+            self.trace_path or self.frame_records_path or self.heartbeat_s > 0
+        )
+
     def __post_init__(self):
         if self.model not in MODELS:
             raise ValueError(
@@ -263,6 +284,11 @@ class CorrectorConfig:
                 f"monolithic all_gather), got {self.collective_chunks}"
             )
         self._check_robustness()
+        if self.heartbeat_s < 0:
+            raise ValueError(
+                f"heartbeat_s must be >= 0 seconds (0 = off), got "
+                f"{self.heartbeat_s}"
+            )
         object.__setattr__(self, "polish_grid", tuple(self.polish_grid))
         object.__setattr__(self, "patch_grid", tuple(self.patch_grid))
         # the bucket ladder in its canonical spelling, so the frozen
@@ -400,7 +426,9 @@ class CorrectorConfig:
 # for the fields the port declares): pinned to their defaults in
 # correct_file's resume signature, so changing them between a killed
 # run and its rerun resumes instead of restarting. `compile_cache_dir`
-# only changes when kernels build, never what a run computes.
+# only changes when kernels build, and the observability knobs only
+# record what ran, never what a run computes: a killed run rerun with a
+# trace added resumes.
 # `device_templates` and `plan_buckets` are deliberately not neutral.
 SIG_NEUTRAL_FIELDS = frozenset({
     "fault_plan", "retry_attempts", "retry_backoff_s", "retry_backoff_max_s",
@@ -408,6 +436,7 @@ SIG_NEUTRAL_FIELDS = frozenset({
     "object_timeout_s", "object_hedge_ms", "object_chunk_frames", "object_part_bytes",
     "writer_depth", "io_workers", "io_prefetch",
     "mesh_devices", "collective_chunks", "upload_overlap", "compile_cache_dir",
+    "trace_path", "frame_records_path", "heartbeat_s", "latency_telemetry",
 })
 
 # Reference fields the port does not declare and a one-shot, single-
@@ -423,43 +452,24 @@ DROPPED_FIELDS = {
         "serve_latency_starvation_limit", "fleet_probe_interval_s",
         "fleet_suspect_probes", "fleet_dead_probes", "fleet_wedge_threshold_s",
         "fleet_queue_watermark", "fleet_scale_cooldown_s")},
-    "trace_shard_dir": ("19a", "span shards of serve processes; one-shot runs write none"),
-    "trace_shard_cap": ("19a", "bounds the serve span shards only"),
-    "slo_objectives": ("19a", "burn rates of the serve plane only"),
-    "latency_telemetry": ("19a", "one-shot runs record latency only when a trace, "
-                                 "records or a heartbeat is armed, which raise here"),
+    "trace_shard_dir": ("19c", "span shards of serve processes; one-shot runs write none"),
+    "trace_shard_cap": ("19c", "bounds the serve span shards only"),
+    "slo_objectives": ("19c", "burn rates of the serve plane only"),
     "donate_buffers": ("none", "an XLA buffer-aliasing knob; it changes no value"),
     "autotune_tiles": ("none", "chooses among Pallas tilings; each hand kernel has one "
                                "tiling and the knob changes no value"),
 }
 
-# Reference fields that arm output a one-shot run writes (a trace, the
-# per-frame records, a heartbeat): a value other than the default raises
-# until the item is ported.
-NOT_PORTED = {
-    "trace_path": ("19a", None),
-    "frame_records_path": ("19a", None),
-    "heartbeat_s": ("19a", 0.0),
-}
-
 
 def port_fields(d: dict) -> dict:
     """The entries of `d` (reference field names) that the port declares.
-    The fields of `DROPPED_FIELDS` are dropped; a field of `NOT_PORTED`
-    set away from its default raises NotImplementedError naming its
-    ROADMAP.md queue-1 item; a name no config has raises TypeError."""
+    The fields of `DROPPED_FIELDS` are dropped; a name no config has
+    raises TypeError."""
     names = {f.name for f in dataclasses.fields(CorrectorConfig)}
     kept = {}
     for k, v in d.items():
         if k in names:
             kept[k] = v
-        elif k in NOT_PORTED:
-            item, default = NOT_PORTED[k]
-            if v != default:
-                raise NotImplementedError(
-                    f"{k}={v!r} is not ported yet (ROADMAP queue 1 item {item}): "
-                    "a run would write no trace, records or heartbeat"
-                )
         elif k not in DROPPED_FIELDS:
             raise TypeError(f"unknown config field {k!r}")
     return kept

@@ -41,6 +41,16 @@ failed and interpolated; any other error of the batch program raises
 (chunk reads retry OS-level I/O errors on their own surface).
 `apply_correction_file` streams a stored registration onto another file,
 and `common_valid_region` gives the crop every corrected frame covers.
+
+With `trace_path`, `frame_records_path` or `heartbeat_s` armed, both run
+methods carry a `RunTelemetry` (obs/run.py, kcmc_tpu/corrector.py:61,
+:841): stage, stall, dispatch, upload-staging and writer spans on a
+Chrome trace, one quality record per drained frame, a heartbeat thread,
+and the dispatch / device / drain latency segments in
+`timing["latency"]`. Spans are host spans around the asynchronous
+dispatch: no span, record or sample synchronizes the card or copies
+frames to the host; the card's time shows where the drain already
+waits (`drain_sync`).
 """
 
 from __future__ import annotations
@@ -81,6 +91,25 @@ _ROBUSTNESS_SIG_NEUTRAL = {
     for f in sorted(SIG_NEUTRAL_FIELDS)
 }
 
+def _telemetry_scope(fn):
+    """Guarantee RunTelemetry teardown for a public run method
+    (kcmc_tpu/corrector.py:61): on the error path the partial trace and
+    records flush with the failure recorded; on success
+    `finish(timing)` has already run and close() is a no-op."""
+
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        try:
+            return fn(self, *args, **kwargs)
+        finally:
+            t = getattr(self, "_telemetry", None)
+            if t is not None:
+                self._telemetry = None
+                t.close(sys.exc_info()[1])
+
+    return wrapper
+
+
 # The failover backends `failover_backend` may name: "numpy" (the
 # reference's name for its plain-numpy backend) is the same config on
 # the CPU, the kernels' plain versions; "torch" names the primary
@@ -94,8 +123,10 @@ class CorrectionResult:
     transforms: np.ndarray | None  # (T, 3, 3) ref -> frame maps ((T, 4, 4)
     # for rigid3d); None for piecewise
     diagnostics: dict  # per-frame arrays
-    timing: dict
+    timing: dict  # the reference's keys (obs/registry.py TIMING_KEYS)
     fields: np.ndarray | None = None  # (T, gh, gw, 2) for piecewise
+    # the first frame the exact-warp escalation took (None: none did)
+    escalated_at: int | None = None
 
 
 def _cast_output(arr: np.ndarray, dtype: np.dtype) -> np.ndarray:
@@ -589,6 +620,8 @@ class MotionCorrector:
         self._out_template = None
         self._failover_backend = None
         self._failover_ref = None
+        # armed by _begin_telemetry; None = everything off
+        self._telemetry = None
 
     def stream_view(self, reference=None, template_update_every: int | None = None,
                     template_update_alpha: float | None = None) -> MotionCorrector:
@@ -641,10 +674,33 @@ class MotionCorrector:
     def _plan_timing(self, timing: dict) -> None:
         """Attach the backend's plan-cache snapshot to a run's timing
         whenever execution plans are configured or any program was built
-        (corrector.py:824-837)."""
+        on the card (corrector.py:824-837). The CPU route compiles
+        nothing, like the reference's numpy backend, whose timing carries
+        no plan_cache either; its first runs stay counted in
+        `backend.plan_cache_stats()`."""
         stats = self.backend.plan_cache_stats()
-        if stats.get("enabled") or stats.get("programs_compiled"):
+        built = stats.get("programs_compiled") and self.backend.device.type == "cuda"
+        if stats.get("enabled") or built:
             timing["plan_cache"] = stats
+
+    # -- observability ---------------------------------------------------
+
+    def _begin_telemetry(self, timer: StageTimer, total: int | None = None):
+        """Arm the run's telemetry (tracer, frame records, heartbeat)
+        when any obs knob is set, else None (corrector.py:841). The
+        @_telemetry_scope decorator on the public run methods owns
+        teardown."""
+        cfg = self.config
+        if not cfg.observability_enabled:
+            self._telemetry = None
+            return None
+        from kcmc_tpu_torch.obs.run import RunTelemetry
+
+        self._telemetry = RunTelemetry.begin(
+            cfg, backend=self.backend, backend_name=self.backend_name, timer=timer,
+            report=self._robustness, total=total,
+        )
+        return self._telemetry
 
     def _reset_rescue_policy(self) -> None:
         """Out-of-bound telemetry, the escalation decision and the warm
@@ -1136,6 +1192,20 @@ class MotionCorrector:
             state["timer"] = timer
         timer = state["timer"]
         inflight = state["inflight"]
+        # obs seams (corrector.py:1645-1670): per-batch dispatch spans on
+        # the consumer's track, upload spans on the worker's, and the
+        # dispatch / device / drain latency segments; None when off
+        tracer = getattr(timer, "tracer", None)
+        tel = self._telemetry
+        lat = tel.latency if tel is not None else None
+        shard_args = None
+        if tracer is not None and self.backend.mesh is not None:
+            mesh = self.backend.mesh
+            shard_args = {
+                "shards": len(mesh),
+                "shard_devices": [d.index if d.index is not None else j
+                                  for j, d in enumerate(mesh)][:16],
+            }
         # the drain-time ladder re-runs a batch from its host frames
         keep_for_ladder = self._robust_active() and to_host and (keep_frames or emit_frames)
 
@@ -1152,8 +1222,18 @@ class MotionCorrector:
                 return None
             if state["uploader"] is None:
                 state["uploader"] = _UploadWorker()
-            return state["uploader"].submit(
-                functools.partial(backend.stage_upload, nxt_batch)), id(backend)
+            work = functools.partial(backend.stage_upload, nxt_batch)
+            if tracer is not None:
+                inner = work
+
+                def work():
+                    t0 = time.perf_counter()
+                    staged = inner()
+                    tracer.complete("upload.stage", t0, time.perf_counter() - t0,
+                                    cat="upload", args={"frames": int(nxt_batch.shape[0])})
+                    return staged
+
+            return state["uploader"].submit(work), id(backend)
 
         it = iter(batches)
         cur = next(it, None)
@@ -1186,6 +1266,7 @@ class MotionCorrector:
                     slot = stage_on(backend, cur[1])
                 step = plan.op_index("device") if plan is not None else None
                 state["frames"] += n
+                t_disp = time.perf_counter() if tracer is not None or lat is not None else 0.0
                 try:
                     if plan is not None:
                         plan.maybe_fail("device", step)
@@ -1210,11 +1291,22 @@ class MotionCorrector:
                     # the newest transform, still on the device, seeds
                     # the next batch's consensus
                     self._warm_seed = out["transform"][n - 1]
+                if tracer is not None:
+                    span_args = {"first_frame": int(idx[0]), "frames": int(n)}
+                    if shard_args is not None:
+                        span_args.update(shard_args)
+                        span_args["frames_per_shard"] = -(-len(idx) // shard_args["shards"])
+                    tracer.complete("dispatch_batch", t_disp, time.perf_counter() - t_disp,
+                                    cat="dispatch", args=span_args)
+                t_disp_done = 0.0
+                if lat is not None:
+                    t_disp_done = time.perf_counter()
+                    lat.observe("request.dispatch", t_disp_done - t_disp, n=n)
                 if on_dispatched is not None:
                     on_dispatched(n, out, idx)
                 # the staged tensor rides in the entry until its batch drains
                 inflight.append((n, out, kept, batch if keep_for_ladder else None, idx, step,
-                                 backend, seed, emit_frames, cast_dtype, ref,
+                                 backend, seed, emit_frames, cast_dtype, ref, t_disp_done,
                                  disp if disp is not batch else None))
                 if len(inflight) >= depth:
                     self._drain_entry(inflight.pop(0), drain, to_host, state)
@@ -1231,8 +1323,12 @@ class MotionCorrector:
         """Drain one in-flight batch (corrector.py:1925): its downloads
         are materialized here (the `drain_sync` stall), where a deferred
         device error surfaces and enters the degradation ladder against
-        the reference the batch was dispatched with."""
-        (n, out, kept, batch, idx, step, backend, seed, emit2, cast2, ref, _staged) = entry
+        the reference the batch was dispatched with. With latency
+        telemetry the device segment runs from the dispatch's return to
+        the materialized outputs, the drain segment over the callback
+        (corrector.py:1950-1962)."""
+        (n, out, kept, batch, idx, step, backend, seed, emit2, cast2, ref, t_disp_done,
+         _staged) = entry
         failed = False
         if to_host:
             timer = state["timer"]
@@ -1247,7 +1343,15 @@ class MotionCorrector:
                 kept = self._failed_kept(res, kept, failed)
         else:
             res = self._apply_out_options(dict(out), emit2)
-        drain(n, {k: v[:n] for k, v in res.items()}, kept, ref, failed)
+        tel = self._telemetry
+        lat = tel.latency if tel is not None else None
+        if lat is not None and t_disp_done:
+            t_host = time.perf_counter()
+            lat.observe("request.device", t_host - t_disp_done, n=n)
+            drain(n, {k: v[:n] for k, v in res.items()}, kept, ref, failed)
+            lat.observe("request.drain", time.perf_counter() - t_host, n=n)
+        else:
+            drain(n, {k: v[:n] for k, v in res.items()}, kept, ref, failed)
 
     @staticmethod
     def _failed_kept(out: dict, kept, failed: bool):
@@ -1272,6 +1376,7 @@ class MotionCorrector:
             "upload_waits": state["upload_waits"],
         }
 
+    @_telemetry_scope
     def correct(self, stack, start_frame: int = 0, end_frame: int | None = None,
                 progress: bool = False, device_outputs: bool = False,
                 output_dtype="float32") -> CorrectionResult:
@@ -1288,7 +1393,12 @@ class MotionCorrector:
         `output_dtype`: "float32", "input" (the stack's dtype; integers
         rounded and clipped) or a dtype. Every batch runs under the
         robustness ladder; `timing["robustness"]` counts its rungs, and
-        `diagnostics["frames_failed"]` marks frames it gave up on."""
+        `diagnostics["frames_failed"]` marks frames it gave up on.
+        `timing` carries the reference's keys (obs/registry.py
+        TIMING_KEYS): the StageTimer report, `warp_escalated`,
+        `pipeline`, `plan_cache`, `robustness` and, with telemetry
+        armed, `latency`; `escalated_at` is the first frame the
+        escalation backend took."""
         if not isinstance(stack, torch.Tensor):
             stack = np.asarray(stack)
         if stack.ndim not in (3, 4):
@@ -1304,13 +1414,17 @@ class MotionCorrector:
             raise ValueError("model='rigid3d' requires a (T, D, H, W) stack")
         cfg = self.config
         T = len(stack) if end_frame is None else min(end_frame, len(stack))
-        t0 = time.perf_counter()
         self._reset_rescue_policy()
         self._begin_robust_run()
-        ref_frame = self._select_reference(stack)
+        timer = StageTimer()
+        telemetry = self._begin_telemetry(timer, total=max(T - start_frame, 0))
+        with timer.stage("prepare_reference"):
+            ref_frame = self._select_reference(stack)
         if self.template_iters > 0:
-            ref_frame = self._refine_reference(stack, ref_frame)
-        ref = self.backend.prepare_reference(ref_frame)
+            with timer.stage("refine_template"):
+                ref_frame = self._refine_reference(stack, ref_frame)
+        with timer.stage("prepare_reference"):
+            ref = self.backend.prepare_reference(ref_frame)
         B = cfg.batch_size
         do_rescue = cfg.rescue_warp and not device_outputs
         out_dt = None if device_outputs else _resolve_dtype(output_dtype, _stack_dtype(stack))
@@ -1326,8 +1440,8 @@ class MotionCorrector:
         dev_tail: list[tuple] = []
         outs = []
         n_updates = 0
-        timer = StageTimer()
         state = self._new_dispatch_state()
+        rec_pos = [start_frame]  # global index of the next drained frame
 
         def batches(slo, shi):
             for lo in range(slo, shi, B):
@@ -1340,31 +1454,37 @@ class MotionCorrector:
             if do_rescue and batch is not None:
                 self._rescue_flagged(host, batch, n, eref)
             outs.append(host)
+            if telemetry is not None:
+                telemetry.note_batch(rec_pos[0], n, host, escalated=self._escalated)
+            rec_pos[0] += n
 
         def on_dispatched(n, out, idx):
             self._collect_tail(dev_tail, n, out, tail_window)
 
         try:
-            for si, (slo, shi) in enumerate(segs):
-                last = si == len(segs) - 1
-                # device templates keep the window in flight across the
-                # boundaries; the host blend needs the segment drained
-                self._dispatch_batches(
-                    batches(slo, shi), ref, drain, to_host=not device_outputs,
-                    keep_frames=do_rescue, on_dispatched=on_dispatched if dev_tmpl else None,
-                    cast_dtype=cast, state=state, flush=last or not dev_tmpl, timer=timer,
-                )
-                if not last:  # rolling template update
-                    W = min(self.template_window, shi - slo)
-                    n_updates += 1
-                    with timer.stall("template_update"):
-                        if dev_tmpl:
-                            ref = self._update_reference_device(ref, dev_tail, W)
-                            ref_frame = ref["frame"]
-                        else:
-                            tail_c, tail_ok = self._template_tail(outs, W)
-                            ref_frame = self._rolled_template(ref_frame, tail_c, tail_ok, W)
-                            ref = self.backend.prepare_reference(ref_frame)
+            with timer.stage("register_batches"):
+                for si, (slo, shi) in enumerate(segs):
+                    last = si == len(segs) - 1
+                    # device templates keep the window in flight across
+                    # the boundaries; the host blend needs the segment
+                    # drained
+                    self._dispatch_batches(
+                        batches(slo, shi), ref, drain, to_host=not device_outputs,
+                        keep_frames=do_rescue,
+                        on_dispatched=on_dispatched if dev_tmpl else None,
+                        cast_dtype=cast, state=state, flush=last or not dev_tmpl, timer=timer,
+                    )
+                    if not last:  # rolling template update
+                        W = min(self.template_window, shi - slo)
+                        n_updates += 1
+                        with timer.stall("template_update"):
+                            if dev_tmpl:
+                                ref = self._update_reference_device(ref, dev_tail, W)
+                                ref_frame = ref["frame"]
+                            else:
+                                tail_c, tail_ok = self._template_tail(outs, W)
+                                ref_frame = self._rolled_template(ref_frame, tail_c, tail_ok, W)
+                                ref = self.backend.prepare_reference(ref_frame)
         finally:
             self._close_dispatch(state)
         if device_outputs:
@@ -1375,31 +1495,26 @@ class MotionCorrector:
             cat = np.concatenate
             empty = np.empty((0,) + tuple(stack.shape[1:]), np.float32)
         merged = {k: cat([o[k] for o in outs]) for k in outs[0]} if outs else {}
-        seconds = time.perf_counter() - t0
         corrected = merged.pop("corrected", empty)
         if not device_outputs:
             corrected = _cast_output(corrected, out_dt)  # a no-op when cast on the card
         n_frames = max(T - start_frame, 0)
-        timing = {
-            "seconds": seconds,
-            "frames_per_sec": n_frames / seconds if seconds > 0 else None,
-            "device": str(self.backend.device),
-            "warp_escalated": self._escalated,
-            "warp_escalated_at": self._escalated_at,
-            "pipeline": self._pipeline_report(state, n_updates, dev_tmpl),
-        }
-        if timer.stalls:
-            timing["stalls_s"] = dict(timer.stalls)
-            timing["stall_counts"] = dict(timer.stall_counts)
+        timing = timer.report(n_frames=n_frames)
+        timing["warp_escalated"] = self._escalated
         self._plan_timing(timing)
+        timing["pipeline"] = self._pipeline_report(state, n_updates, dev_tmpl)
         fields = merged.pop("field", None)
         transforms = self._finalize_robustness(
             merged, merged.pop("transform", None), start_frame, n_frames, timing,
             host=not device_outputs,
         )
+        if telemetry is not None:
+            telemetry.finish(timing)
         return CorrectionResult(corrected=corrected, transforms=transforms,
-                                fields=fields, diagnostics=merged, timing=timing)
+                                fields=fields, diagnostics=merged, timing=timing,
+                                escalated_at=self._escalated_at)
 
+    @_telemetry_scope
     def correct_file(self, path, output: str | None = None, chunk_size: int | None = None,
                      compression: str = "none", progress: bool = False, n_threads: int = 0,
                      output_dtype="input", checkpoint: str | None = None,
@@ -1484,6 +1599,8 @@ class MotionCorrector:
         self._escalation_allowed = checkpoint is None
         self._begin_robust_run()
         timer = StageTimer()
+        telemetry = self._begin_telemetry(timer)
+        tracer = telemetry.tracer if telemetry is not None else None
 
         with open_stack(path, n_threads=n_threads if n_threads else cfg.io_workers,
                         **(reader_options or {})) as ts:
@@ -1492,8 +1609,10 @@ class MotionCorrector:
                 # io retry policy (deadline-capped), retry/quarantine
                 # accounting and the hedge knobs
                 ts.arm(fault_plan=self._fault_plan, retry=self._io_retry_policy,
-                       report=self._robustness, hedge_ms=cfg.object_hedge_ms,
+                       report=self._robustness, tracer=tracer, hedge_ms=cfg.object_hedge_ms,
                        timeout_s=cfg.object_timeout_s)
+            if telemetry is not None:
+                telemetry.set_total(len(ts))
             decoder = getattr(ts, "backend", type(ts).__name__)  # which decode ran
             want = 3 if cfg.model == "rigid3d" else 2
             if len(ts.frame_shape) != want:
@@ -1541,6 +1660,7 @@ class MotionCorrector:
                     "fault_plan": self._fault_plan,
                     "retry": default_io_retry_policy(cfg, seed_offset=2),
                     "report": self._robustness,
+                    "tracer": tracer,
                 }
             if checkpoint is not None:
                 # everything that changes the results or the output file;
@@ -1599,8 +1719,10 @@ class MotionCorrector:
                 )
             if writer is not None and cfg.writer_depth > 0:
                 # checkpoint saves flush it to the durable mark first
-                writer = AsyncBatchWriter(writer, depth=cfg.writer_depth)
+                writer = AsyncBatchWriter(writer, depth=cfg.writer_depth, tracer=tracer)
             restored = start
+            if telemetry is not None and start > 0:
+                telemetry.resumed(start)
             cursor = {"done": start, "saved": start, "part": n_parts,
                       "seg_saved": len(outs), "history": part_history}
             roll = self.template_update_every > 0
@@ -1641,6 +1763,8 @@ class MotionCorrector:
                     cursor["part"] += 1
                 cursor["seg_saved"] = len(outs)
                 cursor["saved"] = cursor["done"]
+                if telemetry is not None:
+                    telemetry.checkpoint_saved(cursor["done"])
 
             def drain(n, host, batch, eref, failed):
                 tail_src = host
@@ -1674,6 +1798,8 @@ class MotionCorrector:
                 elif corrected is not None and emit_frames:
                     host["corrected"] = corrected
                 outs.append(host)
+                if telemetry is not None:
+                    telemetry.note_batch(cursor["done"], n, host, escalated=self._escalated)
                 cursor["done"] += n
                 # rolling runs save mid-segment only outside the next
                 # boundary's averaging window (a resume inside it could
@@ -1734,7 +1860,8 @@ class MotionCorrector:
                                 io_workers=io_workers,
                                 source_path=(path if isinstance(path, (str, os.PathLike))
                                              else None),
-                                reader_options=reader_options, stats=feed_stats,
+                                reader_options=reader_options, tracer=tracer,
+                                stats=feed_stats,
                             )
                             batch_gen = batches(loader)
                             try:
@@ -1791,19 +1918,16 @@ class MotionCorrector:
         corrected = merged.pop("corrected", np.empty((0,) + tuple(ts.frame_shape), np.float32))
         if isinstance(writer, AsyncBatchWriter):
             wst = writer.stats()
+            # trace=False: the writer traced each backpressure and flush
+            # wait at source; these are totals only
             timer.add_stall("writer_backpressure", wst["backpressure_s"],
-                            count=int(wst["batches"]))
-            timer.add_stall("writer_flush", wst["flush_s"])
+                            count=int(wst["batches"]), trace=False)
+            timer.add_stall("writer_flush", wst["flush_s"], trace=False)
         # frames/s over the frames this run registered, not the restored
         timing = timer.report(n_frames=cursor["done"] - restored)
-        timing.update({
-            "device": str(self.backend.device),
-            "decoder": decoder,
-            "warp_escalated": self._escalated,
-            "warp_escalated_at": self._escalated_at,
-            "pipeline": self._pipeline_report(dp_state, n_updates, dev_tmpl),
-        })
+        timing["warp_escalated"] = self._escalated
         self._plan_timing(timing)
+        timing["pipeline"] = self._pipeline_report(dp_state, n_updates, dev_tmpl)
         obj_stats = {}
         if isinstance(ts, objectstore.ObjectStack):
             # ingest counters (hedges, retries, throttles, live p95),
@@ -1813,7 +1937,9 @@ class MotionCorrector:
             obj_stats["egress"] = objectstore.stats_snapshot(str(output))
         if feed_stats.get("chunks") or obj_stats:
             feed_stats.pop("single_core_advised", None)
-            timing["feeder"] = dict(feed_stats, prefetch_chunks=feed_prefetch)
+            # `decoder`: which decode ran (the native TIFF decoder or a
+            # reader class)
+            timing["feeder"] = dict(feed_stats, prefetch_chunks=feed_prefetch, decoder=decoder)
             if obj_stats:
                 timing["feeder"]["object"] = obj_stats
         if checkpoint is not None:
@@ -1821,6 +1947,8 @@ class MotionCorrector:
         transforms = self._finalize_robustness(
             merged, merged.pop("transform", None), 0, cursor["done"], timing
         )
+        if telemetry is not None:
+            telemetry.finish(timing)
         return CorrectionResult(corrected=corrected, transforms=transforms,
                                 fields=merged.pop("field", None), diagnostics=merged,
-                                timing=timing)
+                                timing=timing, escalated_at=self._escalated_at)

@@ -30,12 +30,16 @@ import time
 
 class AsyncBatchWriter:
     """Wrap a streaming writer with a depth-bounded background append
-    queue. `depth` is the maximum number of batches in flight (>= 1)."""
+    queue. `depth` is the maximum number of batches in flight (>= 1).
+    `tracer` (an obs.trace.Tracer, optional) records each worker-side
+    append and consumer-side backpressure/flush wait as spans — the
+    writer thread shows up as its own track in the exported trace."""
 
-    def __init__(self, writer, depth: int = 2):
+    def __init__(self, writer, depth: int = 2, tracer=None):
         if depth < 1:
             raise ValueError(f"AsyncBatchWriter depth must be >= 1, got {depth}")
         self.writer = writer
+        self._tracer = tracer
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._exc: BaseException | None = None
         self._exc_lock = threading.Lock()
@@ -78,6 +82,12 @@ class AsyncBatchWriter:
                     with self._stats_lock:
                         self._stats["write_s"] += dt
                         self._stats["batches"] += 1
+                        batches = self._stats["batches"]
+                    if self._tracer is not None:
+                        self._tracer.complete(
+                            "writer.append_batch", t0, dt, cat="writer",
+                            args={"batch": batches},
+                        )
                 except BaseException as e:  # surfaced on the consumer
                     with self._exc_lock:
                         self._exc = e
@@ -115,6 +125,10 @@ class AsyncBatchWriter:
                 dt = time.perf_counter() - t0
                 with self._stats_lock:
                     self._stats["backpressure_s"] += dt
+                if self._tracer is not None:
+                    self._tracer.complete(
+                        "writer.backpressure", t0, dt, cat="stall"
+                    )
         # re-check AFTER enqueuing so a worker failure surfaces at most
         # one append late, not only at close
         self._check()
@@ -128,6 +142,8 @@ class AsyncBatchWriter:
         dt = time.perf_counter() - t0
         with self._stats_lock:
             self._stats["flush_s"] += dt
+        if self._tracer is not None and dt > 0:
+            self._tracer.complete("writer.flush", t0, dt, cat="stall")
         self._check()
 
     def checkpoint_state(self) -> dict:

@@ -304,6 +304,7 @@ def pooled_chunks(
     retry=None,
     report=None,
     on_wait=None,
+    tracer=None,
     stats: dict | None = None,
 ):
     """Yield (lo, hi, frames) chunks in order, decoded by `pool`.
@@ -317,6 +318,7 @@ def pooled_chunks(
     the policy's attempt budget with backoff, counting
     `report.io_retries`. `on_wait(seconds)` fires when the consumer
     actually blocked on the head chunk (the `prefetch_wait` stall).
+    `tracer` records one `feeder.decode` span per chunk.
 
     `retry` is a utils/faults.RetryPolicy, the string ``"default"``
     (resolved through `utils.faults.default_io_retry_policy` — THE
@@ -423,6 +425,14 @@ def pooled_chunks(
                     ):
                         last_futs = [pool.submit(spec, a, b) for a, b in spans]
             frames = parts[0] if len(parts) == 1 else np.concatenate(parts)
+            if tracer is not None:
+                tracer.complete(
+                    "feeder.decode",
+                    t_sub,
+                    time.perf_counter() - t_sub,
+                    cat="feeder",
+                    args={"lo": int(lo), "hi": int(hi), "spans": len(spans)},
+                )
             if stats is not None:
                 stats["frames"] += int(hi - lo)
             yield lo, hi, frames

@@ -611,6 +611,7 @@ class ObjectStack:
         self._client = client if client is not None else client_for_url(url)
         self._retry = default_io_retry_policy(None)
         self._report = None
+        self._tracer = None
         self._hedge_ms = _DEFAULT_HEDGE_MS
         self._timeout_s = _DEFAULT_TIMEOUT_S
         # pooled workers reopen from the spec: arm the env-var plan so
@@ -636,6 +637,7 @@ class ObjectStack:
         fault_plan=None,
         retry=None,
         report=None,
+        tracer=None,
         hedge_ms: float | None = None,
         timeout_s: float | None = None,
     ) -> "ObjectStack":
@@ -647,6 +649,8 @@ class ObjectStack:
             self._retry = retry
         if report is not None:
             self._report = report
+        if tracer is not None:
+            self._tracer = tracer
         if hedge_ms is not None:
             self._hedge_ms = float(hedge_ms)
         if timeout_s is not None:
@@ -828,6 +832,7 @@ class ObjectStack:
         raise AssertionError("unreachable")  # loop always returns/raises
 
     def read(self, lo: int, hi: int) -> np.ndarray:
+        t0 = time.perf_counter()
         lo, hi = max(0, int(lo)), min(self._n, int(hi))
         n = max(0, hi - lo)
         out = np.empty((n,) + tuple(self.frame_shape), self.dtype)
@@ -867,6 +872,14 @@ class ObjectStack:
                 )
             out[clo - lo : chi - lo] = frames
         self._maybe_advise()
+        if self._tracer is not None:
+            self._tracer.complete(
+                "object.get",
+                t0,
+                time.perf_counter() - t0,
+                cat="object",
+                args={"lo": int(lo), "hi": int(hi)},
+            )
         return out
 
     def close(self) -> None:
@@ -918,6 +931,7 @@ class ObjectStoreWriter:
         fault_plan=None,
         retry=None,
         report=None,
+        tracer=None,
     ):
         if compression not in ("none", "deflate"):
             raise ValueError(
@@ -935,6 +949,7 @@ class ObjectStoreWriter:
         self.part_bytes = max(1, int(part_bytes))
         self._retry = retry if retry is not None else default_io_retry_policy(None)
         self._report = report
+        self._tracer = tracer
         # fresh construction = fresh run (the ZarrWriter contract):
         # drop stale chunks/manifests from a previous run at this URL
         for key in self._client.list(""):
@@ -964,6 +979,7 @@ class ObjectStoreWriter:
         attempts = policy.attempts if policy is not None else 1
         want, deadline = sha256_hex(blob), self._deadline()
         client = self._client
+        t0 = time.perf_counter()
         for attempt in range(attempts):
             try:
                 if len(blob) > self.part_bytes:
@@ -994,6 +1010,14 @@ class ObjectStoreWriter:
                 st = _url_state(self.path)
                 with _STATE_LOCK:
                     st["stats"]["puts"] += 1
+                if self._tracer is not None:
+                    self._tracer.complete(
+                        "object.put",
+                        t0,
+                        time.perf_counter() - t0,
+                        cat="object",
+                        args={"key": key, "bytes": len(blob)},
+                    )
                 return etag
             except Exception as e:
                 if isinstance(e, ObjectStoreThrottled):
@@ -1152,6 +1176,7 @@ class ObjectStoreWriter:
         self.part_bytes = max(1, int(opts.get("part_bytes", _DEFAULT_PART_BYTES)))
         self._retry = retry
         self._report = report
+        self._tracer = opts.get("tracer")
         self._last_manifest = None
         deadline = getattr(retry, "deadline_s", None) or _DEFAULT_TIMEOUT_S
         # verify every chunk at rest below the cursor; reload the

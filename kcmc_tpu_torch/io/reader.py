@@ -58,7 +58,8 @@ class ChunkedStackLoader:
     `feeder.shared_pool`) to reuse warm workers across loaders, and
     `source_path`/`reader_options` when `source` is an already-open
     reader so workers can reopen it (paths passed AS `source` respec
-    themselves). `stats` (a dict) accumulates feeder counters in place.
+    themselves). `tracer` records one `feeder.decode` span per pooled
+    chunk; `stats` (a dict) accumulates feeder counters in place.
     """
 
     def __init__(
@@ -77,6 +78,7 @@ class ChunkedStackLoader:
         pool=None,
         source_path=None,
         reader_options: dict | None = None,
+        tracer=None,
         stats: dict | None = None,
     ):
         self._own = False
@@ -100,6 +102,7 @@ class ChunkedStackLoader:
         self._retry = retry
         self._report = report
         self._on_wait = on_wait
+        self._tracer = tracer
         self.stats = stats if stats is not None else {}
         self._pool = None
         self._spec = None
@@ -201,6 +204,7 @@ class ChunkedStackLoader:
                 retry=self._retry,
                 report=self._report,
                 on_wait=self._on_wait,
+                tracer=self._tracer,
                 stats=self.stats,
             )
             return
@@ -250,6 +254,13 @@ class ChunkedStackLoader:
                     # the exception object still carries the producer-
                     # side traceback; raising appends the consumer frame
                     raise item
+                # the feeder counters of the prefetch-thread flavor
+                # (one span per chunk), counted on the consumer
+                st = self.stats
+                st.setdefault("mode", "prefetch")
+                st.setdefault("workers", 1)
+                for k, v in (("chunks", 1), ("spans", 1), ("frames", item[1] - item[0])):
+                    st[k] = st.get(k, 0) + int(v)
                 yield item
         finally:
             stop_flag.set()

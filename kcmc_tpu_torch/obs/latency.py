@@ -1,6 +1,6 @@
 """Request-latency telemetry: mergeable log-bucket histograms (the
-port's copy of `LatencyHistogram` and `merge_histograms` from
-kcmc_tpu/obs/latency.py).
+port's copy of `LatencyHistogram`, `merge_histograms` and
+`SegmentLatencies` from kcmc_tpu/obs/latency.py).
 
 `LatencyHistogram` is a fixed log-scale-bucket histogram: bucket edges
 are a deterministic integer-nanosecond geometric ladder (2^(1/4)
@@ -14,6 +14,12 @@ its live p95.
 Quantiles are estimated at the geometric midpoint of the covering
 bucket: with 2^(1/4) ≈ 1.19 bucket spacing the relative error of any
 reported percentile is bounded by 2^(1/8) - 1 ≈ 9%.
+
+`SegmentLatencies` is a thread-safe recorder keyed by (lifecycle
+segment, QoS rung); a one-shot run with telemetry armed records the
+`request.dispatch` / `request.device` / `request.drain` subset of the
+reference's serve vocabulary into it (corrector._dispatch_batches), and
+`RunTelemetry.finish` reports it as `timing["latency"]`.
 
 Stdlib only: decode-pool workers that open object-store sources import
 it without torch.
@@ -43,6 +49,10 @@ _EDGES_NS: tuple[int, ...] = tuple(
 _N_BUCKETS = len(_EDGES_NS) + 1  # + overflow
 
 _SCHEME = {"t0_ns": T0_NS, "per_octave": PER_OCTAVE, "octaves": N_OCTAVES}
+
+# The QoS rung a record lands under when the caller doesn't say:
+# dispatches at full consensus budgets.
+DEFAULT_RUNG = "full"
 
 
 class LatencyHistogram:
@@ -184,3 +194,92 @@ def merge_histograms(*hists: LatencyHistogram) -> LatencyHistogram:
     for h in hists:
         out.merge(h)
     return out
+
+
+class SegmentLatencies:
+    """Thread-safe latency recorder keyed by (segment, QoS rung).
+
+    One lock guards the key map and every record — records are
+    tens-per-batch integer adds, never per-pixel. Segment names at
+    `observe` call sites are literals from `obs/registry.py`.
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._hists: dict[tuple[str, str], LatencyHistogram] = {}
+
+    def observe(
+        self, segment: str, seconds: float, n: int = 1,
+        rung: str = DEFAULT_RUNG,
+    ) -> None:
+        key = (segment, rung)
+        with self._lock:
+            h = self._hists.get(key)
+            if h is None:
+                h = self._hists[key] = LatencyHistogram()
+            h.record(seconds, n=n)
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return sum(h.count for h in self._hists.values())
+
+    # -- merge / snapshot --------------------------------------------------
+
+    def _snapshot(self) -> dict[tuple[str, str], LatencyHistogram]:
+        with self._lock:
+            return {k: h.clone() for k, h in self._hists.items()}
+
+    def merge_from(self, other: "SegmentLatencies") -> "SegmentLatencies":
+        """Fold `other`'s histograms into self, exactly. Snapshots
+        `other` under its own lock first, so the two locks are never
+        held together."""
+        snap = other._snapshot()
+        with self._lock:
+            for key, h in snap.items():
+                mine = self._hists.get(key)
+                if mine is None:
+                    self._hists[key] = h
+                else:
+                    mine.merge(h)
+        return self
+
+    def segment_total(self, segment: str) -> LatencyHistogram:
+        """All rungs of one segment merged (exact)."""
+        with self._lock:
+            hists = [
+                h.clone()
+                for (seg, _), h in self._hists.items()
+                if seg == segment
+            ]
+        return merge_histograms(*hists)
+
+    # -- export ------------------------------------------------------------
+
+    def report(self) -> dict:
+        """The shared latency-section schema:
+        ``{"segments": {segment: {rung: summary}},
+        "totals": {segment: summary}}`` — `totals` merges a segment's
+        rungs. Deterministically ordered."""
+        snap = self._snapshot()
+        segments: dict = {}
+        totals: dict[str, LatencyHistogram] = {}
+        for (seg, rung) in sorted(snap):
+            h = snap[(seg, rung)]
+            segments.setdefault(seg, {})[rung] = h.summary()
+            t = totals.get(seg)
+            totals[seg] = h.clone() if t is None else t.merge(h)
+        return {
+            "segments": segments,
+            "totals": {seg: totals[seg].summary() for seg in sorted(totals)},
+        }
+
+    def hist_dicts(self) -> dict:
+        """Full bucket state per (segment, rung) —
+        ``{segment: {rung: LatencyHistogram.to_dict()}}`` — the
+        exact-merge transport."""
+        snap = self._snapshot()
+        out: dict = {}
+        for (seg, rung) in sorted(snap):
+            out.setdefault(seg, {})[rung] = snap[(seg, rung)].to_dict()
+        return out

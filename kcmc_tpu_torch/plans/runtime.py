@@ -11,9 +11,13 @@ One instance rides on every TorchBackend. It owns:
 * build accounting: every program's first run per (program, shape,
   dtype, rung) goes through `timed()`, which (with a persistent cache)
   checks and writes plan stamps (a hit only when the program's kernel
-  libraries were already in the cache directory), updates the counters, notes the build for the retrace sentinel
-  (analysis/sanitize.py) and opens a profiler range (`kcmc.plan_build`
-  inside an ExecutionPlan build, `kcmc.jit_compile` otherwise);
+  libraries were already in the cache directory), updates the counters,
+  notes the build for the retrace sentinel (analysis/sanitize.py), opens
+  a profiler range (`kcmc.plan_build` inside an ExecutionPlan build,
+  `kcmc.jit_compile` otherwise) and emits the `plan_build` /
+  `jit_compile` span plus a `plan_cache_hit` / `plan_cache_miss`
+  instant to every registered tracer (obs/run.py registers the run's
+  Tracer while a traced run is live);
 * the bucket-routing counters (`bucket_exact` / `bucket_padded` /
   `bucket_fallback`), one count per dispatched batch.
 
@@ -35,12 +39,39 @@ from kcmc_tpu_torch.ops import cuda_build
 from kcmc_tpu_torch.plans.buckets import normalize_buckets, route_shape
 from kcmc_tpu_torch.plans.cache import PlanCache, enable_compile_cache
 
+# -- tracer listeners ------------------------------------------------------
+# Registered by RunTelemetry while a traced run is live; build events
+# from any thread become spans on the live trace. Module-level because
+# builds happen below the level where a run's telemetry handle is
+# visible.
+_LISTENER_LOCK = threading.Lock()
+_TRACERS: list = []
+
 _EVENT_CAP = 128  # bounded per-backend event history in stats()
 
 _CODE_FPR: str | None = None  # process-wide source fingerprint (lazy)
 
 _MATRIX_MODELS = ("translation", "rigid", "similarity", "affine", "homography")
 _SOURCE_SUFFIXES = (".py", ".cu", ".cuh", ".cpp")
+
+
+def add_tracer(tracer) -> None:
+    with _LISTENER_LOCK:
+        if tracer not in _TRACERS:
+            _TRACERS.append(tracer)
+
+
+def discard_tracer(tracer) -> None:
+    with _LISTENER_LOCK:
+        try:
+            _TRACERS.remove(tracer)
+        except ValueError:
+            pass
+
+
+def _live_tracers() -> list:
+    with _LISTENER_LOCK:
+        return list(_TRACERS)
 
 
 def resolve_cache_dir(config) -> str | None:
@@ -266,6 +297,17 @@ class PlanRuntime:
             rung=self.rung,
             during_build=self.building,
         )
+        for tracer in _live_tracers():
+            try:
+                tracer.complete(span, t0, dur, cat="plan", args=event)
+                if persistent:
+                    tracer.instant(
+                        "plan_cache_hit" if hit else "plan_cache_miss",
+                        cat="plan",
+                        args={"program": program, "key": stamp_key},
+                    )
+            except Exception:
+                pass
         if persistent and not hit:
             self.cache.stamp(stamp_key, dict(event, key=stamp_key,
                                              config_sha256=self.config_sha(),

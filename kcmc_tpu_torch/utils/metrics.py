@@ -118,12 +118,17 @@ class StageTimer:
     (`writer_backpressure`), flushing it for a checkpoint
     (`writer_flush`), or updating the rolling template at a segment
     boundary (`template_update`). Stalls happen inside the stages and
-    are reported separately as `stalls_s` / `stall_counts`."""
+    are reported separately as `stalls_s` / `stall_counts`
+    (kcmc_tpu/utils/metrics.py:211-272)."""
 
     totals: dict = dataclasses.field(default_factory=dict)
     counts: dict = dataclasses.field(default_factory=dict)
     stalls: dict = dataclasses.field(default_factory=dict)
     stall_counts: dict = dataclasses.field(default_factory=dict)
+    # Optional obs.trace.Tracer: stage/stall intervals double as spans
+    # in the exported Chrome trace. None (the default) costs one
+    # attribute check per interval.
+    tracer: object = None
 
     @contextlib.contextmanager
     def stage(self, name: str):
@@ -134,6 +139,8 @@ class StageTimer:
             dt = time.perf_counter() - t0
             self.totals[name] = self.totals.get(name, 0.0) + dt
             self.counts[name] = self.counts.get(name, 0) + 1
+            if self.tracer is not None:
+                self.tracer.complete(name, t0, dt, cat="stage")
 
     @contextlib.contextmanager
     def stall(self, name: str):
@@ -142,12 +149,26 @@ class StageTimer:
         try:
             yield
         finally:
-            self.add_stall(name, time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            self.stalls[name] = self.stalls.get(name, 0.0) + dt
+            self.stall_counts[name] = self.stall_counts.get(name, 0) + 1
+            if self.tracer is not None:
+                self.tracer.complete(name, t0, dt, cat="stall")
 
-    def add_stall(self, name: str, seconds: float, count: int = 1) -> None:
-        """Accumulate stall seconds measured elsewhere."""
+    def add_stall(self, name: str, seconds: float, count: int = 1,
+                  trace: bool = True) -> None:
+        """Accumulate stall seconds measured elsewhere. With `trace`
+        (for a wait that just ended) an attached tracer gets a span
+        back-dated to end now; `trace=False` is for end-of-run
+        aggregates whose waits were already traced at source (the
+        background writer's own backpressure and flush spans)."""
         self.stalls[name] = self.stalls.get(name, 0.0) + float(seconds)
         self.stall_counts[name] = self.stall_counts.get(name, 0) + count
+        if trace and self.tracer is not None and seconds > 0:
+            self.tracer.complete(
+                name, time.perf_counter() - float(seconds), float(seconds),
+                cat="stall",
+            )
 
     @property
     def total_seconds(self) -> float:
@@ -157,6 +178,11 @@ class StageTimer:
         out = {
             "stages_s": dict(self.totals),
             "stage_counts": dict(self.counts),
+            "stage_mean_s": {
+                k: v / self.counts[k]
+                for k, v in self.totals.items()
+                if self.counts.get(k)
+            },
             "total_s": self.total_seconds,
         }
         if self.stalls:

@@ -279,15 +279,17 @@ def test_matrix_bounds_and_config_carry_across():
     "kw",
     [
         # plan_buckets and the mesh are ported (tests/test_torch_plans.py,
-        # tests/test_torch_mesh.py): the unported trace knobs raise
+        # tests/test_torch_mesh.py), and since item 19a so are the trace
+        # and heartbeat knobs, which raised here before
         {"model": "affine", "max_keypoints": 4096, "plan_buckets": ((128, 128),),
          "mesh_devices": 2, "trace_path": "run.trace.json"},
         {"model": "similarity", "max_keypoints": 4096, "heartbeat_s": 1.0},
     ],
 )
 def test_unported_affine_knobs_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kcmc_tpu_torch.MotionCorrector(device="cpu", **kw)
+    cfg = kcmc_tpu_torch.MotionCorrector(device="cpu", **kw).config
+    assert cfg.unsupported() == [] and cfg.observability_enabled
+    assert all(getattr(cfg, k) == v for k, v in kw.items())
 
 
 @pytest.mark.parametrize(

@@ -5,6 +5,7 @@ both correctors, the escalation end to end on a tiny stack, the knobs
 both packages reject."""
 
 import dataclasses
+import os
 import warnings
 
 import numpy as np
@@ -213,7 +214,7 @@ def test_escalation_end_to_end(escalation_runs):
     rescues stand."""
     stack, runs = escalation_runs
     res, msgs = runs["auto"]
-    assert res.timing["warp_escalated"] is True and res.timing["warp_escalated_at"] == 8
+    assert res.timing["warp_escalated"] is True and res.escalated_at == 8
     assert len(msgs) == 1 and "switching the remaining batches" in msgs[0]
     np.testing.assert_array_equal(res.diagnostics["warp_rescued"],
                                   [False, False] + [True] * 6 + [False] * 4)
@@ -228,7 +229,7 @@ def test_escalation_warn_only_and_warns(escalation_runs):
     end; the default run warns through warnings.warn as RuntimeWarning."""
     stack, runs = escalation_runs
     res, msgs = runs["warn_only"]
-    assert res.timing["warp_escalated"] is False and res.timing["warp_escalated_at"] is None
+    assert res.timing["warp_escalated"] is False and res.escalated_at is None
     assert len(msgs) == 1 and "Use warp='jnp'" in msgs[0]
     np.testing.assert_array_equal(res.diagnostics["warp_rescued"], [False, False] + [True] * 10)
     assert runs["jnp"][0].timing["warp_escalated"] is False and not runs["jnp"][1]
@@ -248,7 +249,7 @@ def test_policy_state_resets_per_correct(escalation_runs):
                                         reference=stack[0])
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        assert mc.correct(stack[2:]).timing["warp_escalated_at"] == 6
+        assert mc.correct(stack[2:]).escalated_at == 6
         res = mc.correct(stack[:2])
     assert res.timing["warp_escalated"] is False and mc._rescue_seen == 2
 
@@ -266,17 +267,33 @@ def test_step3_knobs_carry_across():
 @pytest.mark.parametrize("knob", [("trace_path", "/tmp/x.json"),
                                   ("frame_records_path", "/tmp/r.jsonl"),
                                   ("heartbeat_s", 1.0)], ids=lambda k: k[0])
-def test_fault_e_unported_observability_knobs_raise(knob):
-    """Queue 3 fault E: a reference config that arms a trace, per-frame
-    records or a heartbeat does not convert silently into a port config
-    that writes none of them; it raises naming item 19a, through
-    config_from_dict and through MotionCorrector's keywords alike."""
+def test_fault_e_unported_observability_knobs_raise(knob, tmp_path, monkeypatch):
+    """Queue 3 fault E, now that item 19a is ported: a reference config
+    that arms a trace, per-frame records or a heartbeat carries that
+    knob across, through config_from_dict and through MotionCorrector's
+    keywords alike, and a run arms its artifact (the trace file, the
+    records file, heartbeat lines) instead of silently writing none.
+    (Before the port these knobs raised NotImplementedError.)"""
+    from kcmc_tpu_torch.obs import heartbeat
+
     name, value = knob
+    if name != "heartbeat_s":
+        value = str(tmp_path / os.path.basename(value))
     jcfg = kcmc_tpu.CorrectorConfig(collective_chunks=4, **{name: value})
-    with pytest.raises(NotImplementedError, match="item 19a"):
-        kcmc_tpu_torch.config_from_dict(dataclasses.asdict(jcfg))
-    with pytest.raises(NotImplementedError, match="item 19a"):
-        kcmc_tpu_torch.MotionCorrector(device="cpu", **{name: value})
+    cfg = kcmc_tpu_torch.config_from_dict(dataclasses.asdict(jcfg))
+    assert getattr(cfg, name) == value and cfg.collective_chunks == 4
+    assert cfg.observability_enabled
+    lines = []
+    monkeypatch.setattr(heartbeat, "_default_emit", lines.append)
+    arm = {name: 0.01 if name == "heartbeat_s" else value}
+    mc = kcmc_tpu_torch.MotionCorrector(device="cpu", batch_size=4, max_keypoints=64, **arm)
+    stack = np.random.default_rng(0).random((8, 48, 48), np.float32)
+    mc.correct(stack)
+    assert mc._telemetry is None
+    if name == "heartbeat_s":
+        assert lines and "frames" in lines[-1]
+    else:
+        assert os.path.getsize(value) > 0
 
 
 def test_fault_e_only_the_named_fields_are_dropped():
@@ -284,11 +301,11 @@ def test_fault_e_only_the_named_fields_are_dropped():
     named table of dropped fields (each with its item and reason) and
     the three that raise; upload_overlap and collective_chunks carry
     across; a name no config has raises TypeError."""
-    from kcmc_tpu_torch.config import DROPPED_FIELDS, NOT_PORTED
+    from kcmc_tpu_torch.config import DROPPED_FIELDS
 
     ref = {f.name for f in dataclasses.fields(kcmc_tpu.CorrectorConfig)}
     port = {f.name for f in dataclasses.fields(kcmc_tpu_torch.CorrectorConfig)}
-    assert ref - port == set(DROPPED_FIELDS) | set(NOT_PORTED)
+    assert ref - port == set(DROPPED_FIELDS)
     assert all(item and reason for item, reason in DROPPED_FIELDS.values())
     jcfg = kcmc_tpu.CorrectorConfig(collective_chunks=4, upload_overlap=False, mesh_devices=2,
                                     serve_queue_depth=8, donate_buffers=False)

@@ -966,3 +966,35 @@ def test_mesh_shard_runs_on_its_own_device(cuda):
     assert np.abs(got.transforms - one.transforms).max() <= 1e-4
     for k in ("n_keypoints", "n_matches", "n_inliers", "warp_ok"):
         np.testing.assert_array_equal(got.diagnostics[k], one.diagnostics[k])
+
+
+def test_traced_run_on_card_leaves_outputs_and_launches_equal(cuda, tmp_path):
+    """Config 1 (512², K=512, batch 32), 64 frames, with trace_path,
+    frame_records_path and a heartbeat armed: the corrected frames'
+    sha256, the transforms and the kernel launches equal the untraced
+    run's (telemetry synchronizes nothing and launches nothing), and the
+    artifacts hold two dispatch_batch spans and 64 records."""
+    import hashlib
+    import json
+
+    from kcmc_tpu_torch.obs.records import read_jsonl
+
+    data = make_drift_stack(64, (512, 512), model="translation", seed=0)
+    got = {}
+    for tag, kw in (("off", {}), ("on", dict(trace_path=str(tmp_path / "t.json"),
+                                             frame_records_path=str(tmp_path / "r.jsonl"),
+                                             heartbeat_s=0.5))):
+        mc = MotionCorrector(model="translation", rescue_escalate=False, **kw)
+        mc.correct(data.stack[:32])  # the first builds, outside the counts
+        torch.cuda.synchronize()
+        mc.backend.reset_launch_counts()
+        res = mc.correct(data.stack)
+        torch.cuda.synchronize()
+        got[tag] = (hashlib.sha256(res.corrected.tobytes()).hexdigest(), res.transforms,
+                    mc.backend.launch_counts())
+    assert got["on"][0] == got["off"][0] and got["on"][2] == got["off"][2]
+    np.testing.assert_array_equal(got["on"][1], got["off"][1])
+    assert got["on"][2]["detect_response"] == 3 and got["on"][2]["warp_translation"] == 4
+    names = [e["name"] for e in json.load(open(tmp_path / "t.json"))["traceEvents"]]
+    assert names.count("dispatch_batch") == 2 and names.count("upload.stage") == 1
+    assert len(read_jsonl(str(tmp_path / "r.jsonl"))[1]) == 64

@@ -199,7 +199,7 @@ def test_dropped_slot_after_escalation_uploads_inline():
     mc._get_escalation_backend = esc
     with pytest.warns(RuntimeWarning, match="switching the remaining batches"):
         res = mc.correct(stack)
-    assert res.timing["warp_escalated_at"] == 8
+    assert res.escalated_at == 8
     # batch 4 was staged for the bounded backend: dropped, uploaded inline
     assert taken == ["ndarray"]
     assert res.timing["pipeline"]["upload_waits"] == 4

@@ -264,15 +264,17 @@ def test_piecewise_config_carries_across():
 @pytest.mark.parametrize(
     "kw",
     [
-        # the mesh is ported (tests/test_torch_mesh.py): the unported
-        # records and heartbeat knobs raise
+        # the mesh is ported (tests/test_torch_mesh.py), and since item
+        # 19a so are the records and heartbeat knobs, which raised here
+        # before: the corrector takes them with the model's other knobs
         {"model": "piecewise", "mesh_devices": 2, "frame_records_path": "r.jsonl"},
         {"model": "rigid", "plan_buckets": ((64, 64),), "heartbeat_s": 0.5},
     ],
 )
 def test_unported_knobs_still_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kcmc_tpu_torch.MotionCorrector(device="cpu", **kw)
+    cfg = kcmc_tpu_torch.MotionCorrector(device="cpu", **kw).config
+    assert cfg.unsupported() == [] and cfg.observability_enabled
+    assert all(getattr(cfg, k) == v for k, v in kw.items())
 
 
 @pytest.mark.parametrize(

@@ -136,13 +136,19 @@ def test_config_carries_across():
 @pytest.mark.parametrize(
     "kw",
     # plan_buckets and the mesh are ported (tests/test_torch_plans.py,
-    # tests/test_torch_mesh.py); the observability knobs (item 19a) raise
+    # tests/test_torch_mesh.py), and since item 19a so are the
+    # observability knobs, which raised here before: every declared
+    # knob is accepted and none is left unsupported
     [{"trace_path": "t.json"}, {"frame_records_path": "r.jsonl", "mesh_devices": 2},
      {"heartbeat_s": 1.0, "plan_buckets": ((128, 128),)}],
 )
 def test_unported_knobs_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kcmc_tpu_torch.MotionCorrector(device="cpu", **kw)
+    cfg = kcmc_tpu_torch.CorrectorConfig(**kw)
+    assert cfg.unsupported() == [] and cfg.observability_enabled
+    for k, v in kw.items():
+        assert getattr(cfg, k) == v
+    with pytest.raises(ValueError, match="heartbeat_s"):
+        kcmc_tpu_torch.CorrectorConfig(heartbeat_s=-1.0)
 
 
 @pytest.mark.parametrize(
@@ -216,7 +222,8 @@ def test_port_imports_neither_jax_nor_kcmc_tpu():
                 "io.objectstore", "obs.latency", "utils.profiling", "analysis.roofline",
                 "selftest", "plans", "plans.buckets", "plans.cache", "plans.runtime",
                 "plans.plan", "analysis.sanitize", "obs.manifest", "parallel",
-                "parallel.mesh", "parallel.sharded"):
+                "parallel.mesh", "parallel.sharded", "obs.registry", "obs.trace",
+                "obs.tracing", "obs.records", "obs.heartbeat", "obs.run", "obs.report"):
         assert "kcmc_tpu_torch." + mod in names
     src = open(os.path.join(REPO, "chip_smoke.py")).read()
     assert "import jax" not in src and "from kcmc_tpu " not in src

@@ -95,7 +95,7 @@ def test_correct_file_writes_correct_bytes(data, tmp_path):
     assert _digest(out) == _digest(str(tmp_path / "want.tif"))
     np.testing.assert_array_equal(res.transforms, data["mem"].transforms)
     assert res.corrected.shape == (0,) + SHAPE
-    assert res.timing["decoder"] == "native"
+    assert res.timing["feeder"]["decoder"] == "native"
     assert res.timing["robustness"]["faults_injected"] == 0
 
 
