@@ -77,11 +77,14 @@ line is printed:
      bit-identical at B=32, K=512, P=28 on (32, 540, 540) padded blur at
      the translation path's keypoint origins, and at K=13; K11's bytes
      count the union of the windows read;
-   - selftest: kcmc_tpu_torch.selftest in this process (each kernel
-     against its plain version at production sizes, the warps against
-     the gather on the frames they keep, the Hamming match against XOR +
+   - selftest: `python -m kcmc_tpu_torch selftest` in a child process
+     (started in phase 27, beside that phase's other children; its line
+     prints there), its stdout JSON summary read (each kernel against
+     its plain version at production sizes, the warps against the
+     gather on the frames they keep, the Hamming match against XOR +
      popcount, a rigid warp="auto" run against the gather warp); every
-     record printed, any record not ok fails the smoke;
+     record printed, any record not ok or a non-zero exit fails the
+     smoke;
 4. e2e: MotionCorrector(model="translation").correct() on a 1000-frame
    512x512 drift stack (config 1 of BASELINE.json), launch counters
    reset just before: transform RMSE <= 0.05 px, every frame warp_ok,
@@ -254,6 +257,17 @@ port's TiffWriter, the scene x 40000; escalation off):
     and no thread left; e2e_file's TIFF through a killed and resumed
     correct_file with frame_records_path (one record per frame, one
     kcmc_run_resume marker, e2e_file's sha256).
+27. e2e_cli: the command line on e2e_file's TIFF. `python -m
+    kcmc_tpu_torch info` in a child process; `correct -o --transforms`
+    through `main` in this process (launches, output sha256 and
+    transforms equal e2e_file's; frames/s beside e2e_file's, no claim);
+    `apply` of its npz and `stabilize --sigma 15` to float32 pages
+    (finite, their largest gap to correct -o printed) and `report` of
+    the npz (the stage table); meanwhile two `warmup --buckets 512
+    --compile-cache` children, cold then warm (stamp_misses 0), and
+    `sanitize -- python -m kcmc_tpu_torch correct` (exit 0, 0
+    violations, the runtime-only line naming item 22, transforms equal
+    the unsanitized run's), and the selftest child of phase 3.
 
 Every e2e line of a 2D model carries `roofline`: analysis/roofline's
 binding resource and fraction of peak on this card's row, for the work
@@ -2107,7 +2121,7 @@ def phase_e2e_file(smi: str, tmp: str) -> dict:
     check_launches("e2e_file", launches, WANT_LAUNCHES["translation"])
     if not (equal and same_transforms and killed and sha == sha2):
         raise AssertionError(f"e2e_file: {line}")
-    return line
+    return line, res.transforms
 
 
 def phase_e2e_file_twopass(smi: str, tmp: str) -> dict:
@@ -2401,12 +2415,9 @@ def _plan_child(mode: str, cache: str, tmp: str) -> dict:
     """One cold- or warm-start process; its record plus the wall time
     from its spawn to its first corrected batch."""
     out = os.path.join(tmp, f"plan_{mode}.json")
-    root = os.path.dirname(os.path.abspath(__file__))
-    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
-    env.pop("KCMC_COMPILE_CACHE", None)
     t0 = time.time()
-    proc = subprocess.run([sys.executable, "-c", PLAN_CHILD, mode, cache, out], cwd=root,
-                          env=env, capture_output=True, text=True, timeout=300)
+    proc = subprocess.run([sys.executable, "-c", PLAN_CHILD, mode, cache, out], cwd=_ROOT,
+                          env=_child_env(), capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
         raise AssertionError(f"e2e_plans: the {mode} process failed:\n{proc.stderr[-4000:]}")
     with open(out) as f:
@@ -2630,19 +2641,20 @@ def phase_e2e_plans(smi: str, tmp: str) -> dict:
     return line
 
 
-def phase_selftest(smi: str) -> dict:
-    """`python -m kcmc_tpu_torch.selftest` in this process: every record
-    printed; any record that is not ok fails the smoke."""
-    from kcmc_tpu_torch.selftest import run_selftest
-
-    t0 = time.perf_counter()
-    results = run_selftest()
+def phase_selftest(smi: str, tmp: str, proc: subprocess.Popen) -> dict:
+    """`python -m kcmc_tpu_torch selftest` in a child process (started by
+    `phase_e2e_cli` beside its other children, `_cli_child`): its stdout
+    is the JSON summary (the per-check lines go to its stderr); every
+    record printed, any record that is not ok, or a non-zero exit,
+    fails the smoke."""
+    rec = _cli_finish(tmp, proc, timeout=600)
+    summary = rec["json"]
+    results = summary["results"]
     bad = [r["name"] for r in results if not r["ok"]]
-    line = {"phase": "selftest", "seconds": time.perf_counter() - t0,
-            "passed": len(results) - len(bad), "failed": len(bad), "records": results,
-            "card": smi}
+    line = {"phase": "selftest", "seconds": rec["seconds"], "passed": summary["passed"],
+            "failed": summary["failed"], "records": results, "card": smi}
     emit(line)
-    if bad:
+    if bad or summary["failed"]:
         raise AssertionError(f"selftest: records not ok: {bad}")
     return line
 
@@ -2893,6 +2905,210 @@ def phase_e2e_obs(smi: str, tmp: str) -> dict:
             and [r["frame"] for r in frec] == list(range(len(stack)))):
         raise AssertionError(f"e2e_obs: file resume {line['file_resume']}")
     total = {k: sum(l[k] for _, _, _, l, _ in runs) + flaunch[k] for k in ZERO}
+    return {**line, "launches": total}
+
+
+_ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def _child_env() -> dict:
+    """A child process's environment: the checkout on its path, no
+    ambient compile cache and no armed sanitizer."""
+    env = {**os.environ, "PYTHONPATH": _ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    for k in ("KCMC_COMPILE_CACHE", "KCMC_SANITIZE", "KCMC_SANITIZE_STRICT"):
+        env.pop(k, None)
+    return env
+
+
+def _cli_child(tmp: str, tag: str, *args: str) -> subprocess.Popen:
+    """`python -m kcmc_tpu_torch ARGS` started in the background, its
+    stdout and stderr to files in `tmp`."""
+    out = open(os.path.join(tmp, f"cli_{tag}.out"), "w")
+    err = open(os.path.join(tmp, f"cli_{tag}.err"), "w")
+    proc = subprocess.Popen([sys.executable, "-m", "kcmc_tpu_torch", *args], cwd=_ROOT,
+                            env=_child_env(), stdout=out, stderr=err, text=True)
+    out.close()
+    err.close()
+    proc.tag, proc.t0 = tag, time.time()
+    return proc
+
+
+def _cli_finish(tmp: str, proc: subprocess.Popen, timeout: float = 300) -> dict:
+    """Wait for a `_cli_child`: its exit code (non-zero fails the
+    smoke), seconds from spawn to its last write (the child may have
+    ended well before this wait), stdout's last line as JSON (None when
+    it is not JSON) and stderr."""
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"e2e_cli: `{proc.tag}` ran past {timeout} s") from None
+    paths = [os.path.join(tmp, f"cli_{proc.tag}.{k}") for k in ("out", "err")]
+    seconds = max(os.path.getmtime(f) for f in paths) - proc.t0
+    out, err = (open(f).read() for f in paths)
+    if rc != 0:
+        raise AssertionError(f"e2e_cli: `{proc.tag}` exited {rc}:\n{err[-4000:]}")
+    try:
+        last = json.loads(out.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        last = None
+    return {"seconds": seconds, "json": last, "stdout": out, "stderr": err}
+
+
+def _cli_in_process(*argv: str) -> tuple[int, str, float]:
+    """The command line's `main(argv)` in this process with its stdout
+    captured; (exit code, stdout, seconds). The port's CLI logging is
+    undone after, so later phases see advisories as warnings again."""
+    import contextlib
+    import io
+
+    from kcmc_tpu_torch.__main__ import main
+    from kcmc_tpu_torch.obs.log import reset_cli_logging
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = main(list(argv))
+        torch.cuda.synchronize()
+    finally:
+        reset_cli_logging()
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def _page_stats(path: str, like: np.ndarray) -> dict:
+    """A float32 TIFF's shape, finiteness and largest difference from
+    `like` (correct -o's uint16 pages), read in 250-page chunks."""
+    from kcmc_tpu_torch.io.tiff import TiffStack
+
+    with TiffStack(path) as ts:
+        shape = list(ts.shape)
+        finite, gap = True, 0.0
+        for lo in range(0, ts.n_frames, 250):
+            a = ts.read(lo, lo + 250)
+            finite &= bool(np.isfinite(a).all())
+            gap = max(gap, float(np.abs(a - like[lo:lo + 250].astype(np.float32)).max()))
+    return {"shape": shape, "dtype": str(ts.dtype), "finite": finite, "max_abs_gap": gap}
+
+
+def phase_e2e_cli(smi: str, tmp: str, file_line: dict, file_transforms: np.ndarray) -> dict:
+    """The command line on e2e_file's config-1 TIFF (1000 uint16 frames
+    of 512²): `info` in a child process; `correct -o --transforms` in
+    this process under the launch counter (launches, output sha256 and
+    transforms equal e2e_file's, frames/s printed beside e2e_file's);
+    `apply` of its npz and `stabilize --sigma 15` (float32 pages:
+    finite, their largest gap to correct -o printed) and `report` of the
+    npz, while two children run: `warmup --buckets 512 --compile-cache`
+    cold and then warm (stamp_misses 0), and `sanitize -- python -m
+    kcmc_tpu_torch correct` (exit 0, 0 violations, the runtime-only line
+    naming item 22, transforms equal the unsanitized run's). The
+    selftest child runs beside them (`phase_selftest`)."""
+    from kcmc_tpu_torch.io.tiff import read_stack
+    from kcmc_tpu_torch.ops import cuda_build
+
+    t_phase = time.perf_counter()
+    src = os.path.join(tmp, "config1.tif")
+    out, npz, npz2 = (os.path.join(tmp, f) for f in ("cli_out.tif", "cli.npz", "cli_san.npz"))
+    cache = os.path.join(tmp, "cli_cache")
+    children = []
+    try:
+        children.append(_cli_child(tmp, "info", "info", src))  # no torch: light
+        cuda_build.reset_launches()
+        rc, stdout, seconds = _cli_in_process("correct", src, "-o", out, "--transforms", npz)
+        launches = cuda_build.launch_counts()
+        summary = json.loads(stdout.strip().splitlines()[-1])
+        info = _cli_finish(tmp, children[0])
+        # the kernel checks compare bits, so the selftest child runs here,
+        # beside the children below, not alone
+        children.append(_cli_child(tmp, "selftest", "selftest"))
+        selftest = children[-1]
+        children.append(_cli_child(tmp, "sanitize", "sanitize", "--", sys.executable, "-m",
+                                   "kcmc_tpu_torch", "correct", src, "--transforms", npz2))
+        san = children[-1]
+        children.append(_cli_child(tmp, "warmup_cold", "warmup", "--buckets", "512",
+                                   "--compile-cache", cache))
+        cold = children[-1]
+        # in this process meanwhile: apply, stabilize and report
+        cuda_build.reset_launches()
+        apply_rc, apply_out, apply_s = _cli_in_process(
+            "apply", src, npz, "-o", os.path.join(tmp, "cli_apply.tif"),
+            "--output-dtype", "float32")
+        apply_launches = cuda_build.launch_counts()
+        cuda_build.reset_launches()
+        stab_rc, stab_out, stab_s = _cli_in_process(
+            "stabilize", src, "-o", os.path.join(tmp, "cli_stab.tif"), "--sigma", "15",
+            "--output-dtype", "float32")
+        stab_launches = cuda_build.launch_counts()
+        report_rc, report_out, _ = _cli_in_process("report", npz)
+        corrected = read_stack(out)
+        pages = {"apply": _page_stats(os.path.join(tmp, "cli_apply.tif"), corrected),
+                 "stabilize": _page_stats(os.path.join(tmp, "cli_stab.tif"), corrected)}
+        cold_rec = _cli_finish(tmp, cold)
+        children.append(_cli_child(tmp, "warmup_warm", "warmup", "--buckets", "512",
+                                   "--compile-cache", cache))
+        warm_rec = _cli_finish(tmp, children[-1])
+        san_rec = _cli_finish(tmp, san)
+        phase_selftest(smi, tmp, selftest)
+    finally:
+        for p in children:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    transforms = np.load(npz)["transforms"]
+    san_lines = [ln for ln in san_rec["stderr"].splitlines() if ln.startswith("[kcmc sanitize]")]
+    n = len(corrected)
+    line = {
+        "phase": "e2e_cli", "model": "translation", "frames": n,
+        "info": info["json"], "info_seconds": info["seconds"],
+        "correct": {"exit_code": rc, "seconds": seconds, "frames_per_s": n / seconds,
+                    "summary_frames_per_sec": summary["frames_per_sec"],
+                    "e2e_file_frames_per_s": file_line["frames_per_s"],
+                    "launches_equal_e2e_file": launches == file_line["launches"],
+                    "sha256_equal_e2e_file": _sha256(out) == _sha256(
+                        os.path.join(tmp, "out.tif")),
+                    "transforms_equal_correct_file": bool(
+                        np.array_equal(transforms, file_transforms)),
+                    "summary_keys": sorted(summary)},
+        "apply": {"exit_code": apply_rc, "seconds": apply_s, "pages": pages["apply"],
+                  "launches": {k: v for k, v in apply_launches.items() if v},
+                  "stdout": json.loads(apply_out)},
+        "stabilize": {"exit_code": stab_rc, "seconds": stab_s, "pages": pages["stabilize"],
+                      "launches": {k: v for k, v in stab_launches.items() if v},
+                      "summary": json.loads(stab_out)},
+        "report": {"exit_code": report_rc, "stage_table": "Stages:" in report_out,
+                   "bytes": len(report_out)},
+        "warmup": {"cold": cold_rec["json"], "cold_seconds": cold_rec["seconds"],
+                   "warm": warm_rec["json"], "warm_seconds": warm_rec["seconds"]},
+        "sanitize": {"seconds": san_rec["seconds"], "lines": san_lines,
+                     "transforms_equal": bool(np.array_equal(np.load(npz2)["transforms"],
+                                                             transforms))},
+        "seconds": time.perf_counter() - t_phase, "card": smi,
+    }
+    emit(line)
+    c = line["correct"]
+    if rc != 0 or not (c["launches_equal_e2e_file"] and c["sha256_equal_e2e_file"]
+                       and c["transforms_equal_correct_file"]):
+        raise AssertionError(f"e2e_cli: correct differs from e2e_file: {c}, {launches}")
+    if info["json"] != {"path": src, "n_frames": n, "frame_shape": [512, 512],
+                        "dtype": "uint16", "decoder": "native"}:
+        raise AssertionError(f"e2e_cli: info {info['json']}")
+    for tag in ("apply", "stabilize"):
+        pg = line[tag]["pages"]
+        if line[tag]["exit_code"] != 0 or not pg["finite"] or pg["shape"] != [n, 512, 512]:
+            raise AssertionError(f"e2e_cli: {tag} {line[tag]}")
+    if report_rc != 0 or not line["report"]["stage_table"]:
+        raise AssertionError(f"e2e_cli: report\n{report_out[-2000:]}")
+    if not (cold_rec["json"] and warm_rec["json"] and warm_rec["json"]["stamp_misses"] == 0
+            and warm_rec["json"]["stamp_hits"] == cold_rec["json"]["stamp_misses"]):
+        raise AssertionError(f"e2e_cli: warmup {line['warmup']}")
+    if not (line["sanitize"]["transforms_equal"]
+            and any(ln.endswith(" 0 violation(s)") for ln in san_lines)
+            and any("runtime-only order checking" in ln and "item 22" in ln
+                    for ln in san_lines)):
+        raise AssertionError(f"e2e_cli: sanitize {line['sanitize']}")
+    total = {k: launches[k] + apply_launches[k] + stab_launches[k] for k in ZERO}
     return {**line, "launches": total}
 
 
@@ -3149,7 +3365,6 @@ def main() -> int:
         rows += new_rows
         emit({"phase": phase, **extra, "checked": [r["name"] for r in new_rows],
               "max_abs_err": {r["name"]: r["max_abs_err"] for r in new_rows}})
-    phase_selftest(smi)
     frames = {"rigid": 128, "rigid3d": 125}
     by_path = {PHASE[m] + ("_rigid" if m == "rigid" else ""): phase_e2e(smi, m, frames.get(m, 1000))
                for m in ("translation", "affine", "homography", "rigid", "piecewise",
@@ -3169,7 +3384,7 @@ def main() -> int:
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="kcmc_smoke_") as tmp:
-        by_path["e2e_file"] = phase_e2e_file(smi, tmp)
+        by_path["e2e_file"], file_transforms = phase_e2e_file(smi, tmp)
         by_path["e2e_file_twopass"] = phase_e2e_file_twopass(smi, tmp)
         by_path["e2e_file_faults"] = phase_e2e_file_faults(smi, tmp)
         # object-store ingest and egress (queue 1 item 15c)
@@ -3180,6 +3395,8 @@ def main() -> int:
         by_path["e2e_overlap"] = phase_e2e_overlap(smi, tmp)
         # the one-shot run's observability (queue 1 item 19a)
         by_path["e2e_obs"] = phase_e2e_obs(smi, tmp)
+        # the command line and the runtime sanitizer (queue 1 item 19b)
+        by_path["e2e_cli"] = phase_e2e_cli(smi, tmp, by_path["e2e_file"], file_transforms)
     # the frame-axis mesh (queue 1 item 17)
     by_path["e2e_mesh"] = phase_e2e_mesh(smi)
     for r in rows:

@@ -128,6 +128,17 @@ class CorrectionResult:
     # the first frame the exact-warp escalation took (None: none did)
     escalated_at: int | None = None
 
+    @property
+    def frames_per_sec(self) -> float | None:
+        return self.timing.get("frames_per_sec")
+
+    @property
+    def robustness(self) -> dict | None:
+        """The run's RobustnessReport dict (retries, failovers, rescued
+        frames, quarantined checkpoint parts), or None when the run had
+        no retry machinery active."""
+        return self.timing.get("robustness")
+
 
 def _cast_output(arr: np.ndarray, dtype: np.dtype) -> np.ndarray:
     """Float32 frames to the output dtype; integer targets are rounded

@@ -1,6 +1,7 @@
 """Request-latency telemetry: mergeable log-bucket histograms (the
-port's copy of `LatencyHistogram`, `merge_histograms` and
-`SegmentLatencies` from kcmc_tpu/obs/latency.py).
+port's copy of `LatencyHistogram`, `merge_histograms`,
+`SegmentLatencies` and `render_prometheus` from
+kcmc_tpu/obs/latency.py).
 
 `LatencyHistogram` is a fixed log-scale-bucket histogram: bucket edges
 are a deterministic integer-nanosecond geometric ladder (2^(1/4)
@@ -20,6 +21,8 @@ segment, QoS rung); a one-shot run with telemetry armed records the
 `request.dispatch` / `request.device` / `request.drain` subset of the
 reference's serve vocabulary into it (corrector._dispatch_batches), and
 `RunTelemetry.finish` reports it as `timing["latency"]`.
+`render_prometheus` turns a dumped `metrics` payload into Prometheus
+text (`python -m kcmc_tpu_torch metrics FILE --text`).
 
 Stdlib only: decode-pool workers that open object-store sources import
 it without torch.
@@ -283,3 +286,168 @@ class SegmentLatencies:
         for (seg, rung) in sorted(snap):
             out.setdefault(seg, {})[rung] = snap[(seg, rung)].to_dict()
         return out
+
+
+# -- Prometheus text exposition --------------------------------------------
+
+
+def _prom_escape(v: str) -> str:
+    return str(v).replace("\\", r"\\").replace('"', r"\"").replace(
+        "\n", r"\n"
+    )
+
+
+def _fmt_le(ns: int) -> str:
+    return f"{ns / 1e9:.9g}"
+
+
+def render_prometheus(metrics: dict) -> str:
+    """Prometheus text exposition (version 0.0.4) of a `metrics` verb
+    payload: request-latency histograms (cumulative buckets + sum +
+    count per segment/rung), serve counters, serve gauges, SLO burn
+    gauges, and — when the payload carries an `exemplars` section —
+    OpenMetrics ``# {trace_id=...}`` exemplar suffixes on the matching
+    bucket lines. Works on a dumped snapshot — pure dict in, text out,
+    the reference's text byte for byte. Every `# TYPE` line has a
+    matching `# HELP` line."""
+    lines: list[str] = []
+
+    exemplars = metrics.get("exemplars") or {}
+    hists = (metrics.get("plane") or {}).get("histograms") or {}
+    if hists:
+        lines.append(
+            "# HELP kcmc_request_latency_seconds Per-request lifecycle"
+            " segment latency (log-bucket histogram)."
+        )
+        lines.append("# TYPE kcmc_request_latency_seconds histogram")
+        for seg in sorted(hists):
+            for rung in sorted(hists[seg]):
+                d = hists[seg][rung]
+                labels = (
+                    f'segment="{_prom_escape(seg)}",'
+                    f'rung="{_prom_escape(rung)}"'
+                )
+                counts = [0] * _N_BUCKETS
+                for k, c in (d.get("counts") or {}).items():
+                    counts[int(k)] = int(c)
+                total = int(d.get("count", 0))
+                acc = 0
+                seg_ex = (exemplars.get(seg) or {}).get(rung) or {}
+                for i, edge in enumerate(_EDGES_NS):
+                    acc += counts[i]
+                    # render populated prefixes only (a subset of le's
+                    # plus +Inf is valid exposition); stop once the
+                    # cumulative count is complete
+                    if counts[i]:
+                        line = (
+                            "kcmc_request_latency_seconds_bucket"
+                            f'{{{labels},le="{_fmt_le(edge)}"}} {acc}'
+                        )
+                        ex = seg_ex.get(str(i))
+                        if isinstance(ex, dict) and ex.get("trace_id"):
+                            line += (
+                                " # {trace_id=\""
+                                f"{_prom_escape(ex['trace_id'])}\"}} "
+                                f"{float(ex.get('value_s', 0.0)):.9g}"
+                            )
+                        lines.append(line)
+                    if acc >= total - counts[-1]:
+                        break
+                lines.append(
+                    "kcmc_request_latency_seconds_bucket"
+                    f'{{{labels},le="+Inf"}} {total}'
+                )
+                lines.append(
+                    "kcmc_request_latency_seconds_sum"
+                    f"{{{labels}}} {int(d.get('sum_ns', 0)) / 1e9:.9g}"
+                )
+                lines.append(
+                    "kcmc_request_latency_seconds_count"
+                    f"{{{labels}}} {total}"
+                )
+
+    for name, value in sorted((metrics.get("counters") or {}).items()):
+        metric = f"kcmc_serve_{name}_total"
+        lines.append(f"# HELP {metric} Serve counter `{name}`.")
+        lines.append(f"# TYPE {metric} counter")
+        lines.append(f"{metric} {int(value)}")
+
+    gauges = dict(metrics.get("gauges") or {})
+    queues = gauges.pop("queues", None)
+    for name, value in sorted(gauges.items()):
+        metric = f"kcmc_serve_{name}"
+        lines.append(f"# HELP {metric} Serve gauge `{name}`.")
+        lines.append(f"# TYPE {metric} gauge")
+        lines.append(f"{metric} {float(value):.9g}")
+    if queues:
+        lines.append(
+            "# HELP kcmc_serve_queue_frames Undispatched frames"
+            " queued per open session."
+        )
+        lines.append("# TYPE kcmc_serve_queue_frames gauge")
+        for sid in sorted(queues):
+            lines.append(
+                "kcmc_serve_queue_frames"
+                f'{{session="{_prom_escape(sid)}"}} {int(queues[sid])}'
+            )
+
+    lines.extend(_render_slo_prometheus(metrics.get("slo")))
+    return "\n".join(lines) + "\n"
+
+
+# The SLO engine's burn-rate windows (kcmc_tpu/obs/slo.py `WINDOWS`),
+# in render order; the engine itself comes with the serve plane (item
+# 19c), the rendering of a dumped `slo` section is here.
+_SLO_WINDOWS = ("5m", "1h", "6h", "3d")
+
+
+def _render_slo_prometheus(slo) -> list[str]:
+    """Prometheus lines for an `slo` metrics section (the reference's
+    `render_slo_prometheus`): one `kcmc_slo_burn_rate` gauge per
+    (objective, window), one `kcmc_slo_target` per objective, one
+    `kcmc_slo_alerts` count. [] for payloads without the section."""
+    if not isinstance(slo, dict) or not slo.get("objectives"):
+        return []
+    # objective -> qos_class, for the per-class labels below (absent on
+    # availability objectives: those lines omit the label)
+    classes = {
+        obj.get("name"): obj.get("qos_class")
+        for obj in slo.get("objectives") or []
+        if isinstance(obj, dict)
+    }
+
+    def _labels(name: str, extra: str = "") -> str:
+        qc = classes.get(name)
+        cls = f',qos_class="{qc}"' if qc else ""
+        return f'objective="{name}"{cls}{extra}'
+
+    lines = [
+        "# HELP kcmc_slo_burn_rate Error-budget burn rate per"
+        " objective and window (1.0 = sustainable).",
+        "# TYPE kcmc_slo_burn_rate gauge",
+    ]
+    burns = slo.get("burn_rates") or {}
+    for name in sorted(burns):
+        for w in _SLO_WINDOWS:
+            v = (burns[name] or {}).get(w)
+            if v is None:
+                continue
+            window = f',window="{w}"'
+            lines.append(
+                f"kcmc_slo_burn_rate{{{_labels(name, window)}}}"
+                f" {float(v):.9g}"
+            )
+    lines.append("# HELP kcmc_slo_target Objective target fraction.")
+    lines.append("# TYPE kcmc_slo_target gauge")
+    for obj in slo.get("objectives") or []:
+        if isinstance(obj, dict) and obj.get("name"):
+            lines.append(
+                f'kcmc_slo_target{{{_labels(obj["name"])}}}'
+                f" {float(obj.get('target', 0.0)):.9g}"
+            )
+    lines.append(
+        "# HELP kcmc_slo_alerts Number of currently firing SLO alerts."
+    )
+    lines.append("# TYPE kcmc_slo_alerts gauge")
+    lines.append(f"kcmc_slo_alerts {len(slo.get('alerts') or [])}")
+    return lines

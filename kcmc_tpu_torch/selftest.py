@@ -1,23 +1,26 @@
-"""On-card kernel parity selftest: `python -m kcmc_tpu_torch.selftest`.
+"""On-card kernel parity selftest: `python -m kcmc_tpu_torch selftest`
+(or `python -m kcmc_tpu_torch.selftest`), `--size` and `--depth` as the
+reference's.
 
 The CPU test suite runs every wrapper's plain PyTorch version (a CUDA
 kernel has no interpret mode), which validates the arithmetic but not
 the kernels. This module runs each hand-written kernel (K1-K11) on the
 card against its plain version on the same card tensors, at production
-sizes (512x512 and 2304x2304 frames, K=4096 for the bins-first route,
-32x256x256 volumes), with the comparison `chip_smoke.py` uses for it:
-`torch.equal`, or equality through `view(torch.int32)` / `view(torch.
-int16)` where the plain version is bit-identical, and for K3 the
-relative 1e-5 with equal ok flags. The warps are also held against
+sizes (by default 512x512 and 2304x2304 frames, K=4096 for the
+bins-first route, 32x256x256 volumes; `--size S --depth D` runs S x S
+frames and D x S/2 x S/2 volumes), with the comparison `chip_smoke.py`
+uses for it: `torch.equal`, or equality through `view(torch.int32)` /
+`view(torch.int16)` where the plain version is bit-identical, and for
+K3 the relative 1e-5 with equal ok flags. The warps are also held against
 the exact gather on the frames they keep, the Hamming match against
 XOR + popcount (a matmul that silently ran in TF32 would flip distance
 bits), and one rigid end-to-end run with `warp="auto"` against the
 gather warp.
 
 Each check returns a record {name, ok, detail}; the entry point prints
-one line per check and a JSON summary, and exits non-zero on any
-failure. It needs a CUDA card and raises without one: there is no CPU
-fallback. The reference's `shard_map` check waits for the port's
+one line per check on stderr and only the JSON summary on stdout, and
+exits non-zero on any failure. It needs a CUDA card and raises without
+one: there is no CPU fallback. The reference's `shard_map` check waits for the port's
 multi-device runs (ROADMAP queue 1 item 17).
 """
 
@@ -305,26 +308,33 @@ def _check_pipeline(size=512):
 
 
 # (name, check): names are stable across runs, so a check that raises
-# keeps its identity in the summary; a check may return several records
-CHECKS = [
-    ("K1 detect_response 512x512", lambda: _check_k1((512, 512), 2)),
-    ("K1 detect_response 2304x2304", lambda: _check_k1((2304, 2304), 1)),
-    ("K2 extract_blended upright", _check_k2),
-    ("K6 extract_blended_moments small-K oriented", _check_k6),
-    ("K4 moment_maps + K5 binned_select_rows bins-first", _check_k4_k5),
-    ("K3 warp_translation", _check_k3),
-    ("K7 warp_batch_matrix", _check_k7),
-    ("K8 warp_batch_field", _check_k8),
-    ("K9 response_fields_3d + K10 extract_blended_3d", _check_k9_k10),
-    ("K11 extract_patches", _check_k11),
-    ("match hamming_mm vs xor_popcount", _check_match),
-    ("pipeline rigid auto vs gather warp", _check_pipeline),
-]
+# keeps its identity in the summary; a check may return several records.
+# `size` sets the 2D frames of the size-parameterized checks and
+# `size3d` the volumes; the 2304x2304 K1 check and the bins-first K4/K5
+# and match checks keep their production shapes.
+def checks(size: int = 512, size3d=(32, 256, 256)) -> list:
+    vol = "x".join(str(s) for s in size3d)
+    return [
+        (f"K1 detect_response {size}x{size}", lambda: _check_k1((size, size), 2)),
+        ("K1 detect_response 2304x2304", lambda: _check_k1((2304, 2304), 1)),
+        ("K2 extract_blended upright", lambda: _check_k2(size)),
+        ("K6 extract_blended_moments small-K oriented", lambda: _check_k6(size)),
+        ("K4 moment_maps + K5 binned_select_rows bins-first", _check_k4_k5),
+        ("K3 warp_translation", lambda: _check_k3(size)),
+        ("K7 warp_batch_matrix", lambda: _check_k7(size)),
+        ("K8 warp_batch_field", lambda: _check_k8(size)),
+        (f"K9 response_fields_3d + K10 extract_blended_3d {vol}",
+         lambda: _check_k9_k10(tuple(size3d))),
+        ("K11 extract_patches", lambda: _check_k11(size)),
+        ("match hamming_mm vs xor_popcount", _check_match),
+        ("pipeline rigid auto vs gather warp", lambda: _check_pipeline(size)),
+    ]
 
 
-def run_selftest() -> list[dict]:
-    """Every check on the card: a list of records {name, ok, detail}.
-    Raises without a CUDA card (no CPU fallback)."""
+def run_selftest(size: int = 512, size3d=(32, 256, 256)) -> list[dict]:
+    """Every check on the card at `size`² frames and `size3d` volumes: a
+    list of records {name, ok, detail}. Raises without a CUDA card (no
+    CPU fallback)."""
     from kcmc_tpu_torch.utils.device import set_full_precision
 
     if not torch.cuda.is_available():
@@ -332,7 +342,7 @@ def run_selftest() -> list[dict]:
                            "hand-written kernel against its plain version on the card")
     set_full_precision()  # as TorchBackend sets it for every run on the card
     results = []
-    for name, check in CHECKS:
+    for name, check in checks(size, size3d):
         try:
             got = check()
         except Exception as e:  # a kernel that fails to build or launch fails its check
@@ -343,16 +353,26 @@ def run_selftest() -> list[dict]:
 
 
 def main(argv=None) -> int:
+    """`--size` / `--depth` as the reference's selftest takes them; one
+    line per check on stderr, only the JSON summary on stdout."""
     import argparse
     import json
+    import sys
 
-    argparse.ArgumentParser(prog="python -m kcmc_tpu_torch.selftest",
-                            description=__doc__.splitlines()[0]).parse_args(argv)
-    results = run_selftest()
+    ap = argparse.ArgumentParser(prog="python -m kcmc_tpu_torch selftest",
+                                 description=__doc__.splitlines()[0])
+    ap.add_argument("--size", type=int, default=512)
+    ap.add_argument("--depth", type=int, default=32, help="3D stack depth")
+    args = ap.parse_args(argv)
+    results = run_selftest(size=args.size,
+                           size3d=(args.depth, args.size // 2, args.size // 2))
+    name = torch.cuda.get_device_name(0)
+    print(f"[selftest] platform=gpu device={name}", file=sys.stderr)
     for r in results:
-        print(f"[selftest] {'PASS' if r['ok'] else 'FAIL'} {r['name']}: {r['detail']}")
+        print(f"[selftest] {'PASS' if r['ok'] else 'FAIL'} {r['name']}: {r['detail']}",
+              file=sys.stderr)
     n_fail = sum(not r["ok"] for r in results)
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "platform": "gpu",
+    print(json.dumps({"device": name, "platform": "gpu",
                       "passed": len(results) - n_fail, "failed": n_fail,
                       "results": results}))
     return 1 if n_fail else 0

@@ -998,3 +998,32 @@ def test_traced_run_on_card_leaves_outputs_and_launches_equal(cuda, tmp_path):
     names = [e["name"] for e in json.load(open(tmp_path / "t.json"))["traceEvents"]]
     assert names.count("dispatch_batch") == 2 and names.count("upload.stage") == 1
     assert len(read_jsonl(str(tmp_path / "r.jsonl"))[1]) == 64
+
+
+def test_cli_correct_on_card_equals_the_in_process_run(cuda, tmp_path):
+    """`python -m kcmc_tpu_torch correct` in a child process on the card
+    (128², uint16 TIFF, --transforms): its transforms equal an in-process
+    card correct_file of the same file bit for bit, and its summary
+    names the torch backend."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from kcmc_tpu_torch.io import write_stack
+
+    data = make_drift_stack(48, (128, 128), model="translation", seed=0)
+    src, npz = str(tmp_path / "s.tif"), str(tmp_path / "t.npz")
+    write_stack(src, np.clip(data.stack * 40000, 0, 65535).astype(np.uint16))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    out = subprocess.run(
+        [sys.executable, "-m", "kcmc_tpu_torch", "correct", src, "--transforms", npz,
+         "--batch-size", "16"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600,
+    )
+    assert out.returncode == 0, out.stderr
+    summary = json.loads(out.stdout.strip().splitlines()[-1])
+    assert summary["backend"] == "torch" and summary["warp_flagged_frames"] == 0
+    res = MotionCorrector(batch_size=16).correct_file(src, emit_frames=False)
+    np.testing.assert_array_equal(np.load(npz)["transforms"], res.transforms)

@@ -187,7 +187,31 @@ def test_selftest_needs_a_card(monkeypatch):
 
 
 def test_selftest_checks_every_kernel_and_the_match():
-    names = " ".join(name for name, _ in selftest.CHECKS)
+    names = " ".join(name for name, _ in selftest.checks())
     for k in range(1, 12):
         assert f"K{k} " in names
     assert "match" in names and "pipeline" in names
+
+
+def test_selftest_main_takes_the_references_size_and_depth(monkeypatch, capsys):
+    """`--size` / `--depth` reach run_selftest as the reference's
+    selftest passes them (size3d = (depth, size // 2, size // 2)); the
+    per-check lines go to stderr and only the JSON summary to stdout."""
+    seen = {}
+
+    def fake_run(**kw):
+        seen.update(kw)
+        return [{"name": "K1 detect_response 256x256", "ok": True, "detail": "equal"}]
+
+    monkeypatch.setattr(selftest, "run_selftest", fake_run)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "NVIDIA H100 80GB HBM3")
+    assert selftest.main(["--size", "256", "--depth", "16"]) == 0
+    assert seen == {"size": 256, "size3d": (16, 128, 128)}
+    out, err = capsys.readouterr()
+    summary = json.loads(out)
+    assert summary["passed"] == 1 and summary["failed"] == 0
+    assert "[selftest] PASS K1 detect_response 256x256" in err and "[selftest]" not in out
+    selftest.main([])
+    assert seen == {"size": 512, "size3d": (32, 256, 256)}
+    names = [name for name, _ in selftest.checks(256, (16, 128, 128))]
+    assert "K1 detect_response 256x256" in names and "K1 detect_response 2304x2304" in names
