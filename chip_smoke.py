@@ -268,6 +268,27 @@ port's TiffWriter, the scene x 40000; escalation off):
     `sanitize -- python -m kcmc_tpu_torch correct` (exit 0, 0
     violations, the runtime-only line naming item 22, transforms equal
     the unsanitized run's), and the selftest child of phase 3.
+28. e2e_serve: the resident serve plane on config 1 (K=512, batch 32,
+    512², the 1000-frame float32 stack): two ServeClient threads send
+    600 and 400 frames in uneven submits through an in-process
+    ServeServer on the card, registration-only (each stream's
+    transforms equal a correct() of its frames, integers equal; K1/K2/K3
+    35/35/65: 32 batches, two references and the degraded rung's
+    warm-up batch (no polish: one K3); no corrected frame downloaded;
+    aggregate frames/s,
+    request.total and request.dispatch p50/p99 from the metrics verb);
+    the same drive with the client threads in a child process (the same
+    checks, its frames/s and p50/p99), and one 96-frame submit's wire
+    costs (encode, send_msg, recv_msg, decode) timed on the host;
+    256 frames as an emitting and as a registration-only session (the
+    same launches and transforms, K1/K2/K3 10/10/17 each, 256 x 512² x
+    4 bytes fewer downloaded) and at serve_inflight=1 (the corrected
+    frames' sha256 equal to the default window's); a `python -m
+    kcmc_tpu_torch serve --journal-dir` child (ready line, the `metrics`
+    CLI against it, SIGKILL mid-stream, a second child resuming the
+    session to the uninterrupted transforms, SIGTERM: the `served`
+    record, exit 0). Every stream must show no retry, no CPU failover
+    and no frame marked failed.
 
 Every e2e line of a 2D model carries `roofline`: analysis/roofline's
 binding resource and fraction of peak on this card's row, for the work
@@ -3112,6 +3133,463 @@ def phase_e2e_cli(smi: str, tmp: str, file_line: dict, file_transforms: np.ndarr
     return {**line, "launches": total}
 
 
+# e2e_serve: the resident serve plane (queue 1 item 19c). Stream A's 600
+# and stream B's 400 frames go out in submits of whole batches but the
+# last (uneven sizes), so each stream forms ceil(n / 32) batches: 19 + 13.
+SERVE_SUBMITS = {"A": (96, 64, 160, 32, 128, 120), "B": (64, 96, 32, 128, 80)}
+# the serve corrector's overrides: a queue deep enough that neither
+# stream reaches the degradation watermark (half of it), so every batch
+# runs the full budgets the one-shot truth runs
+SERVE_KW = dict(serve_queue_depth=2048)
+
+
+def _serve_drive(port: int, tag: str, frames: np.ndarray, sizes, out: dict) -> None:
+    """One client thread: open a registration-only session, submit the
+    frames in `sizes`, read every result span, close."""
+    from kcmc_tpu_torch.serve.client import ServeClient
+
+    try:
+        with ServeClient(port=port) as c:
+            sid = c.open_session(tenant=tag, session_id=f"smoke-{tag}")
+            lo = 0
+            for n in sizes:
+                c.submit(sid, frames[lo:lo + n])
+                lo += n
+            seen = 0
+            while seen < len(frames):
+                span = c.results(sid, timeout=300.0)
+                seen += span["n"]
+            out[tag] = c.close_session(sid)
+    except BaseException as e:  # re-raised by the phase
+        out[tag] = e
+
+
+def _serve_clients_main(port: int, tmp: str) -> None:
+    """The child process of e2e_serve's second drive
+    (`python -c "import chip_smoke; chip_smoke._serve_clients_main(PORT,
+    TMP)"`): the first drive's two client threads, in a process of
+    their own, on the frames the parent saved to TMP/serve_{A,B}.npy.
+    Writes TMP/serve_clients.npz (each stream's transforms and
+    integers) and TMP/serve_clients.json (seconds from the first open
+    to the last close, each stream's frames and robustness)."""
+    import threading
+
+    parts = {k: np.load(os.path.join(tmp, f"serve_{k}.npy"), mmap_mode="r") for k in ("A", "B")}
+    out: dict = {}
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=_serve_drive, args=(port, k, parts[k], SERVE_SUBMITS[k], out))
+               for k in ("A", "B")]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    seconds = time.perf_counter() - t0
+    arrays, meta = {}, {"seconds": seconds}
+    for k in ("A", "B"):
+        got = out.get(k)
+        if not isinstance(got, dict):
+            meta[k] = {"error": repr(got)}
+            continue
+        arrays[f"{k}_transforms"] = got["transforms"]
+        for d in ("n_keypoints", "n_matches", "n_inliers"):
+            arrays[f"{k}_{d}"] = got["diagnostics"][d]
+        meta[k] = {"frames": int(got["frames"]), "robustness": got["timing"].get("robustness")}
+    np.savez(os.path.join(tmp, "serve_clients.npz"), **arrays)
+    with open(os.path.join(tmp, "serve_clients.json"), "w") as f:
+        json.dump(meta, f)
+
+
+def _wire_split(frames: np.ndarray, tmp: str) -> dict:
+    """One submit of `frames` through the serve wire's own calls, each
+    timed alone on the host: the client's encode (`proto.encode_array`)
+    and `proto.send_msg` (json.dumps, UTF-8, the write), the server's
+    `proto.recv_msg` (readline of the line, json.loads) and
+    `proto.decode_array`. The line goes through a file (the same
+    buffered readline a socket's reader runs), so no step waits on
+    another."""
+    from kcmc_tpu_torch.serve import proto
+
+    path = os.path.join(tmp, "serve_wire.jsonl")
+    t = {}
+    t0 = time.perf_counter()
+    enc = proto.encode_array(frames)
+    t["encode_s"] = time.perf_counter() - t0
+    with open(path, "wb") as w:
+        t0 = time.perf_counter()
+        proto.send_msg(w, {"op": "submit_frames", "session": "smoke-W", "frames": enc})
+        t["send_s"] = time.perf_counter() - t0
+    del enc
+    line_bytes = os.path.getsize(path)
+    with open(path, "rb") as r:
+        t0 = time.perf_counter()
+        msg = proto.recv_msg(r)
+        t["recv_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = proto.decode_array(msg["frames"])
+    t["decode_s"] = time.perf_counter() - t0
+    os.remove(path)
+    if not np.array_equal(back, frames):
+        raise AssertionError("e2e_serve: the wire did not round-trip the frames")
+    n = len(frames)
+    client, server = t["encode_s"] + t["send_s"], t["recv_s"] + t["decode_s"]
+    return {**t, "frames": n, "line_bytes": line_bytes,
+            "client_ms_per_frame": 1e3 * client / n, "server_ms_per_frame": 1e3 * server / n,
+            "one_process_frames_per_s": n / (client + server),
+            "server_only_frames_per_s": n / server}
+
+
+def _robust_clean(where: str, rb) -> None:
+    """A stream of the serve phase ran on the card's kernels alone: no
+    retry, no batch on the CPU failover rung, no frame marked failed."""
+    if not (isinstance(rb, dict) and rb.get("device_retries") == 0
+            and rb.get("backend_failovers") == 0 and rb.get("failed_frames") == 0):
+        raise AssertionError(f"e2e_serve: {where} left the card's path: robustness {rb}")
+
+
+def _download_spy():
+    """Count what TorchBackend._start_download copies to the host from
+    the scheduler thread (the sessions' batches; the degraded rung's
+    warm-up batch runs on a thread of its own): (restore function,
+    {"calls", "bytes", "corrected_bytes"})."""
+    import threading
+
+    from kcmc_tpu_torch.backends.torch_backend import TorchBackend
+
+    orig = TorchBackend._start_download
+    seen = {"calls": 0, "bytes": 0, "corrected_bytes": 0}
+
+    def spy(self, out):
+        if threading.current_thread().name == "kcmc-serve-scheduler":
+            seen["calls"] += 1
+            for k, v in out.items():
+                b = v.numel() * v.element_size()
+                seen["bytes"] += b
+                if k == "corrected":
+                    seen["corrected_bytes"] += b
+        return orig(self, out)
+
+    TorchBackend._start_download = spy
+    return (lambda: setattr(TorchBackend, "_start_download", orig)), seen
+
+
+def _sched_session(mc, frames: np.ndarray, emit: bool):
+    """One session of `frames` through an in-process StreamScheduler on
+    `mc` (64-frame submits), launch counters set to 0 just before and
+    read after the scheduler stopped (its warm-up threads joined):
+    (result, launches, download counts)."""
+    from kcmc_tpu_torch.serve.scheduler import StreamScheduler
+
+    sched = StreamScheduler(mc).start()
+    restore, seen = _download_spy()
+    try:
+        torch.cuda.synchronize()
+        mc.backend.reset_launch_counts()
+        s = sched.open_session(tenant="window", emit_frames=emit)
+        for lo in range(0, len(frames), 64):
+            sched.submit(s.sid, frames[lo:lo + 64])
+        res = sched.close_session(s.sid, timeout=300)
+    finally:
+        restore()
+        sched.stop()
+    torch.cuda.synchronize()
+    return res, mc.backend.launch_counts(), dict(seen)
+
+
+def _serve_child(tmp: str, jdir: str, tag: str) -> tuple[subprocess.Popen, dict]:
+    """`python -m kcmc_tpu_torch serve` on the card with a journal
+    directory; its ready record (stdout's first line)."""
+    err = open(os.path.join(tmp, f"serve_{tag}.err"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kcmc_tpu_torch", "serve", "--port", "0",
+         "--journal-dir", jdir, "--journal-every", "64", "--queue-depth", "2048"],
+        cwd=_ROOT, env=_child_env(), stdout=subprocess.PIPE, stderr=err, text=True)
+    err.close()
+    t0 = time.perf_counter()
+    line = proc.stdout.readline()
+    try:
+        ready = json.loads(line)
+    except ValueError:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"e2e_serve: `serve` child printed no ready record: {line!r}\n"
+                             + open(os.path.join(tmp, f"serve_{tag}.err")).read()[-4000:])
+    ready["spawn_to_ready_s"] = time.perf_counter() - t0
+    return proc, ready
+
+
+def _serve_finish(proc: subprocess.Popen, sig) -> tuple[int, str]:
+    proc.send_signal(sig)
+    try:
+        out, _ = proc.communicate(timeout=120)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError("e2e_serve: the serve child did not stop") from None
+    return proc.returncode, out
+
+
+def phase_e2e_serve(smi: str, tmp: str) -> dict:
+    """The resident serve plane on config 1 (translation, K=512, batch
+    32, 512², the 1000-frame float32 stack):
+
+    - two ServeClient threads stream 600 and 400 frames (uneven submits
+      of whole batches but the last: 19 + 13 batches) through an
+      in-process ServeServer on cuda, registration-only; each session's
+      transforms equal a correct() of its frames (integers equal,
+      transforms within 1e-4 px), launches K1/K2/K3 counted over the
+      drive (35/35/65: two references and 32 batches, plus the degraded
+      rung's warm-up batch, which `serve_degrade_watermark` < 1 starts
+      once per frame shape and which runs no polish, so one K3), the
+      bytes downloaded (no corrected frames), the
+      aggregate frames/s and `request.total` / `request.dispatch` p50
+      and p99 from the metrics verb;
+    - the same drive again with the two client threads in a child
+      process (`_serve_clients_main`) against a second in-process
+      server: the same checks, its frames/s and p50/p99 beside the
+      first's; and one 96-frame submit's wire costs timed step by step
+      on the host (`_wire_split`);
+    - 256 frames through the in-process scheduler as an emitting and as
+      a registration-only session: the same launches and transforms,
+      the registration-only one downloading 256 x 512² x 4 bytes fewer;
+      and the emitting session again at serve_inflight=1, the corrected
+      frames' sha256 equal to the default window's (3 batches in flight
+      through the pooled pinned downloads); each session K1/K2/K3
+      10/10/17 (8 batches, one reference, the degraded warm-up batch);
+    - a `python -m kcmc_tpu_torch serve --journal-dir` child on the
+      card: its ready line (backend "torch"), the `metrics` CLI against
+      it, SIGKILL after 160 frames of a 256-frame stream with a durable
+      journal, a second child on the same directory resuming the
+      session from its cursor to the uninterrupted transforms, then
+      SIGTERM: the `served` record and exit 0.
+
+    Every stream (both drives, the three sessions, the journaled one)
+    must have run on the card alone: no retry, no CPU failover, no
+    frame marked failed."""
+    import signal
+    import threading
+
+    from kcmc_tpu_torch import MotionCorrector
+    from kcmc_tpu_torch.serve.client import ServeClient
+    from kcmc_tpu_torch.serve.server import ServeServer
+
+    t_phase = time.perf_counter()
+    stack, _, mc_truth = path_input("translation", 1000)
+    parts = {"A": stack[:600], "B": stack[600:]}
+    truth = {k: mc_truth.correct(v) for k, v in parts.items()}
+    # the in-process server: the same config (the escalation is off in
+    # sessions either way)
+    mc = path_input("translation", 1000, **SERVE_KW)[2]
+    for k in ("A", "B"):
+        np.save(os.path.join(tmp, f"serve_{k}.npy"), parts[k])
+
+    def drive(clients: str) -> tuple[dict, dict, dict, dict, float]:
+        """Streams A and B through a fresh in-process ServeServer, the
+        client threads here ("threads") or in a child ("child"):
+        (results per stream, metrics, stats, downloads, seconds), the
+        launch counters set to 0 just before and read after the server
+        stopped (its degraded warm-up thread joined)."""
+        out: dict = {}
+        restore, seen = _download_spy()
+        try:
+            with ServeServer(mc, port=0) as srv:
+                torch.cuda.synchronize()
+                mc.backend.reset_launch_counts()
+                t0 = time.perf_counter()
+                if clients == "threads":
+                    threads = [threading.Thread(target=_serve_drive, name=f"kcmc-smoke-client-{k}",
+                                                args=(srv.port, k, parts[k], SERVE_SUBMITS[k], out))
+                               for k in ("A", "B")]
+                    for t in threads:
+                        t.start()
+                    for t in threads:
+                        t.join(600)
+                else:
+                    err = os.path.join(tmp, "serve_clients.err")
+                    with open(err, "w") as ef:
+                        rc = subprocess.run(
+                            [sys.executable, "-c", "import sys, chip_smoke; "
+                             "chip_smoke._serve_clients_main(int(sys.argv[1]), sys.argv[2])",
+                             str(srv.port), tmp],
+                            cwd=_ROOT, env=_child_env(), stdout=ef, stderr=ef,
+                            timeout=600).returncode
+                    if rc != 0:
+                        raise AssertionError(f"e2e_serve: the client child exited {rc}:\n"
+                                             + open(err).read()[-4000:])
+                    meta = json.load(open(os.path.join(tmp, "serve_clients.json")))
+                    arr = np.load(os.path.join(tmp, "serve_clients.npz"))
+                    for k in ("A", "B"):
+                        if "error" in meta[k]:
+                            out[k] = meta[k]["error"]
+                            continue
+                        out[k] = {"frames": meta[k]["frames"],
+                                  "transforms": arr[f"{k}_transforms"],
+                                  "diagnostics": {d: arr[f"{k}_{d}"] for d in
+                                                  ("n_keypoints", "n_matches", "n_inliers")},
+                                  "timing": {"robustness": meta[k]["robustness"]},
+                                  "client_seconds": meta["seconds"]}
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                for k in ("A", "B"):
+                    if not isinstance(out.get(k), dict):
+                        raise AssertionError(f"e2e_serve: stream {k} ({clients}) failed: "
+                                             f"{out.get(k)!r}")
+                with ServeClient(port=srv.port) as c:
+                    metrics, stats = c.metrics(), c.stats()
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        return out, metrics, stats, dict(seen), seconds
+
+    def pct(metrics, seg):
+        s = metrics["plane"]["totals"].get(seg) or {}
+        return {"count": s.get("count"), "p50_ms": 1e3 * (s.get("p50_s") or 0.0),
+                "p99_ms": 1e3 * (s.get("p99_s") or 0.0)}
+
+    def streams_of(out):
+        return {k: {
+            "frames": int(out[k]["frames"]),
+            "max_transform_gap_px": float(np.abs(out[k]["transforms"]
+                                                 - truth[k].transforms).max()),
+            "integers_equal": all(np.array_equal(out[k]["diagnostics"][d],
+                                                 truth[k].diagnostics[d])
+                                  for d in ("n_keypoints", "n_matches", "n_inliers")),
+            "robustness": out[k]["timing"].get("robustness"),
+        } for k in ("A", "B")}
+
+    out, metrics, stats, drive_dl, seconds = drive("threads")
+    launches = mc.backend.launch_counts()
+    streams = streams_of(out)
+    out_c, metrics_c, stats_c, drive_dl_c, seconds_c = drive("child")
+    launches_c = mc.backend.launch_counts()
+    streams_c = streams_of(out_c)
+    wire = _wire_split(stack[:96], tmp)
+    child_clients = {
+        # the rate over the child's drive, from its first open to its
+        # last close (seconds_drive adds the child's start)
+        "seconds_drive": seconds_c, "client_seconds": out_c["A"]["client_seconds"],
+        "frames_per_s": len(stack) / out_c["A"]["client_seconds"], "streams": streams_c,
+        "request_total": pct(metrics_c, "request.total"),
+        "request_dispatch": pct(metrics_c, "request.dispatch"),
+        "downloads_drive": drive_dl_c, "batches": metrics_c["counters"]["batches"],
+        "frames_done": stats_c["frames_done"], "launches_drive": launches_c,
+    }
+
+    # an emitting and a registration-only session, and the window check
+    frames = stack[:256]
+    r_emit, l_emit, d_emit = _sched_session(mc, frames, emit=True)
+    r_reg, l_reg, d_reg = _sched_session(mc, frames, emit=False)
+    mc1 = path_input("translation", 1000, serve_inflight=1, **SERVE_KW)[2]
+    r_one, l_one, _ = _sched_session(mc1, frames, emit=True)
+    window = {
+        "sha256_inflight_3": _digest(r_emit.corrected)[:16],
+        "sha256_inflight_1": _digest(r_one.corrected)[:16],
+        "equal": _digest(r_emit.corrected) == _digest(r_one.corrected)
+        and np.array_equal(r_emit.transforms, r_one.transforms),
+    }
+    reg_only = {
+        "launches_equal": l_emit == l_reg,
+        "transforms_equal": bool(np.array_equal(r_emit.transforms, r_reg.transforms)),
+        "download_bytes_emit": d_emit["bytes"], "download_bytes_reg": d_reg["bytes"],
+        "corrected_bytes_reg": d_reg["corrected_bytes"],
+        "missing_bytes": d_emit["bytes"] - d_reg["bytes"],
+        "want_missing_bytes": int(frames.size) * 4,
+    }
+    # the `serve` child: ready line, metrics CLI, SIGKILL, resume, SIGTERM
+    jdir = os.path.join(tmp, "serve_journal")
+    child = {}
+    proc, ready = _serve_child(tmp, jdir, "first")
+    try:
+        rc, m_out, m_s = _cli_in_process("metrics", f"127.0.0.1:{ready['port']}")
+        child["metrics_cli"] = {"rc": rc, "seconds": m_s,
+                                "keys": sorted(json.loads(m_out.strip().splitlines()[-1]))}
+        with ServeClient(port=ready["port"]) as c:
+            sid = c.open_session(tenant="journal", session_id="smoke-J")
+            c.submit(sid, frames[:96])
+            c.submit(sid, frames[96:160])
+            t_w = time.perf_counter()
+            while True:
+                j = (c.stats().get("journal") or {}).get("smoke-J") or {}
+                if j.get("last_saved", -1) >= 128 or time.perf_counter() - t_w > 120:
+                    break
+                time.sleep(0.05)
+            child["journaled_before_kill"] = j.get("last_saved")
+    finally:
+        proc.kill()
+        proc.wait()
+    child["first_ready"] = ready
+    proc, ready2 = _serve_child(tmp, jdir, "second")
+    try:
+        with ServeClient(port=ready2["port"]) as c:
+            info = c.resume_session_info("smoke-J")
+            cursor = int(info["cursor"])
+            c.submit("smoke-J", frames[cursor:])
+            final = c.close_session("smoke-J")
+    except BaseException:
+        proc.kill()
+        proc.wait()
+        raise
+    rc2, out2 = _serve_finish(proc, signal.SIGTERM)
+    served = json.loads(out2.strip().splitlines()[-1])
+    child.update({
+        "second_ready_s": ready2["spawn_to_ready_s"], "resumed": info.get("resumed"),
+        "cursor": cursor, "frames": int(final["frames"]),
+        "max_transform_gap_px": float(np.abs(final["transforms"]
+                                             - truth["A"].transforms[:256]).max()),
+        "sigterm_rc": rc2, "served": served.get("served"),
+        "robustness": final["timing"].get("robustness"),
+        "served_frames_done": served.get("stats", {}).get("frames_done"),
+    })
+    # 32 batches and two references, plus the degraded rung's warm-up
+    # batch, which runs no polish (transform_polish=0): one K3, not two
+    want = {**ZERO, "detect_response": 35, "extract_blended": 35, "warp_translation": 65}
+    line = {
+        "phase": "e2e_serve", "model": "translation", "frames": len(stack),
+        "seconds_drive": seconds, "frames_per_s": len(stack) / seconds,
+        "streams": streams, "request_total": pct(metrics, "request.total"),
+        "request_dispatch": pct(metrics, "request.dispatch"), "downloads_drive": drive_dl,
+        "batches": metrics["counters"]["batches"], "frames_done": stats["frames_done"],
+        "child_clients": child_clients, "wire_split": wire,
+        "registration_only": reg_only, "window": window, "child": child,
+        "launches_drive": launches, "launches_predicted": want,
+        "launches_session": {"emit": l_emit, "registration_only": l_reg, "inflight_1": l_one},
+        "phase_seconds": time.perf_counter() - t_phase, "card": smi,
+    }
+    emit(line)
+    for tag, got, dl, lines in (("threads", streams, drive_dl, line),
+                                ("child", streams_c, drive_dl_c, child_clients)):
+        for k, s in got.items():
+            if not (s["frames"] == len(parts[k]) and s["integers_equal"]
+                    and s["max_transform_gap_px"] <= 1e-4):
+                raise AssertionError(f"e2e_serve: stream {k} ({tag}) differs from correct(): {s}")
+            _robust_clean(f"stream {k} ({tag})", s["robustness"])
+        if dl["corrected_bytes"] or lines["batches"] != 32 or lines["frames_done"] != 1000:
+            raise AssertionError(f"e2e_serve: downloads {dl}, batches {lines['batches']}, "
+                                 f"frames {lines['frames_done']} ({tag})")
+    check_launches("e2e_serve", launches, want)
+    check_launches("e2e_serve (client child)", launches_c, want)
+    # 8 batches and one reference, plus the degraded warm-up batch
+    want_session = {**ZERO, "detect_response": 10, "extract_blended": 10,
+                    "warp_translation": 17}
+    for tag, got, res in (("emitting", l_emit, r_emit), ("registration-only", l_reg, r_reg),
+                          ("serve_inflight=1", l_one, r_one)):
+        check_launches(f"e2e_serve ({tag} session)", got, want_session)
+        _robust_clean(f"the {tag} session", res.timing.get("robustness"))
+    if not (reg_only["launches_equal"] and reg_only["transforms_equal"]
+            and reg_only["corrected_bytes_reg"] == 0
+            and reg_only["missing_bytes"] == reg_only["want_missing_bytes"]):
+        raise AssertionError(f"e2e_serve: registration-only session {reg_only}")
+    if not window["equal"]:
+        raise AssertionError(f"e2e_serve: serve_inflight=1 differs {window}")
+    if not (ready["backend"] == "torch" and child["metrics_cli"]["rc"] == 0
+            and child["resumed"] and 0 < cursor < 256 and child["frames"] == 256
+            and child["max_transform_gap_px"] <= 1e-4 and rc2 == 0
+            and child["served"] is True):
+        raise AssertionError(f"e2e_serve: serve child {child}")
+    _robust_clean("the journaled session", child["robustness"])
+    total = {k: launches[k] + launches_c[k] + l_emit[k] + l_reg[k] + l_one[k] for k in ZERO}
+    return {**line, "launches": total}
+
+
 # A shard's transforms against the one-device run's. Translation holds
 # the reference's 1e-4 px. Homography's consensus on the card depends on
 # the batch it runs in (16-frame halves against the 32-frame batch: equal
@@ -3397,6 +3875,8 @@ def main() -> int:
         by_path["e2e_obs"] = phase_e2e_obs(smi, tmp)
         # the command line and the runtime sanitizer (queue 1 item 19b)
         by_path["e2e_cli"] = phase_e2e_cli(smi, tmp, by_path["e2e_file"], file_transforms)
+        # the resident serve plane (queue 1 item 19c)
+        by_path["e2e_serve"] = phase_e2e_serve(smi, tmp)
     # the frame-axis mesh (queue 1 item 17)
     by_path["e2e_mesh"] = phase_e2e_mesh(smi)
     for r in rows:

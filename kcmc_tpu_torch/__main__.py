@@ -26,17 +26,22 @@ corrected-frame transfers at all — the fast first pass of the
 through a saved registration (multi-channel microscopy); `stabilize`
 removes motion faster than ~sigma frames and follows the rest.
 
+`serve` keeps one warm backend resident on the card and multiplexes
+many client streams through it (line-delimited JSON over TCP; drive it
+with `kcmc_tpu_torch.serve.client.ServeClient`); its first stdout line
+is the ready record with the bound port, its last the `served` record.
+
 Observability: `correct --trace t.json --frame-records f.jsonl
 --heartbeat 30` exports a Perfetto-loadable span trace and a per-frame
 quality JSONL while narrating progress to stderr; `report` renders
 either artifact into a human-readable run report. `metrics` and `trace`
-read dumped metrics and span shards from files. `-v`/`-q` tune stderr
-logging; stdout stays machine-readable. `KCMC_SANITIZE=1` (or `sanitize
--- CMD`) arms the runtime concurrency sanitizer for the process.
+read a live server's `host:port` or dumped metrics and span shards.
+`-v`/`-q` tune stderr logging; stdout stays machine-readable.
+`KCMC_SANITIZE=1` (or `sanitize -- CMD`) arms the runtime concurrency
+sanitizer for the process.
 
-Not here yet: `serve`, `router` and `top`, and `metrics` / `trace` on a
-live `host:port` (the serve plane, ROADMAP queue 1 item 19c); `check`
-(the analysis engine, item 22).
+Not here yet: `router` and `top` (the fleet, ROADMAP queue 1 item 19d;
+they exit naming it) and `check` (the analysis engine, item 22).
 """
 
 from __future__ import annotations
@@ -47,9 +52,9 @@ import sys
 
 import numpy as np
 
-_NO_SERVE = (
-    "comes with the serve plane (ROADMAP queue 1 item 19c), which is "
-    "not ported yet; pass a file"
+_NO_FLEET = (
+    "comes with the fleet (ROADMAP queue 1 item 19d), which is not "
+    "ported yet; `serve` runs a single server"
 )
 
 
@@ -523,9 +528,10 @@ def _cmd_report(args) -> int:
 
 
 def _cmd_metrics(args) -> int:
-    """Re-render a dumped serve metrics snapshot: JSON by default,
-    Prometheus text exposition with --text. A live `host:port` source
-    needs the serve plane's client (item 19c)."""
+    """Scrape a serve process's request-latency/health metrics: JSON by
+    default, Prometheus text exposition with --text. `source` is
+    host:port of a live server, or a previously dumped metrics JSON
+    file."""
     import os
 
     from kcmc_tpu_torch.obs.latency import render_prometheus
@@ -539,7 +545,10 @@ def _cmd_metrics(args) -> int:
         m = snap.get("metrics", snap)
     else:
         host, port = parse_addr(args.source)
-        raise SystemExit(f"metrics: scraping {host}:{port} {_NO_SERVE}")
+        from kcmc_tpu_torch.serve.client import ServeClient
+
+        with ServeClient(host=host, port=port) as c:
+            m = c.metrics()
     if args.text:
         print(render_prometheus(m), end="")
     else:
@@ -548,10 +557,9 @@ def _cmd_metrics(args) -> int:
 
 
 def _cmd_trace(args) -> int:
-    """Stitch distributed request traces from span shards on disk, and
-    render the slowest requests with their critical path — which
-    lifecycle segment dominated each. A live `host:port` source needs
-    the serve plane's client (item 19c)."""
+    """Stitch distributed request traces from span shards on disk and/or
+    a live server's `trace` verb, and render the slowest requests with
+    their critical path — which lifecycle segment dominated each."""
     import os
 
     from kcmc_tpu_torch.obs.tracing import (
@@ -568,9 +576,11 @@ def _cmd_trace(args) -> int:
             spans.extend(collect_spans([src]))
         else:
             from kcmc_tpu_torch.obs.top import parse_addr
+            from kcmc_tpu_torch.serve.client import ServeClient
 
             host, port = parse_addr(src)
-            raise SystemExit(f"trace: the trace verb of {host}:{port} {_NO_SERVE}")
+            with ServeClient(host=host, port=port) as c:
+                spans.extend(c.trace_dump())
     traces = stitch(spans)
     if args.chrome:
         with open(args.chrome, "w", encoding="utf-8") as f:
@@ -617,6 +627,64 @@ def _cmd_trace(args) -> int:
     if args.chrome:
         print(f"chrome trace written to {args.chrome}")
     return 0
+
+
+def _cmd_serve(args) -> int:
+    """Resident multi-tenant serving: one warm backend on the card, many
+    concurrent client streams multiplexed through it (docs/SERVING.md).
+    The first stdout line is a machine-readable ready record with the
+    bound port; drive it with kcmc_tpu_torch.serve.client.ServeClient.
+    Without a card it exits unless `--device cpu` (or `--backend numpy`)
+    asks for the plain versions."""
+    # --reference is parser-restricted to 'first': "mean"/index
+    # references need the whole stack up front, which a stream never
+    # has — clients send an explicit reference array at open_session.
+    ref, overrides = _parse_reference_and_overrides(args)
+    # serve_main passes template_update_every explicitly, and the serve
+    # plane owns the AGGREGATE heartbeat (args.heartbeat goes to
+    # ServeServer) — per-run heartbeats stay off.
+    overrides.pop("template_update_every", None)
+    overrides.pop("heartbeat_s", None)
+    if args.queue_depth:
+        overrides["serve_queue_depth"] = args.queue_depth
+    if args.inflight:
+        overrides["serve_inflight"] = args.inflight
+    if args.degrade_watermark is not None:
+        overrides["serve_degrade_watermark"] = args.degrade_watermark
+    # journaling/reap/transport knobs into the scheduler's shared
+    # corrector config; the config's eager validation rejects a typo'd
+    # fault plan or SLO spec BEFORE the ready line
+    if args.journal_dir:
+        overrides["serve_journal_dir"] = args.journal_dir
+    if args.journal_every is not None:
+        # `is not None`: an explicit 0 must reach the validator
+        overrides["serve_journal_every"] = args.journal_every
+    if args.session_timeout is not None:
+        overrides["serve_session_timeout_s"] = args.session_timeout
+    if args.io_timeout is not None:
+        overrides["serve_io_timeout_s"] = args.io_timeout
+    if args.trace_shards:
+        overrides["trace_shard_dir"] = args.trace_shards
+    if args.slo:
+        overrides["slo_objectives"] = args.slo
+    # latency QoS: scheduling-timing knobs only
+    if args.latency_fill_floor is not None:
+        overrides["serve_latency_fill_floor"] = args.latency_fill_floor
+    if args.no_latency_admission:
+        overrides["serve_latency_admission"] = False
+    if args.starvation_limit is not None:
+        overrides["serve_latency_starvation_limit"] = args.starvation_limit
+    args.device = _device(args)
+    args.reference = ref
+    args.overrides = overrides
+    from kcmc_tpu_torch.serve.server import serve_main
+
+    return serve_main(args)
+
+
+def _cmd_fleet(args) -> int:
+    """`router` and `top`: the fleet's commands, not ported yet."""
+    raise SystemExit(f"{args.cmd} {_NO_FLEET}")
 
 
 def _cmd_selftest(args) -> int:
@@ -872,6 +940,178 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(fn=_cmd_warmup)
 
     p = sub.add_parser(
+        "serve",
+        help="resident multi-tenant serving: keep one warm backend on "
+        "the card alive and multiplex concurrent client streams through "
+        "it (line-delimited JSON over TCP; docs/SERVING.md)",
+    )
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument(
+        "--port", type=int, default=7733,
+        help="TCP port (0 = ephemeral; the ready line reports the "
+        "bound port)",
+    )
+    p.add_argument(
+        "--model", default="translation",
+        choices=["translation", "rigid", "similarity", "affine",
+                 "homography", "piecewise"],
+    )
+    _backend_arg(p)
+    p.add_argument(
+        "--devices", type=int, default=None, metavar="N",
+        help="shard the resident mesh over N cards (see `correct "
+        "--devices`)",
+    )
+    p.add_argument("--reference", default="first", choices=["first"],
+                   help="reference for sessions that send no explicit "
+                   "reference frame at open_session: 'first' (each "
+                   "stream's first submitted frame) is the only "
+                   "stream-compatible policy")
+    p.add_argument("--batch-size", type=int, default=0)
+    p.add_argument("--max-keypoints", type=int, default=0)
+    p.add_argument("--hypotheses", type=int, default=0)
+    p.add_argument("--warp", default="",
+                   choices=_WARPS)
+    p.add_argument("--quality", action="store_true")
+    p.add_argument(
+        "--template-update", type=int, default=0,
+        help="default rolling-template cadence for sessions (frames; "
+        "0 = off; sessions may override per-stream)",
+    )
+    p.add_argument(
+        "--queue-depth", type=int, default=0,
+        help="per-session admission bound in frames "
+        "(serve_queue_depth; default 256)",
+    )
+    p.add_argument(
+        "--inflight", type=int, default=0,
+        help="cross-session in-flight dispatch window, batches "
+        "(serve_inflight; default 3)",
+    )
+    p.add_argument(
+        "--degrade-watermark", type=float, default=None,
+        help="queue fraction where QoS degradation engages before any "
+        "429 rejection (serve_degrade_watermark; default 0.5)",
+    )
+    p.add_argument(
+        "--journal-dir", default="", metavar="DIR",
+        help="durable session-journal directory (serve_journal_dir): "
+        "sessions periodically persist resume state so a killed server "
+        "restarted over the same DIR resumes every journaled stream "
+        "via the resume_session verb (docs/ROBUSTNESS.md)",
+    )
+    p.add_argument(
+        "--journal-every", type=int, default=None, metavar="FRAMES",
+        help="journal cadence in drained frames "
+        "(serve_journal_every; default 64)",
+    )
+    p.add_argument(
+        "--session-timeout", type=float, default=None, metavar="SECS",
+        help="reap sessions whose client has been idle this long "
+        "(journaled, not dropped — resume_session restores them; "
+        "serve_session_timeout_s; 0 = never)",
+    )
+    p.add_argument(
+        "--io-timeout", type=float, default=None, metavar="SECS",
+        help="transport IO deadline baseline (serve_io_timeout_s; "
+        "default 30)",
+    )
+    p.add_argument(
+        "--inject-faults", default="", metavar="SPEC",
+        help="deterministic serve-plane chaos: the fault-plan grammar "
+        "(see `correct --inject-faults`) plus the serve surfaces — "
+        "transport (drop/stall a connection), scheduler (wedge the "
+        "loop), device (mid-dispatch errors per session), journal "
+        "(session-writer failures); also via KCMC_FAULT_PLAN",
+    )
+    p.add_argument(
+        "--writer-depth", type=int, default=-1,
+        help="background-writeback queue depth for sessions writing "
+        "server-side output files (see `correct --writer-depth`)",
+    )
+    p.add_argument(
+        "--io-threads", "--io-workers", type=int, default=0, dest="io_threads",
+        help="decode-worker / encode-thread budget for session-side IO "
+        "(CorrectorConfig.io_workers; sessions share one process-wide "
+        "pool — see `correct --io-threads`)",
+    )
+    p.add_argument(
+        "--heartbeat", type=float, default=0, metavar="SECS",
+        help="aggregate serve heartbeat: per-session frames/fps, queue "
+        "depths, admission decisions, batch occupancy (0 = off)",
+    )
+    p.add_argument(
+        "--buckets", default="", metavar="SPEC",
+        help="execution-plan shape buckets (see `correct --buckets`): "
+        "the server runs every hot program per bucket BEFORE the ready "
+        "line, so sessions open against warm plans; with "
+        "--compile-cache a re-booted server loads its kernel libraries "
+        "instead of rebuilding them (ready record reports warmup_s and "
+        "plan-cache hits/misses)",
+    )
+    p.add_argument(
+        "--compile-cache", default="", metavar="DIR",
+        help="persistent kernel-library and plan-stamp directory (also "
+        "via KCMC_COMPILE_CACHE)",
+    )
+    p.add_argument(
+        "--trace", default="", metavar="PATH",
+        help="per-session Chrome traces (every session derives its "
+        "own session-id filename from PATH)",
+    )
+    p.add_argument(
+        "--frame-records", default="", metavar="PATH",
+        help="per-session frame-quality JSONLs (session-id derived "
+        "filenames)",
+    )
+    p.add_argument(
+        "--trace-shards", default="", metavar="DIR",
+        help="distributed-tracing span-shard directory "
+        "(trace_shard_dir): finished request/RPC spans append to a "
+        "bounded per-process JSONL under DIR; stitch with `python -m "
+        "kcmc_tpu_torch trace DIR` (docs/OBSERVABILITY.md 'Distributed tracing')",
+    )
+    p.add_argument(
+        "--slo", default="", metavar="SPEC",
+        help="declarative SLO objectives (slo_objectives): "
+        "';'-separated rung:threshold_s:fraction (latency) or "
+        "avail:fraction entries, e.g. 'full:0.5:0.99;avail:0.999'; "
+        "multi-window burn rates ride the metrics verb as kcmc_slo_* "
+        "gauges and the heartbeat",
+    )
+    p.add_argument(
+        "--latency-fill-floor", type=float, default=None,
+        metavar="FRAC",
+        help="deadline-QoS fill floor (serve_latency_fill_floor; "
+        "default 0): a deadline-forced partial window below this "
+        "fraction of batch_size defers while slack remains, so "
+        "trickle traffic cannot collapse throughput "
+        "(docs/SERVING.md 'Latency QoS')",
+    )
+    p.add_argument(
+        "--no-latency-admission", action="store_true",
+        help="disable predictive admission "
+        "(serve_latency_admission=False): submits whose predicted "
+        "wait exceeds their deadline are admitted anyway instead of "
+        "being rejected 429 with a predicted_wait_s hint",
+    )
+    p.add_argument(
+        "--starvation-limit", type=int, default=None, metavar="N",
+        help="batch-class starvation bound "
+        "(serve_latency_starvation_limit; default 4): after N "
+        "consecutive latency-class preemptions a waiting batch "
+        "session takes the dispatch slot unconditionally",
+    )
+    p.set_defaults(fn=_cmd_serve)
+
+    for cmd, what in (
+        ("router", "fleet front door over N serve replicas"),
+        ("top", "live dashboard over a serve process's metrics"),
+    ):
+        p = sub.add_parser(cmd, help=f"{what} (not ported yet: ROADMAP item 19d)")
+        p.set_defaults(fn=_cmd_fleet)  # takes any flags (main)
+
+    p = sub.add_parser(
         "sanitize",
         help="run a command under the runtime concurrency sanitizer: "
         "instrumented locks with lock-order validation, deadlock "
@@ -907,8 +1147,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "source", nargs="?", default="127.0.0.1:7733",
-        help="a dumped metrics JSON file to re-render (host:port of a "
-        "live server comes with the serve plane)",
+        help="host:port of a live server (default 127.0.0.1:7733), or "
+        "a dumped metrics JSON file to re-render",
     )
     p.add_argument(
         "--text", action="store_true",
@@ -925,8 +1165,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "sources", nargs="+", metavar="SRC",
-        help="span-shard .jsonl files or shard directories (host:port "
-        "of a live server comes with the serve plane)",
+        help="span-shard .jsonl files, shard directories, or host:port "
+        "of a live server",
     )
     p.add_argument(
         "--slowest", type=int, default=10, metavar="N",
@@ -1029,7 +1269,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args, extra = ap.parse_known_args(argv)
+    if extra and args.fn is not _cmd_fleet:
+        ap.error("unrecognized arguments: " + " ".join(extra))
     # KCMC_SANITIZE=1 arms the runtime concurrency sanitizer for this
     # process (`sanitize` re-execs with it set)
     from kcmc_tpu_torch.analysis.sanitize import maybe_enable_from_env

@@ -3,14 +3,14 @@
 The fields the ported slices (translation, rigid, similarity, affine,
 homography, piecewise and rigid3d, single-scale or through the scale
 pyramid, with the options of `correct()`, the retry, fault and
-file-streaming knobs of `correct_file()`, and the observability knobs
-of a one-shot run) read, under the names and
+file-streaming knobs of `correct_file()`, the observability knobs of a
+one-shot run, and the serve plane's knobs, span shards and SLOs) read, under the names and
 defaults of `kcmc_tpu.config.CorrectorConfig`, so a JAX config carries
 across with `config_from_dict(dataclasses.asdict(cfg))`. `plan_buckets`
 is normalized through plans/buckets.py, as the reference normalizes it.
 `config_from_dict` drops only the reference fields listed in
 `DROPPED_FIELDS`, each with the ROADMAP.md queue-1 item that will port
-it and why a one-shot run may ignore it, and a name no config has
+it and why a single process may ignore it, and a name no config has
 raises `TypeError`. Warp policies and knob values the reference
 rejects raise `ValueError` here with the reference's messages
 (kcmc_tpu/config.py:750-767, :976-985, :1018-1047).
@@ -178,6 +178,46 @@ class CorrectorConfig:
     frame_records_path: str | None = None
     heartbeat_s: float = 0.0
     latency_telemetry: bool = True
+    # distributed tracing of the serve plane: the span-shard directory
+    # ("" = off; each serve process appends its finished request and RPC
+    # spans to its own bounded JSONL there) and the per-process bound in
+    # spans (the `trace` verb's ring; the file stops growing past it)
+    trace_shard_dir: str = ""
+    trace_shard_cap: int = 4096
+    # declarative SLO objectives of the serve plane ("" = off):
+    # ';'-separated `rung:threshold_s:fraction` (that fraction of
+    # `request.total` on that QoS rung under the threshold) or
+    # `avail:fraction` entries, e.g. "full:0.5:0.99;avail:0.999"
+    slo_objectives: str = ""
+
+    # serving (serve/): the per-session admission bound in frames (a
+    # submit past it is rejected 429-style, after the degradation below
+    # had its chance); the cross-session window of batches in flight;
+    # the queue fraction past which a session dispatches on the
+    # reduced-budget backend (1.0 = never degrade)
+    serve_queue_depth: int = 256
+    serve_inflight: int = 3
+    serve_degrade_watermark: float = 0.5
+    # durable session journals (None = off) and their cadence in drained
+    # frames; a killed server restarted over the directory resumes every
+    # journaled stream through `resume_session`
+    serve_journal_dir: str | None = None
+    serve_journal_every: int = 64
+    # seconds a session may sit idle before it is journaled and reaped
+    # (0 = never); the transport deadline baseline of the client; the
+    # consecutive primary-backend batch failures before the scheduler
+    # quarantines and rebuilds the backend (0 = never)
+    serve_session_timeout_s: float = 0.0
+    serve_io_timeout_s: float = 30.0
+    serve_backend_strikes: int = 2
+    # latency QoS, scheduling only (never what a frame computes): the
+    # window fill a deadline-forced partial dispatch needs, predictive
+    # admission, the horizon model's refresh period and the batch-class
+    # starvation bound in preemptions
+    serve_latency_fill_floor: float = 0.0
+    serve_latency_admission: bool = True
+    serve_latency_horizon_refresh_s: float = 1.0
+    serve_latency_starvation_limit: int = 4
 
     @property
     def observability_enabled(self) -> bool:
@@ -289,6 +329,7 @@ class CorrectorConfig:
                 f"heartbeat_s must be >= 0 seconds (0 = off), got "
                 f"{self.heartbeat_s}"
             )
+        self._check_serve()
         object.__setattr__(self, "polish_grid", tuple(self.polish_grid))
         object.__setattr__(self, "patch_grid", tuple(self.patch_grid))
         # the bucket ladder in its canonical spelling, so the frozen
@@ -365,6 +406,72 @@ class CorrectorConfig:
                 f"from the dispatch window), got {self.io_prefetch}"
             )
 
+    def _check_serve(self) -> None:
+        """The reference's checks of the serve, tracing and SLO knobs,
+        with its messages (kcmc_tpu/config.py:872-923, :960-970)."""
+        if self.serve_queue_depth < 1:
+            raise ValueError(
+                f"serve_queue_depth must be >= 1 frame, got "
+                f"{self.serve_queue_depth}"
+            )
+        if self.serve_inflight < 1:
+            raise ValueError(
+                f"serve_inflight must be >= 1 batch, got "
+                f"{self.serve_inflight}"
+            )
+        if not 0.0 < self.serve_degrade_watermark <= 1.0:
+            raise ValueError(
+                "serve_degrade_watermark must be in (0, 1], got "
+                f"{self.serve_degrade_watermark}"
+            )
+        if self.serve_journal_every < 1:
+            raise ValueError(
+                f"serve_journal_every must be >= 1 frame, got "
+                f"{self.serve_journal_every}"
+            )
+        if self.serve_session_timeout_s < 0:
+            raise ValueError(
+                "serve_session_timeout_s must be >= 0 seconds (0 = "
+                f"never reap), got {self.serve_session_timeout_s}"
+            )
+        if self.serve_io_timeout_s <= 0:
+            raise ValueError(
+                "serve_io_timeout_s must be positive seconds, got "
+                f"{self.serve_io_timeout_s}"
+            )
+        if self.serve_backend_strikes < 0:
+            raise ValueError(
+                "serve_backend_strikes must be >= 0 failures (0 = "
+                f"never quarantine), got {self.serve_backend_strikes}"
+            )
+        if not 0.0 <= self.serve_latency_fill_floor <= 1.0:
+            raise ValueError(
+                "serve_latency_fill_floor must be in [0, 1] (0 = "
+                "deadlines always win), got "
+                f"{self.serve_latency_fill_floor}"
+            )
+        if self.serve_latency_horizon_refresh_s <= 0:
+            raise ValueError(
+                "serve_latency_horizon_refresh_s must be positive "
+                f"seconds, got {self.serve_latency_horizon_refresh_s}"
+            )
+        if self.serve_latency_starvation_limit < 1:
+            raise ValueError(
+                "serve_latency_starvation_limit must be >= 1 "
+                "preemption (a batch session must eventually run), got "
+                f"{self.serve_latency_starvation_limit}"
+            )
+        if self.trace_shard_cap <= 0:
+            raise ValueError(
+                "trace_shard_cap must be a positive span count, got "
+                f"{self.trace_shard_cap}"
+            )
+        if self.slo_objectives:
+            # a malformed spec fails at config time, naming the entry
+            from kcmc_tpu_torch.obs.slo import parse_objectives
+
+            parse_objectives(self.slo_objectives)
+
     def _check_warp(self) -> None:
         """The reference's warp-policy checks, with its messages."""
         if self.warp not in ("auto", "jnp", "pallas", "separable", "matrix"):
@@ -428,7 +535,8 @@ class CorrectorConfig:
 # run and its rerun resumes instead of restarting. `compile_cache_dir`
 # only changes when kernels build, and the observability knobs only
 # record what ran, never what a run computes: a killed run rerun with a
-# trace added resumes.
+# trace added resumes. The serve knobs schedule when and where a stream
+# runs, never what it computes: a journaled session resumes under others.
 # `device_templates` and `plan_buckets` are deliberately not neutral.
 SIG_NEUTRAL_FIELDS = frozenset({
     "fault_plan", "retry_attempts", "retry_backoff_s", "retry_backoff_max_s",
@@ -437,24 +545,23 @@ SIG_NEUTRAL_FIELDS = frozenset({
     "writer_depth", "io_workers", "io_prefetch",
     "mesh_devices", "collective_chunks", "upload_overlap", "compile_cache_dir",
     "trace_path", "frame_records_path", "heartbeat_s", "latency_telemetry",
+    "trace_shard_dir", "trace_shard_cap", "slo_objectives",
+    "serve_queue_depth", "serve_inflight", "serve_degrade_watermark",
+    "serve_journal_dir", "serve_journal_every", "serve_session_timeout_s",
+    "serve_io_timeout_s", "serve_backend_strikes", "serve_latency_fill_floor",
+    "serve_latency_admission", "serve_latency_horizon_refresh_s",
+    "serve_latency_starvation_limit",
 })
 
-# Reference fields the port does not declare and a one-shot, single-
-# process run may drop: field -> (ROADMAP.md queue-1 item, why dropping
+# Reference fields the port does not declare and a single process may
+# drop: field -> (ROADMAP.md queue-1 item, why dropping
 # it changes nothing such a run computes or writes).
-_SERVE = ("19c", "read only by the serve and fleet layers, which a one-shot run does not start")
+_FLEET = ("19d", "read only by the fleet router and autoscaler, which a single serve "
+                 "process does not start")
 DROPPED_FIELDS = {
-    **{f: _SERVE for f in (
-        "serve_queue_depth", "serve_inflight", "serve_degrade_watermark",
-        "serve_journal_dir", "serve_journal_every", "serve_session_timeout_s",
-        "serve_io_timeout_s", "serve_backend_strikes", "serve_latency_fill_floor",
-        "serve_latency_admission", "serve_latency_horizon_refresh_s",
-        "serve_latency_starvation_limit", "fleet_probe_interval_s",
-        "fleet_suspect_probes", "fleet_dead_probes", "fleet_wedge_threshold_s",
-        "fleet_queue_watermark", "fleet_scale_cooldown_s")},
-    "trace_shard_dir": ("19c", "span shards of serve processes; one-shot runs write none"),
-    "trace_shard_cap": ("19c", "bounds the serve span shards only"),
-    "slo_objectives": ("19c", "burn rates of the serve plane only"),
+    **{f: _FLEET for f in (
+        "fleet_probe_interval_s", "fleet_suspect_probes", "fleet_dead_probes",
+        "fleet_wedge_threshold_s", "fleet_queue_watermark", "fleet_scale_cooldown_s")},
     "donate_buffers": ("none", "an XLA buffer-aliasing knob; it changes no value"),
     "autotune_tiles": ("none", "chooses among Pallas tilings; each hand kernel has one "
                                "tiling and the knob changes no value"),

@@ -14,7 +14,7 @@ escalate the remaining batches to the exact gather warp;
 kcmc_tpu/corrector.py:1990-2066), and the merge. `correct()` takes a
 host array or a tensor (sliced where it lies), a frame range with global
 frame indices, and `device_outputs`. `stream_view` gives per-stream
-correctors that share one backend.
+correctors that share one backend: the serve plane's sessions (serve/).
 
 The dispatch is pipelined (kcmc_tpu/corrector.py:1560-1980): three
 batches in flight, the oldest drained; with `upload_overlap` (the
@@ -150,6 +150,14 @@ def _cast_output(arr: np.ndarray, dtype: np.dtype) -> np.ndarray:
         lo, hi = int_clip_bounds(dtype, fdt)
         return np.clip(np.rint(arr), lo, hi).astype(dtype)
     return arr.astype(dtype)
+
+
+def merge_outputs(outs: list[dict], cat=np.concatenate) -> dict:
+    """Per-batch output dicts merged into one dict of concatenated
+    arrays (corrector.py:212); the keys come from the first batch, as
+    the batches of one run are key-uniform. `correct`, `correct_file`
+    and the serve sessions merge through it."""
+    return {k: cat([o[k] for o in outs]) for k in outs[0]} if outs else {}
 
 
 def _resolve_dtype(output_dtype, input_dtype) -> np.dtype:
@@ -1047,7 +1055,7 @@ class MotionCorrector:
     def _ladder_batch(self, first_exc, backend, batch, ref, idx, seed, step,
                       n: int, emit_frames: bool, cast_dtype=None) -> tuple[dict, bool]:
         """Walk the degradation ladder for one failed batch
-        (corrector.py:1019): (1) bounded retries with backoff on the same
+        (corrector.py:1010): (1) bounded retries with backoff on the same
         backend, (2) the failover backend, (3) mark the frames failed.
         Only injected TransientFaultErrors enter it
         (`faults.classify_device_transient`: the batch program does no
@@ -1505,7 +1513,7 @@ class MotionCorrector:
         else:
             cat = np.concatenate
             empty = np.empty((0,) + tuple(stack.shape[1:]), np.float32)
-        merged = {k: cat([o[k] for o in outs]) for k in outs[0]} if outs else {}
+        merged = merge_outputs(outs, cat)
         corrected = merged.pop("corrected", empty)
         if not device_outputs:
             corrected = _cast_output(corrected, out_dt)  # a no-op when cast on the card
@@ -1925,7 +1933,7 @@ class MotionCorrector:
                 if writer is not None:
                     writer.close()
 
-        merged = {k: np.concatenate([o[k] for o in outs]) for k in outs[0]} if outs else {}
+        merged = merge_outputs(outs)
         corrected = merged.pop("corrected", np.empty((0,) + tuple(ts.frame_shape), np.float32))
         if isinstance(writer, AsyncBatchWriter):
             wst = writer.stats()

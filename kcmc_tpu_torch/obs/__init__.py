@@ -1,6 +1,5 @@
 """kcmc_tpu_torch.obs — the run-telemetry subsystem (the port's copy of
-kcmc_tpu/obs, one-shot runs; the serve plane's SLO engine and top
-dashboard come with ROADMAP item 19c).
+kcmc_tpu/obs; the `top` dashboard comes with ROADMAP item 19d).
 
 * `trace` — thread-aware span `Tracer`, Chrome trace-event export
   (`trace_path`, Perfetto-loadable);
@@ -8,7 +7,10 @@ dashboard come with ROADMAP item 19c).
   through a bounded background writer (`frame_records_path`);
 * `manifest` + `heartbeat` — the run manifest embedded in both
   artifacts, and the periodic stderr progress line (`heartbeat_s`);
-* `latency` — mergeable latency histograms (`timing["latency"]`);
+* `latency` — mergeable latency histograms (`timing["latency"]`, the
+  serve plane's `metrics` verb) and the serve scheduler's
+  `RequestClock`;
+* `slo` — the serve plane's SLO burn-rate engine (`slo_objectives`);
 * `tracing` — span shards, stitching and the critical path;
 * `report` — the renderer over either artifact
   (`python -m kcmc_tpu_torch.obs.report PATH`);

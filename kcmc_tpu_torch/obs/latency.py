@@ -1,5 +1,5 @@
 """Request-latency telemetry: mergeable log-bucket histograms (the
-port's copy of `LatencyHistogram`, `merge_histograms`,
+port's copy of `LatencyHistogram`, `merge_histograms`, `RequestClock`,
 `SegmentLatencies` and `render_prometheus` from
 kcmc_tpu/obs/latency.py).
 
@@ -17,10 +17,13 @@ bucket: with 2^(1/4) ≈ 1.19 bucket spacing the relative error of any
 reported percentile is bounded by 2^(1/8) - 1 ≈ 9%.
 
 `SegmentLatencies` is a thread-safe recorder keyed by (lifecycle
-segment, QoS rung); a one-shot run with telemetry armed records the
-`request.dispatch` / `request.device` / `request.drain` subset of the
-reference's serve vocabulary into it (corrector._dispatch_batches), and
-`RunTelemetry.finish` reports it as `timing["latency"]`.
+segment, QoS rung): every serve session records the whole request
+lifecycle into one (admission, queue wait, batch forming, dispatch,
+device, drain, delivery and the end-to-end `request.total`, each batch
+carried by a `RequestClock`), and a one-shot run with telemetry armed
+records the `request.dispatch` / `request.device` / `request.drain`
+subset (corrector._dispatch_batches), which `RunTelemetry.finish`
+reports as `timing["latency"]`.
 `render_prometheus` turns a dumped `metrics` payload into Prometheus
 text (`python -m kcmc_tpu_torch metrics FILE --text`).
 
@@ -197,6 +200,27 @@ def merge_histograms(*hists: LatencyHistogram) -> LatencyHistogram:
     for h in hists:
         out.merge(h)
     return out
+
+
+class RequestClock:
+    """Per-batch lifecycle timestamps the serve scheduler threads from
+    `take_batch` through dispatch to drain. `t_submit` holds each
+    frame's submit-entry `perf_counter()` stamp (the anchor of
+    `request.total`); the remaining fields are batch-level."""
+
+    __slots__ = (
+        "t_submit", "t_formed", "t_dispatched", "t_host", "rung", "trace",
+    )
+
+    def __init__(self, t_submit, t_formed: float, trace: dict | None = None):
+        self.t_submit = t_submit
+        self.t_formed = t_formed
+        self.t_dispatched: float | None = None
+        self.t_host: float | None = None
+        self.rung: str = DEFAULT_RUNG
+        # the distributed-trace context of the batch's requests
+        # (obs/tracing.py): device spans and exemplars name its trace id
+        self.trace = trace
 
 
 class SegmentLatencies:
@@ -391,63 +415,10 @@ def render_prometheus(metrics: dict) -> str:
                 f'{{session="{_prom_escape(sid)}"}} {int(queues[sid])}'
             )
 
-    lines.extend(_render_slo_prometheus(metrics.get("slo")))
+    slo = metrics.get("slo")
+    if slo:
+        from .slo import render_slo_prometheus  # lazy: slo imports this module
+
+        lines.extend(render_slo_prometheus(slo))
     return "\n".join(lines) + "\n"
 
-
-# The SLO engine's burn-rate windows (kcmc_tpu/obs/slo.py `WINDOWS`),
-# in render order; the engine itself comes with the serve plane (item
-# 19c), the rendering of a dumped `slo` section is here.
-_SLO_WINDOWS = ("5m", "1h", "6h", "3d")
-
-
-def _render_slo_prometheus(slo) -> list[str]:
-    """Prometheus lines for an `slo` metrics section (the reference's
-    `render_slo_prometheus`): one `kcmc_slo_burn_rate` gauge per
-    (objective, window), one `kcmc_slo_target` per objective, one
-    `kcmc_slo_alerts` count. [] for payloads without the section."""
-    if not isinstance(slo, dict) or not slo.get("objectives"):
-        return []
-    # objective -> qos_class, for the per-class labels below (absent on
-    # availability objectives: those lines omit the label)
-    classes = {
-        obj.get("name"): obj.get("qos_class")
-        for obj in slo.get("objectives") or []
-        if isinstance(obj, dict)
-    }
-
-    def _labels(name: str, extra: str = "") -> str:
-        qc = classes.get(name)
-        cls = f',qos_class="{qc}"' if qc else ""
-        return f'objective="{name}"{cls}{extra}'
-
-    lines = [
-        "# HELP kcmc_slo_burn_rate Error-budget burn rate per"
-        " objective and window (1.0 = sustainable).",
-        "# TYPE kcmc_slo_burn_rate gauge",
-    ]
-    burns = slo.get("burn_rates") or {}
-    for name in sorted(burns):
-        for w in _SLO_WINDOWS:
-            v = (burns[name] or {}).get(w)
-            if v is None:
-                continue
-            window = f',window="{w}"'
-            lines.append(
-                f"kcmc_slo_burn_rate{{{_labels(name, window)}}}"
-                f" {float(v):.9g}"
-            )
-    lines.append("# HELP kcmc_slo_target Objective target fraction.")
-    lines.append("# TYPE kcmc_slo_target gauge")
-    for obj in slo.get("objectives") or []:
-        if isinstance(obj, dict) and obj.get("name"):
-            lines.append(
-                f'kcmc_slo_target{{{_labels(obj["name"])}}}'
-                f" {float(obj.get('target', 0.0)):.9g}"
-            )
-    lines.append(
-        "# HELP kcmc_slo_alerts Number of currently firing SLO alerts."
-    )
-    lines.append("# TYPE kcmc_slo_alerts gauge")
-    lines.append(f"kcmc_slo_alerts {len(slo.get('alerts') or [])}")
-    return lines

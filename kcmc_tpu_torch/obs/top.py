@@ -1,9 +1,9 @@
 """The address parsing of `kcmc_tpu top` (the port's copy of
 `parse_addr` from kcmc_tpu/obs/top.py).
 
-The live dashboard over serve replicas comes with the serve plane
-(ROADMAP queue 1 item 19c); the `metrics` and `trace` subcommands read
-their `host:port` sources through `parse_addr` from here, where the
+The live dashboard over serve replicas comes with the fleet (ROADMAP
+queue 1 item 19d); the `metrics` and `trace` subcommands read their
+`host:port` sources through `parse_addr` from here, where the
 reference keeps it.
 """
 

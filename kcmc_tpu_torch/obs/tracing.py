@@ -28,8 +28,8 @@ is the substrate, stdlib only:
   fleet aggregator's contract.
 
 `obs/report.py` reads shards through `collect_spans`, `stitch` and
-`critical_path`; the serve plane (ROADMAP item 19c) is the writer
-`SpanShard` waits for. Span names recorded here are literals from
+`critical_path`; the serve plane's scheduler, server and client
+(serve/, with `trace_shard_dir` set) write the shards. Span names recorded here are literals from
 `obs/registry.py`.
 """
 

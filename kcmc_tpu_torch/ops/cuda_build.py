@@ -8,7 +8,7 @@ given to `set_lib_dir` (plans/cache.py points it at
 directory is active); either way they are named by a hash of the
 source and the flags, so a changed source rebuilds and an unchanged one
 loads at once. `build()` starts one `nvcc` per missing
-library, all together. Nothing here runs when the package is imported:
+library, all together; builds and loads are serialized across threads. Nothing here runs when the package is imported:
 a kernel is built at its first launch (or by an explicit `build()`).
 
 `LAUNCHES` counts kernel launches, one per successful wrapper launch;
@@ -23,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -51,6 +52,10 @@ _LIBS: dict[tuple, ctypes.CDLL] = {}  # by (name, the directory it was loaded fr
 BUILD_INFO: dict[str, dict] = {}
 NVCC_RUNS = 0
 _LIB_DIR: Path | None = None  # set_lib_dir(); None: BUILD_DIR
+# One build or load at a time: the serve plane's warm-up threads may
+# reach a library's first build while the scheduler thread dispatches,
+# and two builds of one library would write the same temporary file.
+_BUILD_LOCK = threading.RLock()
 
 
 def reset_launches() -> None:
@@ -101,8 +106,12 @@ def build(names=None) -> dict[str, dict]:
     {"seconds", "cached", "ptxas": [register, shared-memory, spill,
     warning and performance-note lines]}; raises with the compiler
     output if any build fails."""
+    with _BUILD_LOCK:
+        return _build(list(SOURCES) if names is None else list(names))
+
+
+def _build(names: list) -> dict[str, dict]:
     global NVCC_RUNS
-    names = list(SOURCES) if names is None else list(names)
     lib_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
     got = {}
@@ -147,6 +156,14 @@ def build(names=None) -> dict[str, dict]:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for `name`, building it first if needed."""
     key = (name, _LIB_DIR)
+    lib = _LIBS.get(key)
+    if lib is not None:
+        return lib
+    with _BUILD_LOCK:
+        return _load_locked(name, key)
+
+
+def _load_locked(name: str, key: tuple) -> ctypes.CDLL:
     lib = _LIBS.get(key)
     if lib is None:
         out = name

@@ -78,6 +78,12 @@ class RobustnessReport:
     rescued_frames: int = 0  # failed frames trajectory-interpolated
     quarantined_parts: list = dataclasses.field(default_factory=list)
     faults_injected: int = 0  # faults a FaultPlan actually fired
+    # serve-plane counters (serve/): per-session journal durability and
+    # the idempotent-submit dedup; zero on one-shot runs
+    journal_saves: int = 0  # durable session-journal snapshots written
+    journal_failures: int = 0  # journal writes that failed (advised)
+    deduped_frames: int = 0  # replayed submit frames dropped by dedup
+    resumed_from_frame: int = -1  # journal-resume cursor (-1 = fresh)
 
     @property
     def failed_frames(self) -> int:
@@ -92,11 +98,16 @@ class RobustnessReport:
             or self.rescued_frames
             or self.quarantined_parts
             or self.faults_injected
+            or self.journal_saves
+            or self.journal_failures
+            or self.deduped_frames
+            or self.resumed_from_frame >= 0
         )
 
     def as_dict(self) -> dict:
-        """JSON-serializable summary (the timing payload)."""
-        return {
+        """JSON-serializable summary (the timing payload); the serve-only
+        keys appear only when serving touched them."""
+        out = {
             "io_retries": int(self.io_retries),
             "device_retries": int(self.device_retries),
             "backend_failovers": int(self.backend_failovers),
@@ -106,6 +117,14 @@ class RobustnessReport:
             "quarantined_parts": [str(p) for p in self.quarantined_parts],
             "faults_injected": int(self.faults_injected),
         }
+        if self.journal_saves or self.journal_failures:
+            out["journal_saves"] = int(self.journal_saves)
+            out["journal_failures"] = int(self.journal_failures)
+        if self.deduped_frames:
+            out["deduped_frames"] = int(self.deduped_frames)
+        if self.resumed_from_frame >= 0:
+            out["resumed_from_frame"] = int(self.resumed_from_frame)
+        return out
 
 
 @dataclasses.dataclass

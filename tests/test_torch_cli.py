@@ -26,7 +26,7 @@ from kcmc_tpu_torch.utils.synthetic import make_drift_stack
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORTED = ("info", "selftest", "correct", "warmup", "sanitize", "metrics",
-          "trace", "report", "apply", "stabilize")
+          "trace", "report", "apply", "stabilize", "serve")
 CPU = ("--device", "cpu")
 BATCH = ("--batch-size", "8")
 
@@ -153,12 +153,14 @@ def test_top_level_flags_and_unported_subcommands(monkeypatch, capsys):
     assert _flags(port, skip=("device",)) == _flags(ref)
     dev = [a for a in port._actions if a.dest == "device"][0]
     assert dev.option_strings == ["--device"] and dev.default is None
-    assert set(_subparsers(port)) == set(PORTED)
-    assert set(_subparsers(ref)) - set(PORTED) == {"serve", "router", "top", "check"}
-    for cmd in ("serve", "router", "top", "check"):
-        with pytest.raises(SystemExit) as e:
-            tmain([cmd])
-        assert e.value.code == 2
+    assert set(_subparsers(port)) == set(PORTED) | {"router", "top"}
+    assert set(_subparsers(ref)) - set(PORTED) == {"router", "top", "check"}
+    with pytest.raises(SystemExit) as e:
+        tmain(["check"])
+    assert e.value.code == 2
+    for cmd in ("router", "top"):
+        code = _exit([cmd, "--port", "0"])
+        assert code.startswith(cmd) and "19d" in code
     capsys.readouterr()
 
 
@@ -373,10 +375,12 @@ def test_error_exits_equal_the_references(files, case):
 
 
 def test_port_only_error_paths(files, capsys):
-    code = _exit(["metrics", "127.0.0.1:7733"])
-    assert "19c" in code and "127.0.0.1:7733" in code
-    code = _exit(["trace", "localhost:9"])
-    assert "19c" in code
+    # a live source with nothing listening: the reference's error
+    for argv in (["metrics", "localhost:9"], ["trace", "localhost:9"]):
+        with pytest.raises(ConnectionRefusedError):
+            tmain(argv)
+        with pytest.raises(ConnectionRefusedError):
+            _jmain(argv)
     code = _exit(["correct", files["tif"], "--backend", "jax"])
     assert "python -m kcmc_tpu`" in code
     code = _exit(["--device", "cuda", "correct", files["tif"], "--backend", "numpy"])
@@ -388,6 +392,7 @@ def test_port_only_error_paths(files, capsys):
     assert "has no resume" in code and "ResumableCorrector" not in code
     if not torch.cuda.is_available():
         assert "--device cpu" in _exit(["correct", files["tif"]])
+        assert "--device cpu" in _exit(["serve", "--port", "0"])
         assert "needs a CUDA card" in _exit(["selftest", "--size", "256"])
     capsys.readouterr()
 

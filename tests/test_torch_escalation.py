@@ -311,6 +311,9 @@ def test_fault_e_only_the_named_fields_are_dropped():
                                     serve_queue_depth=8, donate_buffers=False)
     cfg = kcmc_tpu_torch.config_from_dict(dataclasses.asdict(jcfg))
     assert (cfg.collective_chunks, cfg.upload_overlap, cfg.mesh_devices) == (4, False, 2)
+    # the serve knobs carry across; only the fleet's are dropped (19d)
+    assert cfg.serve_queue_depth == 8
+    assert {item for item, _ in DROPPED_FIELDS.values()} == {"19d", "none"}
     with pytest.raises(TypeError, match="bogus_knob"):
         kcmc_tpu_torch.config_from_dict({"model": "translation", "bogus_knob": 1})
     with pytest.raises(TypeError, match="bogus_knob"):

@@ -1027,3 +1027,120 @@ def test_cli_correct_on_card_equals_the_in_process_run(cuda, tmp_path):
     assert summary["backend"] == "torch" and summary["warp_flagged_frames"] == 0
     res = MotionCorrector(batch_size=16).correct_file(src, emit_frames=False)
     np.testing.assert_array_equal(np.load(npz)["transforms"], res.transforms)
+
+
+def _serve_kw():
+    return dict(model="translation", batch_size=8, max_keypoints=256)
+
+
+def test_serve_two_sessions_on_card_equal_correct(cuda):
+    """Two client threads through a cuda ServeServer: each session's
+    transforms equal a one-shot correct() of its frames on the card
+    (integers equal), and the sessions launched the kernels."""
+    import threading
+
+    from kcmc_tpu_torch.serve.client import ServeClient
+    from kcmc_tpu_torch.serve.server import ServeServer
+
+    parts = {k: make_drift_stack(n, (256, 256), seed=s).stack.astype(np.float32)
+             for k, n, s in (("A", 40, 0), ("B", 27, 1))}
+    truth = {k: MotionCorrector(**_serve_kw()).correct(v) for k, v in parts.items()}
+    out = {}
+
+    def drive(port, k):
+        with ServeClient(port=port) as c:
+            sid = c.open_session(tenant=k)
+            for lo in range(0, len(parts[k]), 13):
+                c.submit(sid, parts[k][lo:lo + 13])
+            out[k] = c.close_session(sid)
+
+    with ServeServer(MotionCorrector(**_serve_kw()), port=0) as srv:
+        before = cuda_build.launch_counts()["warp_translation"]
+        ts = [threading.Thread(target=drive, args=(srv.port, k)) for k in parts]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(300)
+    assert cuda_build.launch_counts()["warp_translation"] > before
+    for k in parts:
+        assert np.abs(out[k]["transforms"] - truth[k].transforms).max() <= 1e-4
+        for d in ("n_keypoints", "n_matches", "n_inliers"):
+            np.testing.assert_array_equal(out[k]["diagnostics"][d], truth[k].diagnostics[d])
+
+
+def test_serve_drain_to_host_without_frames_on_card(cuda):
+    """A registration-only batch (emit_frames=False) downloads no
+    corrected frames; to_host at drain materializes the rest, equal to
+    the emitting batch's."""
+    b = TorchBackend(CorrectorConfig(**_serve_kw()), device=cuda)
+    st = make_drift_stack(8, (256, 256), seed=2).stack.astype(np.float32)
+    ref = b.prepare_reference(st[0])
+    reg = b.process_batch_async(st, ref, np.arange(8), emit_frames=False)
+    full = b.process_batch_async(st, ref, np.arange(8))
+    assert "corrected" not in reg.download.bufs and "corrected" in full.download.bufs
+    got, want = b.to_host(reg), b.to_host(full)
+    assert set(want) - set(got) == {"corrected"}
+    for k, v in got.items():
+        assert isinstance(v, np.ndarray)
+        np.testing.assert_array_equal(v, want[k])
+
+
+def test_serve_inflight_one_equals_default_window_on_card(cuda):
+    """The corrected frames of an emitting session through the default
+    window (three batches in flight on the pooled pinned downloads) and
+    through serve_inflight=1 have one sha256."""
+    import hashlib
+
+    from kcmc_tpu_torch.serve.scheduler import StreamScheduler
+
+    st = make_drift_stack(64, (256, 256), seed=3).stack.astype(np.float32)
+    digests = []
+    for depth in (3, 1):
+        sched = StreamScheduler(MotionCorrector(serve_inflight=depth, **_serve_kw())).start()
+        try:
+            s = sched.open_session(emit_frames=True)
+            for lo in range(0, 64, 24):
+                sched.submit(s.sid, st[lo:lo + 24])
+            res = sched.close_session(s.sid, timeout=300)
+        finally:
+            sched.stop()
+        assert res.corrected.shape == st.shape
+        digests.append(hashlib.sha256(res.corrected.tobytes()).hexdigest())
+    assert digests[0] == digests[1]
+
+
+def test_serve_fatal_dispatch_error_fails_the_stream_on_card(cuda, monkeypatch):
+    """A kernel that cannot be built or launched fails its session's
+    stream on the card (close_session raises it) although the default
+    CPU failover rung is configured: no batch reruns on the CPU, the
+    backend is not quarantined, and the next session runs the kernels."""
+    from kcmc_tpu_torch.serve.scheduler import StreamScheduler
+
+    orig = TorchBackend.process_batch_async
+    fired = []
+
+    def flaky(self, *a, **k):
+        if not fired:
+            fired.append(self)
+            raise RuntimeError("cannot build or load detect.so")
+        return orig(self, *a, **k)
+
+    monkeypatch.setattr(TorchBackend, "process_batch_async", flaky)
+    st = make_drift_stack(16, (256, 256), seed=4).stack.astype(np.float32)
+    sched = StreamScheduler(MotionCorrector(serve_degrade_watermark=1.0, **_serve_kw())).start()
+    try:
+        s = sched.open_session(tenant="fatal")
+        sched.submit(s.sid, st)
+        with pytest.raises(RuntimeError, match="cannot build or load detect.so"):
+            sched.close_session(s.sid, timeout=300)
+        before = cuda_build.launch_counts()["detect_response"]
+        ok = sched.open_session(tenant="after")
+        sched.submit(ok.sid, st)
+        res = sched.close_session(ok.sid, timeout=300)
+        st_ = sched.stats()
+    finally:
+        sched.stop()
+    assert str(fired[0].device).startswith("cuda")
+    assert st_["supervisor"]["backend_rebuilds"] == 0
+    assert cuda_build.launch_counts()["detect_response"] > before
+    assert res.timing["robustness"]["backend_failovers"] == 0

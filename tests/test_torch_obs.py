@@ -424,8 +424,9 @@ def test_sharded_run_has_collective_chunk_and_shard_args(stack, tmp_path):
 
 
 def test_config_from_reference_config_arms_the_artifacts(stack, tmp_path):
-    """The four knobs carry across from a reference config; the dropped
-    serve knobs stay dropped under item 19c; unknown names raise."""
+    """The four knobs carry across from a reference config, and so do
+    the serve plane's span-shard and SLO knobs (resume-neutral, like
+    the reference's); unknown names raise."""
     from kcmc_tpu_torch.config import DROPPED_FIELDS, SIG_NEUTRAL_FIELDS
 
     jcfg = kcmc_tpu.CorrectorConfig(trace_path=str(tmp_path / "t.json"),
@@ -436,7 +437,8 @@ def test_config_from_reference_config_arms_the_artifacts(stack, tmp_path):
     for k in ("trace_path", "frame_records_path", "heartbeat_s", "latency_telemetry"):
         assert getattr(cfg, k) == getattr(jcfg, k) and k in SIG_NEUTRAL_FIELDS
     for k in ("trace_shard_dir", "trace_shard_cap", "slo_objectives"):
-        assert DROPPED_FIELDS[k][0] == "19c"
+        assert getattr(cfg, k) == getattr(jcfg, k) and k in SIG_NEUTRAL_FIELDS
+        assert k not in DROPPED_FIELDS
     res = kcmc_tpu_torch.MotionCorrector(config=cfg, device="cpu", heartbeat_s=0.0,
                                          **KW).correct(stack)
     assert "latency" not in res.timing  # latency_telemetry=False

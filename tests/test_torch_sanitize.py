@@ -11,13 +11,12 @@ sanitize.py), on the cases of the reference's tests/test_sanitize.py:
   wrapping a command;
 * the port's AsyncBatchWriter, heartbeat and a whole `correct_file`
   run (upload worker, prefetch thread, writer) sanitize-clean and
-  leak-free;
+  leak-free, and the serve scheduler under concurrent stats() probes;
 * the missing static lock-order graph reported on stderr (item 22),
   and `KCMC_SANITIZE=1` arming the sanitizer through the CLI's `main`.
 
-The static-graph case waits for the analysis engine (item 22), the
-scheduler case for the serve plane (item 19c). Every test arms and
-disarms the sanitizer itself.
+The static-graph case waits for the analysis engine (item 22). Every
+test arms and disarms the sanitizer itself.
 """
 
 from __future__ import annotations
@@ -398,3 +397,33 @@ def test_correct_file_run_sanitize_clean_and_leak_free(san, tmp_path):
     assert san.stats()["locks_instrumented"] > 0
     assert san.take_violations() == []
     assert san.check_leaks(before) == []
+
+
+def test_scheduler_stats_under_concurrent_load_sanitize_clean(san):
+    """The reference's scheduler case: drive the port's StreamScheduler
+    on the CPU with a client while another thread hammers stats() and
+    snapshot(); no order violation."""
+    from kcmc_tpu_torch import MotionCorrector
+    from kcmc_tpu_torch.serve.scheduler import StreamScheduler
+
+    mc = MotionCorrector(device="cpu", batch_size=4, max_keypoints=32, n_hypotheses=16)
+    frames = np.random.default_rng(0).random((12, 32, 32), np.float32)
+    with StreamScheduler(mc) as sched:
+        stop = threading.Event()
+
+        def prober():
+            while not stop.is_set():
+                assert sched.stats()["batch_size"] == 4
+                sched.snapshot()
+                time.sleep(0.001)
+
+        pt = threading.Thread(target=prober, name="kcmc-test-prober")
+        pt.start()
+        sess = sched.open_session(tenant="t")
+        for lo in range(0, len(frames), 3):
+            sched.submit(sess.sid, frames[lo:lo + 3])
+        res = sched.close_session(sess.sid, timeout=60.0)
+        stop.set()
+        pt.join(timeout=5.0)
+        assert res.transforms is not None and len(res.transforms) == 12
+    assert san.take_violations() == []
