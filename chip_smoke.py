@@ -289,6 +289,24 @@ port's TiffWriter, the scene x 40000; escalation off):
     session to the uninterrupted transforms, SIGTERM: the `served`
     record, exit 0). Every stream must show no retry, no CPU failover
     and no frame marked failed.
+29. e2e_fleet: the serve fleet on config 1 (frames of the same stack).
+    In this process a FleetRouter (default health config) in front of
+    two ServeServers on the card: two client threads stream 256 and 192
+    frames under session ids placed on different replicas (the binding
+    asserted), each bit-equal to a correct() of its frames; the probe
+    failures, health transitions and migrations of the drive; then a
+    128-frame stream whose replica is stopped once 64 frames are done
+    (and journaled by the stop) migrates and finishes within 1e-4 px of correct(), one
+    `fleet.migrate` span; K1/K2/K3 24/24/38 over both (18 batches, four
+    references, each server's degraded warm-up batch). Then `python -m
+    kcmc_tpu_torch router --spawn 2` on the card: a 128-frame stream
+    whose replica is SIGKILLed mid-stream finishes with no frame lost
+    or duplicated, `migration_failures` 0, within 1e-4 px; `top --once`
+    exits 0; SIGTERM gives the `routed` record, exit 0 and no replica
+    left. Also the drive's frames/s and the router's host time a frame
+    (`recv_msg` + `send_msg` of one 32-frame submit) beside e2e_serve's
+    wire costs. Every stream must show no retry, failover or failed
+    frame.
 
 Every e2e line of a 2D model carries `roofline`: analysis/roofline's
 binding resource and fraction of peak on this card's row, for the work
@@ -3590,6 +3608,346 @@ def phase_e2e_serve(smi: str, tmp: str) -> dict:
     return {**line, "launches": total}
 
 
+FLEET_STREAMS = {"F1": (0, 256), "F2": (256, 448)}
+FLEET_MOVED = (448, 576)  # the stream whose replica is stopped mid-stream
+FLEET_KILLED = (576, 704)  # the CLI child's stream whose replica is SIGKILLed
+
+
+def _fleet_drive(port: int, sid: str, frames: np.ndarray, out: dict, lo: int = 0,
+                 hi: int | None = None, close: bool = True, client=None) -> None:
+    """One client of e2e_fleet through a router: open `sid` (unless `lo`
+    > 0: it is open) and note the replica the router bound it to in
+    out[sid + "/bound"], submit frames[lo:hi] in whole batches, read
+    result spans until frame `hi`, each starting where the last ended
+    (no frame lost or duplicated across a migration), and close. Errors
+    land in out[sid]."""
+    from kcmc_tpu_torch.serve.client import ServeClient
+
+    hi = len(frames) if hi is None else hi
+    c = client or ServeClient(port=port)
+    try:
+        if lo == 0:
+            c.open_session(tenant=sid, session_id=sid)
+            out[sid + "/bound"] = c.stats()["sessions"].get(sid)
+        for a in range(lo, hi, 32):
+            c.submit(sid, frames[a:min(a + 32, hi)])
+        seen = lo
+        while seen < hi:
+            span = c.results(sid, timeout=300.0)
+            if int(span["first_frame"]) != seen:
+                raise AssertionError(f"e2e_fleet: {sid} span at {span['first_frame']}, "
+                                     f"{seen} expected: a lost or duplicated frame")
+            seen += int(span["n"])
+        if close:
+            out[sid] = c.close_session(sid)
+    except BaseException as e:  # re-raised by the phase
+        out[sid] = e
+    finally:
+        if client is None:
+            c.close()
+
+
+def _fleet_journal_done(jdir: str, sid: str, frames: int, timeout: float = 120.0) -> int:
+    """Wait until `sid`'s journal under `jdir` holds >= `frames` frames;
+    the frames it holds."""
+    from kcmc_tpu_torch.serve.journal import journal_path, load_session_journal
+
+    jp = journal_path(jdir, sid)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        got = load_session_journal(jp) if os.path.exists(jp) else None
+        if got and int(got[0]["done"]) >= frames:
+            return int(got[0]["done"])
+        time.sleep(0.05)
+    raise AssertionError(f"e2e_fleet: {sid}'s journal never held {frames} frames")
+
+
+def listening_children(ppid: int) -> dict[int, int]:
+    """Listening TCP port -> pid over the child processes of `ppid`,
+    from /proc (the socket inodes each child holds): the replicas that
+    `router --spawn` started (tests/test_torch_fleet.py uses it too)."""
+    kids = []
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    if int(f.read().rsplit(")", 1)[1].split()[1]) == ppid:
+                        kids.append(int(d))
+            except (OSError, IndexError, ValueError):
+                continue
+    inode_port = {}
+    for table in ("/proc/net/tcp", "/proc/net/tcp6"):
+        try:
+            with open(table) as f:
+                rows = f.read().splitlines()[1:]
+        except OSError:
+            continue
+        for row in rows:
+            fields = row.split()
+            if fields[3] == "0A":  # LISTEN
+                inode_port[fields[9]] = int(fields[1].rsplit(":", 1)[1], 16)
+    out = {}
+    for pid in kids:
+        try:
+            for fd in os.listdir(f"/proc/{pid}/fd"):
+                link = os.readlink(f"/proc/{pid}/fd/{fd}")
+                if link.startswith("socket:[") and link[8:-1] in inode_port:
+                    out[inode_port[link[8:-1]]] = pid
+        except OSError:
+            continue
+    return out
+
+
+def pid_alive(pid: int) -> bool:
+    """Whether `pid` runs (a zombie does not)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def _transitions(texts) -> list[str]:
+    """The router's health transitions ("A -> B") among advisory texts."""
+    return [t.split("kcmc router: replica ", 1)[1] for t in texts
+            if "kcmc router: replica " in t and " -> " in t]
+
+
+def phase_e2e_fleet(smi: str, tmp: str, serve_line: dict) -> dict:
+    """The serve fleet on config 1 (translation, K=512, batch 32, 512²,
+    frames of the 1000-frame float32 stack):
+
+    (a) a FleetRouter (the default health config) in front of two
+    in-process ServeServers on cuda:0 sharing a journal directory; two
+    client threads stream 256 and 192 frames (32-frame submits) under
+    session ids that rendezvous placement puts on different replicas
+    (asserted), each stream bit-equal to a correct() of its frames
+    (integers equal) with no retry, failover or failed frame; the
+    router's probe failures, health transitions and migrations over
+    the drive (0 expected, a spurious one is reported); then a third
+    stream of 128 frames whose replica is stopped once its first 64 are
+    done and journaled (stop() journals, then the replica dies): it migrates to the
+    survivor and finishes within 1e-4 px of correct(), with one
+    `fleet.migrate` span. K1/K2/K3 over (a), read after every server
+    stopped: 18 batches, four references (two streams, the moved one
+    on each replica) and each server's degraded warm-up batch.
+    (b) `python -m kcmc_tpu_torch router --spawn 2` on the card with the
+    client here: a 128-frame stream whose replica is SIGKILLed once its
+    journal holds 32 frames (the router's buffered frames at the kill
+    printed) finishes with no frame lost or duplicated,
+    `migration_failures` 0 and the parity of (a); `top --once` on the
+    router exits 0; SIGTERM gives the `routed` record and exit 0, and no
+    replica process is left.
+    Also: the aggregate frames/s of (a)'s drive, and the router's host
+    time a frame for one 32-frame submit (its `recv_msg` and
+    `send_msg`; it neither decodes nor encodes) beside e2e_serve's
+    client and server wire costs."""
+    import signal
+    import threading
+    import warnings
+
+    from kcmc_tpu_torch.config import CorrectorConfig
+    from kcmc_tpu_torch.serve.client import ServeClient
+    from kcmc_tpu_torch.serve.fleet import Replica, place
+    from kcmc_tpu_torch.serve.router import FleetRouter
+    from kcmc_tpu_torch.serve.server import ServeServer
+
+    t_phase = time.perf_counter()
+    stack, _, mc_truth = path_input("translation", 1000)
+    cut = {"F1": FLEET_STREAMS["F1"], "F2": FLEET_STREAMS["F2"], "M": FLEET_MOVED,
+           "K": FLEET_KILLED}
+    frames = {k: stack[a:b] for k, (a, b) in cut.items()}
+    truth = {k: mc_truth.correct(v) for k, v in frames.items()}
+
+    def parity(k, got) -> dict:
+        gap = float(np.abs(got["transforms"] - truth[k].transforms).max())
+        return {"frames": int(got["frames"]), "max_transform_gap_px": gap,
+                "bit_equal": bool(np.array_equal(got["transforms"], truth[k].transforms)),
+                "integers_equal": all(np.array_equal(got["diagnostics"][d],
+                                                     truth[k].diagnostics[d])
+                                      for d in ("n_keypoints", "n_matches", "n_inliers")),
+                "robustness": got["timing"].get("robustness")}
+
+    # (a) the in-process fleet
+    jdir = os.path.join(tmp, "fleet_journal")
+    servers = [ServeServer(path_input("translation", 1000, serve_journal_dir=jdir,
+                                      **SERVE_KW)[2], port=0).start() for _ in range(2)]
+    reps = [Replica("127.0.0.1", s.port) for s in servers]
+    rids = [r.rid for r in reps]
+    sids = {k: next(f"fleet-{k}-{i}" for i in range(1000) if place(f"fleet-{k}-{i}", rids)
+                    == rids[j]) for j, k in enumerate(("F1", "F2"))}
+    sids["M"] = "fleet-M"
+    out: dict = {}
+    try:
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            with FleetRouter(reps, port=0, config=CorrectorConfig(), journal_dir=jdir) as router:
+                torch.cuda.synchronize()
+                servers[0].scheduler.mc.backend.reset_launch_counts()
+                t0 = time.perf_counter()
+                threads = [threading.Thread(target=_fleet_drive, name=f"kcmc-smoke-fleet-{k}",
+                                            args=(router.port, sids[k], frames[k], out))
+                           for k in ("F1", "F2")]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(600)
+                seconds = time.perf_counter() - t0
+                drive_stats = router.stats()
+                for k in ("F1", "F2"):
+                    if not isinstance(out.get(sids[k]), dict):
+                        raise AssertionError(f"e2e_fleet: stream {k} failed: {out.get(sids[k])!r}")
+                # the graceful migration: stop the moved stream's replica
+                # once its first 64 frames are done and journaled (the
+                # first snapshot is the first batch; stop() journals the
+                # rest)
+                with ServeClient(port=router.port) as c:
+                    _fleet_drive(router.port, sids["M"], frames["M"], out, hi=64, close=False,
+                                 client=c)
+                    journaled = _fleet_journal_done(jdir, sids["M"], 32)
+                    victim = router.stats()["sessions"][sids["M"]]
+                    t_stop = time.perf_counter()
+                    servers[rids.index(victim)].stop()
+                    _fleet_drive(router.port, sids["M"], frames["M"], out, lo=64, client=c)
+                    moved_s = time.perf_counter() - t_stop
+                if not isinstance(out.get(sids["M"]), dict):
+                    raise AssertionError(f"e2e_fleet: the moved stream failed: "
+                                         f"{out.get(sids['M'])!r}")
+                fleet_stats = router.stats()
+                migrate = router.fleet_metrics()["plane"]["totals"].get("fleet.migrate") or {}
+    finally:
+        for s in servers:
+            s.stop()
+    torch.cuda.synchronize()
+    launches = servers[0].scheduler.mc.backend.launch_counts()
+    texts = [str(w.message) for w in rec]
+    batches = sum(b - a for a, b in cut.values() if (a, b) != FLEET_KILLED) // 32
+    refs = 4
+    want = {**ZERO, "detect_response": batches + refs + 2, "extract_blended": batches + refs + 2,
+            "warp_translation": 2 * batches + 2}
+    streams = {k: parity(k, out[sids[k]]) for k in ("F1", "F2", "M")}
+    wire = _wire_split(stack[:32], tmp)
+    router_wire = {"frames": 32, "recv_s": wire["recv_s"], "send_s": wire["send_s"],
+                   "router_ms_per_frame": 1e3 * (wire["recv_s"] + wire["send_s"]) / 32,
+                   "client_ms_per_frame": wire["client_ms_per_frame"],
+                   "server_ms_per_frame": wire["server_ms_per_frame"]}
+    router_wire["e2e_serve_wire_split"] = {
+        k: serve_line["wire_split"][k] for k in ("frames", "client_ms_per_frame",
+                                                 "server_ms_per_frame")}
+    inproc = {
+        "sessions": {k: sids[k] for k in ("F1", "F2")},
+        "bound": {k: out.get(sids[k] + "/bound") for k in ("F1", "F2")},
+        "placed": {k: rids[j] for j, k in enumerate(("F1", "F2"))},
+        "seconds_drive": seconds, "frames_per_s": 448 / seconds,
+        "probes": drive_stats["probes"], "probe_failures": drive_stats["probe_failures"],
+        "migrations_total_drive": drive_stats["migrations_total"],
+        "transitions": _transitions(texts),
+        "moved": {"journaled_at_stop": journaled, "from": victim,
+                  "migrations": fleet_stats["migrations"], "fleet_migrate_spans":
+                  migrate.get("count"), "seconds_after_stop": moved_s},
+        "probe_failures_total": fleet_stats["probe_failures"],
+        "migrations_total": fleet_stats["migrations_total"],
+        "migration_failures": fleet_stats["migration_failures"],
+    }
+
+    # (b) the CLI child: router --spawn 2 on the card
+    jdir_b = os.path.join(tmp, "fleet_cli_journal")
+    err_path = os.path.join(tmp, "fleet_router.err")
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "kcmc_tpu_torch", "router", "--port", "0", "--spawn", "2",
+             "--journal-dir", jdir_b, "--serve-args", "--journal-every 32 --queue-depth 2048"],
+            cwd=_ROOT, env=_child_env(), stdout=subprocess.PIPE, stderr=err, text=True)
+    kids: dict = {}
+    cli: dict = {}
+    try:
+        t0 = time.perf_counter()
+        line = proc.stdout.readline()
+        try:
+            ready = json.loads(line)
+        except ValueError:
+            raise AssertionError(f"e2e_fleet: `router` printed no ready record: {line!r}\n"
+                                 + open(err_path).read()[-4000:]) from None
+        cli["spawn_to_ready_s"] = time.perf_counter() - t0
+        cli["replicas"] = ready["replicas"]
+        kids = {p: pid for p, pid in listening_children(proc.pid).items()
+                if f"127.0.0.1:{p}" in ready["replicas"]}
+        sid = "fleet-K"
+        with ServeClient(port=ready["port"]) as c:
+            _fleet_drive(ready["port"], sid, frames["K"], out, hi=64, close=False, client=c)
+            cli["journaled_at_kill"] = _fleet_journal_done(jdir_b, sid, 32)
+            st = c.stats()
+            victim_b = st["sessions"][sid]
+            cli["buffered_frames_at_kill"] = st["buffered_frames"].get(sid, 0)
+            os.kill(kids[int(victim_b.rsplit(":", 1)[1])], signal.SIGKILL)
+            t_kill = time.perf_counter()
+            _fleet_drive(ready["port"], sid, frames["K"], out, lo=64, client=c)
+            cli["seconds_after_kill"] = time.perf_counter() - t_kill
+            if not isinstance(out.get(sid), dict):
+                raise AssertionError(f"e2e_fleet: the killed replica's stream failed: "
+                                     f"{out.get(sid)!r}")
+            st = c.stats()
+        cli.update({"migrations_total": st["migrations_total"],
+                    "migration_failures": st["migration_failures"],
+                    "probe_failures": st["probe_failures"], "from": victim_b,
+                    "migrations": st["migrations"]})
+        streams["K"] = parity("K", out[sid])
+        rc_top, top_out, top_s = _cli_in_process("top", "--once", f"127.0.0.1:{ready['port']}")
+        cli["top"] = {"rc": rc_top, "seconds": top_s,
+                      "fleet_line": next((ln for ln in top_out.splitlines()
+                                          if ln.startswith("fleet:")), None)}
+        proc.send_signal(signal.SIGTERM)
+        rest, _ = proc.communicate(timeout=120)
+        cli["sigterm_rc"] = proc.returncode
+        routed = json.loads(rest.strip().splitlines()[-1])
+        cli["routed"] = routed.get("routed")
+        cli["routed_sessions"] = routed.get("stats", {}).get("sessions_routed")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        left = [pid for pid in kids.values() if pid_alive(pid)]
+        for pid in left:
+            os.kill(pid, signal.SIGKILL)
+    cli["replicas_left"] = left
+    cli["transitions"] = _transitions(open(err_path).read().splitlines())
+    line = {
+        "phase": "e2e_fleet", "model": "translation", "in_process": inproc, "cli": cli,
+        "streams": streams, "router_wire": router_wire, "launches_drive": launches,
+        "launches_predicted": want, "phase_seconds": time.perf_counter() - t_phase, "card": smi,
+    }
+    emit(line)
+    if inproc["bound"] != inproc["placed"]:
+        raise AssertionError(f"e2e_fleet: the streams were bound to {inproc['bound']}, "
+                             f"placed on {inproc['placed']}")
+    for k in ("F1", "F2"):
+        s = streams[k]
+        if not (s["frames"] == len(frames[k]) and s["bit_equal"] and s["integers_equal"]):
+            raise AssertionError(f"e2e_fleet: stream {k} differs from correct(): {s}")
+    for k in ("M", "K"):
+        s = streams[k]
+        if not (s["frames"] == len(frames[k]) and s["max_transform_gap_px"] <= 1e-4):
+            raise AssertionError(f"e2e_fleet: migrated stream {k} differs from correct(): {s}")
+    for k, s in streams.items():
+        _robust_clean(f"e2e_fleet stream {k}", s["robustness"])
+    if inproc["migrations_total_drive"] == 0:
+        check_launches("e2e_fleet", launches, want)
+    elif any(launches[k] < v for k, v in want.items()):
+        # a spurious migration in the drive re-runs a reference and the
+        # batches past its cursor: at least the prediction
+        raise AssertionError(f"e2e_fleet: launches {launches} below {want}")
+    if not (inproc["migrations_total"] == inproc["migrations_total_drive"] + 1
+            and inproc["moved"]["fleet_migrate_spans"] == inproc["migrations_total"]
+            and inproc["migration_failures"] == 0):
+        raise AssertionError(f"e2e_fleet: the graceful migration {inproc}")
+    if not (len(cli["replicas"]) == 2 and cli["migrations_total"] >= 1
+            and cli["migration_failures"] == 0 and cli["top"]["rc"] == 0
+            and cli["sigterm_rc"] == 0 and cli["routed"] is True
+            and cli["routed_sessions"] == 1 and not left and len(kids) == 2):
+        raise AssertionError(f"e2e_fleet: router child {cli}")
+    return {**line, "launches": launches}
+
+
 # A shard's transforms against the one-device run's. Translation holds
 # the reference's 1e-4 px. Homography's consensus on the card depends on
 # the batch it runs in (16-frame halves against the 32-frame batch: equal
@@ -3877,6 +4235,8 @@ def main() -> int:
         by_path["e2e_cli"] = phase_e2e_cli(smi, tmp, by_path["e2e_file"], file_transforms)
         # the resident serve plane (queue 1 item 19c)
         by_path["e2e_serve"] = phase_e2e_serve(smi, tmp)
+        # the serve fleet (queue 1 item 19d)
+        by_path["e2e_fleet"] = phase_e2e_fleet(smi, tmp, by_path["e2e_serve"])
     # the frame-axis mesh (queue 1 item 17)
     by_path["e2e_mesh"] = phase_e2e_mesh(smi)
     for r in rows:

@@ -30,6 +30,11 @@ removes motion faster than ~sigma frames and follows the rest.
 many client streams through it (line-delimited JSON over TCP; drive it
 with `kcmc_tpu_torch.serve.client.ServeClient`); its first stdout line
 is the ready record with the bound port, its last the `served` record.
+`router` is the fleet's front door over N such replicas (spawned with
+`--spawn N` on the top-level `--device`, or adopted with `--replicas`):
+the same protocol, rendezvous placement, health probing and live
+migration through a shared journal directory; `top` is the live
+dashboard over a replica, several, or a router.
 
 Observability: `correct --trace t.json --frame-records f.jsonl
 --heartbeat 30` exports a Perfetto-loadable span trace and a per-frame
@@ -40,8 +45,7 @@ read a live server's `host:port` or dumped metrics and span shards.
 `KCMC_SANITIZE=1` (or `sanitize -- CMD`) arms the runtime concurrency
 sanitizer for the process.
 
-Not here yet: `router` and `top` (the fleet, ROADMAP queue 1 item 19d;
-they exit naming it) and `check` (the analysis engine, item 22).
+Not here yet: `check` (the analysis engine, ROADMAP queue 1 item 22).
 """
 
 from __future__ import annotations
@@ -51,12 +55,6 @@ import json
 import sys
 
 import numpy as np
-
-_NO_FLEET = (
-    "comes with the fleet (ROADMAP queue 1 item 19d), which is not "
-    "ported yet; `serve` runs a single server"
-)
-
 
 def _device(args):
     """The device= a subcommand's correctors and applies run on: the
@@ -682,9 +680,35 @@ def _cmd_serve(args) -> int:
     return serve_main(args)
 
 
-def _cmd_fleet(args) -> int:
-    """`router` and `top`: the fleet's commands, not ported yet."""
-    raise SystemExit(f"{args.cmd} {_NO_FLEET}")
+def _cmd_router(args) -> int:
+    """Fleet front door (docs/SERVING.md "Running a fleet"): spawn
+    and/or adopt serve replicas, health-check them by scraping their
+    metrics/stats verbs, place sessions by rendezvous hashing, and
+    live-migrate streams off dead or draining replicas through the
+    shared journal directory. Speaks the same protocol as `serve` —
+    point any ServeClient (or `top`) at the router. Spawned replicas
+    run on the top-level `--device`: without a card the command exits
+    unless `--device cpu` or a `--backend numpy` in `--serve-args`
+    asks for the CPU; the router itself never touches a device."""
+    import shlex
+
+    if args.spawn or args.autoscale:
+        # the replicas' own arguments and device rule, checked before
+        # any spawns
+        serve = build_parser().parse_args(["serve", *shlex.split(args.serve_args or "")])
+        serve.device = args.device
+        _device(serve)
+    from kcmc_tpu_torch.serve.router import router_main
+
+    return router_main(args)
+
+
+def _cmd_top(args) -> int:
+    """Live terminal dashboard over a serve replica: per-session
+    fps/queue depth, segment latency p50/p99, supervisor state."""
+    from kcmc_tpu_torch.obs.top import main as top_main
+
+    return top_main(args)
 
 
 def _cmd_selftest(args) -> int:
@@ -1104,12 +1128,131 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.set_defaults(fn=_cmd_serve)
 
-    for cmd, what in (
-        ("router", "fleet front door over N serve replicas"),
-        ("top", "live dashboard over a serve process's metrics"),
-    ):
-        p = sub.add_parser(cmd, help=f"{what} (not ported yet: ROADMAP item 19d)")
-        p.set_defaults(fn=_cmd_fleet)  # takes any flags (main)
+    p = sub.add_parser(
+        "router",
+        help="fleet front door over N serve replicas: speaks the same "
+        "line-JSON protocol, places sessions by rendezvous hashing "
+        "over health-checked replicas, live-migrates streams off dead "
+        "or draining replicas via the shared journal dir, and "
+        "optionally autoscales (docs/SERVING.md 'Running a fleet')",
+    )
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument(
+        "--port", type=int, default=7744,
+        help="router TCP port (0 = ephemeral; the ready line reports "
+        "the bound port)",
+    )
+    p.add_argument(
+        "--spawn", type=int, default=0, metavar="N",
+        help="spawn N `serve` replicas (ephemeral ports, "
+        "shared --journal-dir, the top-level --device) and supervise "
+        "them",
+    )
+    p.add_argument(
+        "--replicas", default="", metavar="HOST:PORT,...",
+        help="adopt externally managed replicas (comma-separated "
+        "host:port list); adopted replicas are health-checked and "
+        "routed to but never stopped or drained by the autoscaler",
+    )
+    p.add_argument(
+        "--serve-args", default="", metavar="ARGS",
+        help="extra `serve` flags for spawned replicas, one "
+        "shell-quoted string (e.g. \"--backend numpy --batch-size 8\")",
+    )
+    p.add_argument(
+        "--journal-dir", default="", metavar="DIR",
+        help="SHARED session-journal directory — the migration "
+        "substrate; defaults to a fresh temp dir when spawning "
+        "(migration needs every replica to see every journal)",
+    )
+    p.add_argument(
+        "--probe-interval", type=float, default=None, metavar="SECS",
+        help="health-scrape period AND per-scrape budget "
+        "(fleet_probe_interval_s; default 1)",
+    )
+    p.add_argument(
+        "--suspect-probes", type=int, default=None, metavar="N",
+        help="consecutive bad scrapes before HEALTHY -> SUSPECT "
+        "(fleet_suspect_probes; default 2)",
+    )
+    p.add_argument(
+        "--dead-probes", type=int, default=None, metavar="N",
+        help="consecutive hard-bad scrapes before SUSPECT -> DEAD "
+        "and migration (fleet_dead_probes; default 4)",
+    )
+    p.add_argument(
+        "--wedge-threshold", type=float, default=None, metavar="SECS",
+        help="loop_beat_age_s above which a reachable replica counts "
+        "as wedged (fleet_wedge_threshold_s; default 30)",
+    )
+    p.add_argument(
+        "--watermark", type=float, default=None, metavar="FRAC",
+        help="fleet-wide admission watermark: reject new sessions "
+        "429-style once global queued frames pass FRAC of aggregate "
+        "capacity (fleet_queue_watermark; default 0.9; 1.0 = off)",
+    )
+    p.add_argument(
+        "--autoscale", action="store_true",
+        help="run the autoscaler control loop (spawn on backlog, "
+        "drain on idle, within --min/--max-replicas)",
+    )
+    p.add_argument(
+        "--min-replicas", type=int, default=0, metavar="N",
+        help="autoscale floor (default: the initial fleet size)",
+    )
+    p.add_argument(
+        "--max-replicas", type=int, default=0, metavar="N",
+        help="autoscale ceiling (default: the initial fleet size)",
+    )
+    p.add_argument(
+        "--scale-cooldown", type=float, default=None, metavar="SECS",
+        help="minimum seconds between autoscale actions "
+        "(fleet_scale_cooldown_s; default 30)",
+    )
+    p.add_argument(
+        "--inject-faults", default="", metavar="SPEC",
+        help="deterministic fleet chaos: the fault-plan grammar with "
+        "the `fleet` surface — a raising clause blackholes a "
+        "router->replica call, stall= stalls a health scrape past "
+        "its budget; also via KCMC_FAULT_PLAN",
+    )
+    p.add_argument(
+        "--trace-shards", default="", metavar="DIR",
+        help="distributed-tracing span-shard directory for the router "
+        "AND spawned replicas (trace_shard_dir): the whole fleet "
+        "shards into DIR, so `python -m kcmc_tpu_torch trace DIR` stitches one fleet "
+        "trace per request",
+    )
+    p.add_argument(
+        "--slo", default="", metavar="SPEC",
+        help="fleet SLO objectives (slo_objectives; see `serve "
+        "--slo`): burn rates computed over the exact-merged fleet "
+        "histograms; alert transitions land in the router log",
+    )
+    p.set_defaults(fn=_cmd_router)
+
+    p = sub.add_parser(
+        "top",
+        help="live terminal dashboard over serve replicas: per-session "
+        "fps and queue depth, per-segment latency p50/p99, supervisor "
+        "state and wedge age (polls the metrics/stats verbs); several "
+        "targets — or one router — render a fleet-merged view",
+    )
+    p.add_argument(
+        "addrs", nargs="*", default=["127.0.0.1:7733"], metavar="ADDR",
+        help="one or more host:port targets (default 127.0.0.1:7733): "
+        "one replica or router renders directly; several replicas are "
+        "scraped and exact-merged into one fleet dashboard",
+    )
+    p.add_argument(
+        "--interval", type=float, default=2.0, metavar="SECS",
+        help="refresh period (default 2)",
+    )
+    p.add_argument(
+        "--once", action="store_true",
+        help="render one frame and exit (scripting / CI smoke)",
+    )
+    p.set_defaults(fn=_cmd_top)
 
     p = sub.add_parser(
         "sanitize",
@@ -1270,9 +1413,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     ap = build_parser()
-    args, extra = ap.parse_known_args(argv)
-    if extra and args.fn is not _cmd_fleet:
-        ap.error("unrecognized arguments: " + " ".join(extra))
+    args = ap.parse_args(argv)
     # KCMC_SANITIZE=1 arms the runtime concurrency sanitizer for this
     # process (`sanitize` re-execs with it set)
     from kcmc_tpu_torch.analysis.sanitize import maybe_enable_from_env

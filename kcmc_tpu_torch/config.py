@@ -4,13 +4,14 @@ The fields the ported slices (translation, rigid, similarity, affine,
 homography, piecewise and rigid3d, single-scale or through the scale
 pyramid, with the options of `correct()`, the retry, fault and
 file-streaming knobs of `correct_file()`, the observability knobs of a
-one-shot run, and the serve plane's knobs, span shards and SLOs) read, under the names and
+one-shot run, the serve plane's knobs, span shards and SLOs, and the
+fleet router's knobs) read, under the names and
 defaults of `kcmc_tpu.config.CorrectorConfig`, so a JAX config carries
 across with `config_from_dict(dataclasses.asdict(cfg))`. `plan_buckets`
 is normalized through plans/buckets.py, as the reference normalizes it.
 `config_from_dict` drops only the reference fields listed in
-`DROPPED_FIELDS`, each with the ROADMAP.md queue-1 item that will port
-it and why a single process may ignore it, and a name no config has
+`DROPPED_FIELDS`, each with why the port may ignore it, and a name no
+config has
 raises `TypeError`. Warp policies and knob values the reference
 rejects raise `ValueError` here with the reference's messages
 (kcmc_tpu/config.py:750-767, :976-985, :1018-1047).
@@ -218,6 +219,21 @@ class CorrectorConfig:
     serve_latency_admission: bool = True
     serve_latency_horizon_refresh_s: float = 1.0
     serve_latency_starvation_limit: int = 4
+    # the fleet router (serve/fleet.py, serve/router.py), placement and
+    # health only (never what a stream computes): the health-scrape
+    # period, which is also each scrape's whole budget; the consecutive
+    # bad probes that take HEALTHY to SUSPECT (and good ones back); the
+    # consecutive hard-bad probes that take SUSPECT to DEAD and migrate
+    # its sessions; the `loop_beat_age_s` past which a replica that
+    # answers counts as wedged; the fraction of the fleet's queue
+    # capacity past which new sessions are rejected 429-style (1.0 =
+    # never); and the autoscaler's minimum spacing between actions
+    fleet_probe_interval_s: float = 1.0
+    fleet_suspect_probes: int = 2
+    fleet_dead_probes: int = 4
+    fleet_wedge_threshold_s: float = 30.0
+    fleet_queue_watermark: float = 0.9
+    fleet_scale_cooldown_s: float = 30.0
 
     @property
     def observability_enabled(self) -> bool:
@@ -461,6 +477,37 @@ class CorrectorConfig:
                 "preemption (a batch session must eventually run), got "
                 f"{self.serve_latency_starvation_limit}"
             )
+        if self.fleet_probe_interval_s <= 0:
+            raise ValueError(
+                "fleet_probe_interval_s must be positive seconds, got "
+                f"{self.fleet_probe_interval_s}"
+            )
+        if self.fleet_suspect_probes < 1:
+            raise ValueError(
+                "fleet_suspect_probes must be >= 1 probe, got "
+                f"{self.fleet_suspect_probes}"
+            )
+        if self.fleet_dead_probes < self.fleet_suspect_probes:
+            raise ValueError(
+                "fleet_dead_probes must be >= fleet_suspect_probes "
+                f"(a replica is SUSPECT before it is DEAD), got "
+                f"{self.fleet_dead_probes} < {self.fleet_suspect_probes}"
+            )
+        if self.fleet_wedge_threshold_s <= 0:
+            raise ValueError(
+                "fleet_wedge_threshold_s must be positive seconds, got "
+                f"{self.fleet_wedge_threshold_s}"
+            )
+        if not 0.0 < self.fleet_queue_watermark <= 1.0:
+            raise ValueError(
+                "fleet_queue_watermark must be in (0, 1] (1.0 = never "
+                f"reject at the router), got {self.fleet_queue_watermark}"
+            )
+        if self.fleet_scale_cooldown_s < 0:
+            raise ValueError(
+                "fleet_scale_cooldown_s must be >= 0 seconds, got "
+                f"{self.fleet_scale_cooldown_s}"
+            )
         if self.trace_shard_cap <= 0:
             raise ValueError(
                 "trace_shard_cap must be a positive span count, got "
@@ -536,7 +583,9 @@ class CorrectorConfig:
 # only changes when kernels build, and the observability knobs only
 # record what ran, never what a run computes: a killed run rerun with a
 # trace added resumes. The serve knobs schedule when and where a stream
-# runs, never what it computes: a journaled session resumes under others.
+# runs, never what it computes: a journaled session resumes under others,
+# and the fleet knobs move sessions between replicas, whose migration
+# computes the same frames.
 # `device_templates` and `plan_buckets` are deliberately not neutral.
 SIG_NEUTRAL_FIELDS = frozenset({
     "fault_plan", "retry_attempts", "retry_backoff_s", "retry_backoff_max_s",
@@ -551,17 +600,14 @@ SIG_NEUTRAL_FIELDS = frozenset({
     "serve_io_timeout_s", "serve_backend_strikes", "serve_latency_fill_floor",
     "serve_latency_admission", "serve_latency_horizon_refresh_s",
     "serve_latency_starvation_limit",
+    "fleet_probe_interval_s", "fleet_suspect_probes", "fleet_dead_probes",
+    "fleet_wedge_threshold_s", "fleet_queue_watermark", "fleet_scale_cooldown_s",
 })
 
-# Reference fields the port does not declare and a single process may
-# drop: field -> (ROADMAP.md queue-1 item, why dropping
-# it changes nothing such a run computes or writes).
-_FLEET = ("19d", "read only by the fleet router and autoscaler, which a single serve "
-                 "process does not start")
+# Reference fields the port does not declare and may drop: field ->
+# (ROADMAP.md queue-1 item, or "none", and why dropping it changes
+# nothing a run computes or writes).
 DROPPED_FIELDS = {
-    **{f: _FLEET for f in (
-        "fleet_probe_interval_s", "fleet_suspect_probes", "fleet_dead_probes",
-        "fleet_wedge_threshold_s", "fleet_queue_watermark", "fleet_scale_cooldown_s")},
     "donate_buffers": ("none", "an XLA buffer-aliasing knob; it changes no value"),
     "autotune_tiles": ("none", "chooses among Pallas tilings; each hand kernel has one "
                                "tiling and the knob changes no value"),

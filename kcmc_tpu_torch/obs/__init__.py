@@ -1,5 +1,5 @@
 """kcmc_tpu_torch.obs — the run-telemetry subsystem (the port's copy of
-kcmc_tpu/obs; the `top` dashboard comes with ROADMAP item 19d).
+kcmc_tpu/obs).
 
 * `trace` — thread-aware span `Tracer`, Chrome trace-event export
   (`trace_path`, Perfetto-loadable);
@@ -14,7 +14,9 @@ kcmc_tpu/obs; the `top` dashboard comes with ROADMAP item 19d).
 * `tracing` — span shards, stitching and the critical path;
 * `report` — the renderer over either artifact
   (`python -m kcmc_tpu_torch.obs.report PATH`);
-* `registry` — the canonical span, counter and timing names.
+* `registry` — the canonical span, counter and timing names;
+* `top` — the live dashboard over serve replicas or a fleet router
+  (`python -m kcmc_tpu_torch top`).
 
 `run.RunTelemetry` coordinates them per run; `log` owns the
 `kcmc_tpu_torch` logger and the `advise()` warning-routing seam.

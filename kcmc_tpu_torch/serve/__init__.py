@@ -1,6 +1,5 @@
 """kcmc_tpu_torch.serve — the resident serving plane (the port's copy of
-kcmc_tpu/serve, a single server; the fleet router, autoscaler and `top`
-are ROADMAP item 19d).
+kcmc_tpu/serve: a server, and the fleet in front of several).
 
 One-shot runs pay the kernel builds and first-batch setup, own the
 card, and die with their input file. This package keeps ONE warm
@@ -24,7 +23,12 @@ client streams through the registration pipeline (docs/SERVING.md):
 * `journal.SessionJournal` — durable per-session resume snapshots
   (cursor, rolling-template history, transform high-water mark) so a
   killed server restarted over the same `--journal-dir` resumes every
-  journaled stream.
+  journaled stream;
+* `router.FleetRouter` / `fleet` / `autoscale.Autoscaler` — the fleet
+  front door over N serve replicas (`python -m kcmc_tpu_torch router`):
+  rendezvous placement, health probing, live migration of streams off
+  dead or draining replicas through the shared journal directory,
+  admission and autoscaling.
 """
 
 from __future__ import annotations
@@ -38,6 +42,10 @@ __all__ = [
     "ServeClient",
     "ServeError",
     "SessionJournal",
+    "FleetRouter",
+    "Replica",
+    "ReplicaHealth",
+    "Autoscaler",
 ]
 
 
@@ -62,4 +70,16 @@ def __getattr__(name):  # lazy: importing kcmc_tpu_torch.serve must stay cheap
         from kcmc_tpu_torch.serve import client
 
         return getattr(client, name)
+    if name == "FleetRouter":
+        from kcmc_tpu_torch.serve.router import FleetRouter
+
+        return FleetRouter
+    if name in ("Replica", "ReplicaHealth"):
+        from kcmc_tpu_torch.serve import fleet
+
+        return getattr(fleet, name)
+    if name == "Autoscaler":
+        from kcmc_tpu_torch.serve.autoscale import Autoscaler
+
+        return Autoscaler
     raise AttributeError(f"module 'kcmc_tpu_torch.serve' has no attribute {name!r}")

@@ -41,7 +41,15 @@ strikes quarantine the backend and rebuild it off the request path. A
 rebuild recovers from errors that leave the CUDA context usable; a
 sticky CUDA error (an illegal address, say) poisons the whole context,
 and no rebuild inside the process recovers from it: restart the server
-(with `--journal-dir`, its streams resume).
+(with `--journal-dir`, its streams resume). So after a fatal dispatch
+error the scheduler probes the card once (`device_context_lost`). A
+lost context stops dispatch for good: the stream whose batch raised
+fails (listed in `failed_sessions`), every other stream is released
+with a `DeviceLostError` (code 503, its journal frozen at its last
+durable snapshot), and new sessions, submits and resumes are refused
+with it. `device_lost` in the supervisor block of `stats()` tells a
+fleet router the replica is dead: the released streams migrate from
+their journals, the failed one does not.
 
 Threading model: ONE scheduler thread owns dispatch, drains, template
 updates, and finalization; client threads only enqueue (submit/open/
@@ -67,6 +75,35 @@ from kcmc_tpu_torch.backends.torch_backend import TorchBackend
 from kcmc_tpu_torch.obs.latency import SegmentLatencies
 from kcmc_tpu_torch.obs.log import advise
 from kcmc_tpu_torch.plans.buckets import batch_ladder, route_batch
+
+
+def device_context_lost(device) -> bool:
+    """True when the CUDA context of `device` no longer works: one
+    `torch.cuda.synchronize` that raises (a sticky error — an illegal
+    address, a kernel trap — raises again at every later call). A CPU
+    device has no context to lose."""
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return False
+    try:
+        torch.cuda.synchronize(device)
+    except Exception:
+        return True
+    return False
+
+
+# Failed stream ids `stats()` keeps listing for the fleet router.
+_FAILED_SIDS_KEEP = 256
+
+
+class DeviceLostError(RuntimeError):
+    """503-style refusal of a server whose CUDA context is lost: the
+    stream did not cause the loss and is released so that it resumes
+    elsewhere from its journal. Carries `.code` for transports."""
+
+    code = 503
 
 
 class OverloadedError(RuntimeError):
@@ -192,6 +229,14 @@ class StreamScheduler:
         # keeps coming, and without a cooldown every recurrence would
         # quarantine + rebuild + re-prewarm the whole plane forever.
         self._last_rebuild = -float("inf")
+        # Set once a fatal dispatch error left the CUDA context unusable
+        # (device_context_lost): every later batch of this process
+        # would fail, so nothing dispatches again. `_lost_by` is the
+        # stream whose batch raised. The streams fatal errors failed,
+        # oldest first (bounded).
+        self._device_lost = False
+        self._lost_by: str | None = None
+        self._failed_sids: deque = deque(maxlen=_FAILED_SIDS_KEEP)
         # Serializes resume_session end to end (journal load ->
         # open -> restore): a replayed/raced resume of the same id
         # must observe the winner's FULLY restored session, never a
@@ -378,6 +423,7 @@ class StreamScheduler:
         per-frame deadline (docs/SERVING.md "Latency QoS")."""
         from kcmc_tpu_torch.serve.session import Session
 
+        self._refuse_if_lost()
         view = self.mc.stream_view(
             reference=reference,
             template_update_every=template_update_every,
@@ -486,8 +532,19 @@ class StreamScheduler:
         """
         from kcmc_tpu_torch.serve import journal as journal_mod
 
+        self._refuse_if_lost()
         with self._resume_lock:
             return self._resume_session_locked(session_id, journal_mod)
+
+    def _refuse_if_lost(self) -> None:
+        """Refuse new work 503-style once the CUDA context is lost."""
+        with self._lock:
+            lost = self._device_lost
+        if lost:
+            raise DeviceLostError(
+                "the CUDA context of this server is lost; open or "
+                "resume the stream on another server"
+            )
 
     def _resume_session_locked(self, session_id: str, journal_mod) -> tuple:
         with self._lock:
@@ -645,6 +702,8 @@ class StreamScheduler:
             frames = frames[None]
         n = len(frames)
         with self._wake:
+            if self._device_lost and session_id != self._lost_by:
+                raise self._lost_error()
             sess = self._get(session_id)
             deduped = 0
             if first is not None:
@@ -891,6 +950,8 @@ class StreamScheduler:
             db = self._degraded_backend
             strikes = self._strikes
             rebuilding = self._rebuilding
+            device_lost = self._device_lost
+            failed_sids = list(self._failed_sids)
             beat_age = time.monotonic() - self._loop_beat
             # per-session robustness: the plane-locked snapshots the
             # drain path maintains (never the live report objects)
@@ -933,6 +994,8 @@ class StreamScheduler:
                 "backend_rebuilding": rebuilding,
                 "backend_rebuilds": st["backend_rebuilds"],
                 "loop_beat_age_s": round(max(beat_age, 0.0), 3),
+                "device_lost": device_lost,
+                "failed_sessions": failed_sids,
             },
             "resilience": {
                 "deduped_frames": st["deduped_frames"],
@@ -1503,8 +1566,11 @@ class StreamScheduler:
                 continue
             # Graceful drain (SIGTERM / stop): every still-open stream
             # goes to its journal first — drained state is durable, so
-            # a restarted server resumes it from this exact frame.
-            sess.maybe_journal(force=True)
+            # a restarted server resumes it from this exact frame. After
+            # a lost context the journals stay frozen at their last
+            # durable snapshot: a survivor may be writing them now.
+            if not self._device_lost:
+                sess.maybe_journal(force=True)
             sess.keep_journal = True
             if not sess.drained_out():
                 sess.fail(
@@ -1547,7 +1613,11 @@ class StreamScheduler:
         self._slo_tick()
         self._prepare_references()
         with self._wake:
-            picked = self._pick_locked() if self._running else None
+            picked = (
+                self._pick_locked()
+                if self._running and not self._device_lost
+                else None
+            )
         if picked is not None:
             sess, (n, batch, idx, ref, clock), degraded, why = picked
             backend = self.mc.backend
@@ -1665,7 +1735,7 @@ class StreamScheduler:
             try:
                 sess.prepare_reference_now()
             except BaseException as e:
-                sess.fail(e)
+                self._fail_fatal(sess, e, None)
             else:
                 self._maybe_warm_degraded_shape(sess)
                 self._maybe_warm_partial_rungs(sess)
@@ -1873,6 +1943,14 @@ class StreamScheduler:
                 plan.maybe_fail("device", step)
             out = dispatch(batch, ref, idx, **kw)
         except Exception as e:
+            from kcmc_tpu_torch.utils import faults
+
+            if not faults.classify_device_transient(
+                e, getattr(backend, "transient_error_types", ())
+            ):
+                # probe before the window drains, so that a lost context
+                # is laid to this stream's batch, the one that raised
+                self._probe_context(sess, e, backend)
             while self._window:
                 self._drain_one()
             self._ladder(
@@ -1908,9 +1986,20 @@ class StreamScheduler:
         with self._lock:
             if not self._window:
                 return
-            sess, n, out, kept, batch, idx, ref, backend, clock = (
-                self._window.popleft()
-            )
+            if self._device_lost:
+                # nothing downloads from a lost context: drop the window
+                # (its streams were failed or released)
+                dropped = list(self._window)
+                self._window.clear()
+            else:
+                dropped = None
+                sess, n, out, kept, batch, idx, ref, backend, clock = (
+                    self._window.popleft()
+                )
+        if dropped is not None:
+            for entry in dropped:
+                entry[0].entry_done()
+            return
         try:
             # Registration-only sessions (no emit, no server-side file,
             # no rolling template) never touch pixels: their batches
@@ -1974,7 +2063,7 @@ class StreamScheduler:
         except BaseException as e:
             # The entry MUST be accounted on every path, or the
             # in-flight count leaks and the stream's close waits forever.
-            sess.fail(e)
+            self._fail_fatal(sess, e, backend)
             sess.entry_done()
             return
         # the ladder's outputs are host arrays already
@@ -1991,6 +2080,64 @@ class StreamScheduler:
         self._account_done(sess, n, host, kept, ref, clock)
 
     # -- backend supervision (quarantine + off-path rebuild) ----------------
+
+    def _fail_fatal(self, sess, exc, backend) -> None:
+        """A fatal error ended a batch of `sess`: the stream fails, is
+        listed for `stats()`, and the card is probed once. Once the
+        context is lost, only the stream it was laid to fails; any other
+        is released (`_probe_context`)."""
+        with self._lock:
+            lost, culprit = self._device_lost, self._lost_by
+        if lost and sess.sid != culprit:
+            sess.fail(self._lost_error())  # keeps an earlier error
+            return
+        sess.fail(exc)
+        with self._lock:
+            if sess.sid not in self._failed_sids:
+                self._failed_sids.append(sess.sid)
+        if not lost:
+            self._probe_context(sess, exc, backend)
+
+    def _lost_error(self) -> DeviceLostError:
+        return DeviceLostError(
+            "the CUDA context of this server is lost; the stream is "
+            "released: resume_session on another server continues it "
+            "from its journal"
+        )
+
+    def _probe_context(self, sess, exc, backend) -> None:
+        """Probe the card once after a fatal error of `sess`'s batch. A
+        context that no longer synchronizes is lost for the whole
+        process, never recovered here: dispatch stops, `sess` is the
+        stream it is laid to, and every other open stream is released
+        with a `DeviceLostError` so that it migrates."""
+        with self._lock:
+            if self._device_lost:
+                return
+        device = getattr(backend or self.mc.backend, "device", "cpu")
+        if not device_context_lost(device):
+            return
+        with self._wake:
+            if self._device_lost:
+                return
+            self._device_lost = True
+            self._lost_by = sess.sid
+            others = [
+                s for s in self._sessions.values()
+                if s is not sess and s.error is None and not s.closed
+            ]
+            self._wake.notify_all()
+        err = self._lost_error()
+        for s in others:
+            s.fail(err)
+        advise(
+            "kcmc serve: the CUDA context is lost after a fatal "
+            f"dispatch error of session {sess.sid} "
+            f"({type(exc).__name__}: {exc}); dispatch stopped, "
+            f"{len(others)} other stream(s) released to resume "
+            "elsewhere — restart this server",
+            stacklevel=2,
+        )
 
     # Minimum spacing between rebuild attempts: inside it a strike-out
     # skips the quarantine (batches still walk the ladder) so a fault

@@ -27,7 +27,11 @@ import time
 import numpy as np
 
 from kcmc_tpu_torch.serve import proto
-from kcmc_tpu_torch.serve.scheduler import OverloadedError, StreamScheduler
+from kcmc_tpu_torch.serve.scheduler import (
+    DeviceLostError,
+    OverloadedError,
+    StreamScheduler,
+)
 from kcmc_tpu_torch.utils.faults import FaultError
 
 
@@ -72,6 +76,9 @@ class _Handler(socketserver.StreamRequestHandler):
                 }
                 if e.predicted_wait_s is not None:
                     resp["predicted_wait_s"] = e.predicted_wait_s
+            except DeviceLostError as e:
+                # a lost CUDA context: the stream resumes elsewhere
+                resp = {"ok": False, "error": str(e), "code": e.code}
             except (KeyError, ValueError, TypeError, TimeoutError) as e:
                 resp = {"ok": False, "error": str(e), "code": 400}
             except Exception as e:  # a stream failure must not kill the server

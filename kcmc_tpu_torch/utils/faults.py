@@ -12,10 +12,11 @@ transient I/O errors and corrupt checkpoints instead of dying at frame
   execution (``device``, in `MotionCorrector`'s dispatch), the failover
   rung (``failover``) and checkpoint part load (``checkpoint``, in
   `utils.checkpoint.load_stream_checkpoint`) and object-store ops
-  (``object``, inside the client of `io/objectstore.py`). The serve and
-  fleet surfaces of the reference's grammar (``transport``,
-  ``scheduler``, ``journal``, ``fleet``) parse, but nothing in the port
-  arms them yet. Activated via
+  (``object``, inside the client of `io/objectstore.py`), and the serve
+  and fleet surfaces: the server's connections (``transport``), the
+  scheduler loop (``scheduler``), session journal writes (``journal``)
+  and every router->replica call (``fleet``, in `serve/router.py`).
+  Activated via
   `CorrectorConfig(fault_plan=...)` or the ``KCMC_FAULT_PLAN``
   environment variable — so chaos runs need no code changes.
 
@@ -94,8 +95,9 @@ SURFACES = (
     "device",
     "failover",
     "checkpoint",
-    # the reference's serve and fleet surfaces: parsed (one grammar),
-    # armed by no code of the port yet
+    # the serve plane's connections, scheduler loop and journal
+    # writes (serve/server.py, serve/scheduler.py, serve/journal.py),
+    # and the fleet router's calls to its replicas (serve/router.py)
     "transport",
     "scheduler",
     "journal",

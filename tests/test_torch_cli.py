@@ -26,7 +26,7 @@ from kcmc_tpu_torch.utils.synthetic import make_drift_stack
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORTED = ("info", "selftest", "correct", "warmup", "sanitize", "metrics",
-          "trace", "report", "apply", "stabilize", "serve")
+          "trace", "report", "apply", "stabilize", "serve", "router", "top")
 CPU = ("--device", "cpu")
 BATCH = ("--batch-size", "8")
 
@@ -153,14 +153,16 @@ def test_top_level_flags_and_unported_subcommands(monkeypatch, capsys):
     assert _flags(port, skip=("device",)) == _flags(ref)
     dev = [a for a in port._actions if a.dest == "device"][0]
     assert dev.option_strings == ["--device"] and dev.default is None
-    assert set(_subparsers(port)) == set(PORTED) | {"router", "top"}
-    assert set(_subparsers(ref)) - set(PORTED) == {"router", "top", "check"}
+    assert set(_subparsers(port)) == set(PORTED)
+    assert set(_subparsers(ref)) - set(PORTED) == {"check"}
     with pytest.raises(SystemExit) as e:
         tmain(["check"])
     assert e.value.code == 2
+    # the fleet's commands take only their own flags, as every other does
     for cmd in ("router", "top"):
-        code = _exit([cmd, "--port", "0"])
-        assert code.startswith(cmd) and "19d" in code
+        with pytest.raises(SystemExit) as e:
+            tmain([cmd, "--bogus-flag"])
+        assert e.value.code == 2
     capsys.readouterr()
 
 
@@ -385,6 +387,8 @@ def test_port_only_error_paths(files, capsys):
     assert "python -m kcmc_tpu`" in code
     code = _exit(["--device", "cuda", "correct", files["tif"], "--backend", "numpy"])
     assert "--backend numpy runs on the CPU" in code
+    code = _exit(["--device", "cuda", "router", "--spawn", "1", "--serve-args=--backend numpy"])
+    assert "--backend numpy runs on the CPU" in code
     code = _exit([*CPU, "selftest"])
     assert "needs a CUDA card" in code
     code = _exit([*CPU, "correct", files["zstack"], "--model", "rigid3d", "--volume-depth",
@@ -393,6 +397,8 @@ def test_port_only_error_paths(files, capsys):
     if not torch.cuda.is_available():
         assert "--device cpu" in _exit(["correct", files["tif"]])
         assert "--device cpu" in _exit(["serve", "--port", "0"])
+        # a router spawns no replica on a device the caller did not name
+        assert "--device cpu" in _exit(["router", "--spawn", "2", "--port", "0"])
         assert "needs a CUDA card" in _exit(["selftest", "--size", "256"])
     capsys.readouterr()
 

@@ -308,12 +308,14 @@ def test_fault_e_only_the_named_fields_are_dropped():
     assert ref - port == set(DROPPED_FIELDS)
     assert all(item and reason for item, reason in DROPPED_FIELDS.values())
     jcfg = kcmc_tpu.CorrectorConfig(collective_chunks=4, upload_overlap=False, mesh_devices=2,
-                                    serve_queue_depth=8, donate_buffers=False)
+                                    serve_queue_depth=8, donate_buffers=False,
+                                    fleet_dead_probes=6, fleet_queue_watermark=0.5)
     cfg = kcmc_tpu_torch.config_from_dict(dataclasses.asdict(jcfg))
     assert (cfg.collective_chunks, cfg.upload_overlap, cfg.mesh_devices) == (4, False, 2)
-    # the serve knobs carry across; only the fleet's are dropped (19d)
+    # the serve and fleet knobs carry across; only "none" items are dropped
     assert cfg.serve_queue_depth == 8
-    assert {item for item, _ in DROPPED_FIELDS.values()} == {"19d", "none"}
+    assert (cfg.fleet_dead_probes, cfg.fleet_queue_watermark) == (6, 0.5)
+    assert {item for item, _ in DROPPED_FIELDS.values()} == {"none"}
     with pytest.raises(TypeError, match="bogus_knob"):
         kcmc_tpu_torch.config_from_dict({"model": "translation", "bogus_knob": 1})
     with pytest.raises(TypeError, match="bogus_knob"):

@@ -1142,5 +1142,65 @@ def test_serve_fatal_dispatch_error_fails_the_stream_on_card(cuda, monkeypatch):
         sched.stop()
     assert str(fired[0].device).startswith("cuda")
     assert st_["supervisor"]["backend_rebuilds"] == 0
+    # a build error leaves the context usable: the probe finds it alive
+    assert st_["supervisor"]["device_lost"] is False
+    assert st_["supervisor"]["failed_sessions"] == [s.sid]
     assert cuda_build.launch_counts()["detect_response"] > before
     assert res.timing["robustness"]["backend_failovers"] == 0
+
+
+def test_fleet_router_over_two_card_servers_and_a_graceful_migration(cuda, tmp_path):
+    """Two in-process ServeServers on the card behind a FleetRouter: a
+    64-frame stream equals a one-shot correct() of its frames on the
+    card; a second stream whose replica is stopped mid-stream (it
+    journals, then dies) migrates to the survivor and finishes within
+    1e-4 px of correct(), with one `fleet.migrate` span."""
+    import os
+    import time
+
+    from kcmc_tpu_torch.serve.client import ServeClient
+    from kcmc_tpu_torch.serve.fleet import Replica
+    from kcmc_tpu_torch.serve.journal import journal_path, load_session_journal
+    from kcmc_tpu_torch.serve.router import FleetRouter
+    from kcmc_tpu_torch.serve.server import ServeServer
+
+    jdir = str(tmp_path / "journals")
+    st = make_drift_stack(64, (256, 256), seed=5).stack.astype(np.float32)
+    truth = MotionCorrector(**_serve_kw()).correct(st)
+    servers = [ServeServer(MotionCorrector(serve_journal_dir=jdir, serve_journal_every=8,
+                                           **_serve_kw()), port=0).start() for _ in range(2)]
+    reps = [Replica("127.0.0.1", s.port) for s in servers]
+    router = FleetRouter(reps, port=0, config=CorrectorConfig(fleet_probe_interval_s=0.5),
+                         journal_dir=jdir).start()
+    try:
+        with ServeClient(port=router.port) as c:
+            sid = c.open_session(tenant="whole", session_id="gpu-P")
+            for lo in range(0, 64, 16):
+                c.submit(sid, st[lo:lo + 16])
+            whole = c.close_session(sid)
+            sid = c.open_session(tenant="moved", session_id="gpu-M")
+            c.submit(sid, st[:32])
+            t0 = time.monotonic()
+            jp = journal_path(jdir, sid)
+            while True:
+                got = load_session_journal(jp) if os.path.exists(jp) else None
+                if got and int(got[0]["done"]) >= 16:
+                    break
+                assert time.monotonic() - t0 < 120, "journal never became durable"
+                time.sleep(0.05)
+            victim = router.stats()["sessions"][sid]
+            servers[[r.rid for r in reps].index(victim)].stop()
+            c.submit(sid, st[32:])
+            moved = c.close_session(sid)
+        stats = router.stats()
+        mig = router.fleet_metrics()["plane"]["totals"]["fleet.migrate"]
+    finally:
+        router.stop()
+        for s in servers:
+            s.stop()
+    np.testing.assert_array_equal(whole["transforms"], truth.transforms)
+    for d in ("n_keypoints", "n_matches", "n_inliers"):
+        np.testing.assert_array_equal(whole["diagnostics"][d], truth.diagnostics[d])
+    assert moved["frames"] == 64
+    assert np.abs(moved["transforms"] - truth.transforms).max() <= 1e-4
+    assert stats["migrations_total"] == 1 and mig["count"] == 1
