@@ -266,8 +266,11 @@ port's TiffWriter, the scene x 40000; escalation off):
     the npz (the stage table); meanwhile two `warmup --buckets 512
     --compile-cache` children, cold then warm (stamp_misses 0), and
     `sanitize -- python -m kcmc_tpu_torch correct` (exit 0, 0
-    violations, the runtime-only line naming item 22, transforms equal
-    the unsanitized run's), and the selftest child of phase 3.
+    violations, the static lock-order graph merged: a non-empty edge
+    count and no runtime-only line; transforms equal the unsanitized
+    run's), `check --no-cache --json` (the six analysis passes on this
+    host's Python: exit 0, no new finding, its seconds), and the
+    selftest child of phase 3.
 28. e2e_serve: the resident serve plane on config 1 (K=512, batch 32,
     512², the 1000-frame float32 stack): two ServeClient threads send
     600 and 400 frames in uneven submits through an in-process
@@ -3040,10 +3043,12 @@ def phase_e2e_cli(smi: str, tmp: str, file_line: dict, file_transforms: np.ndarr
     `apply` of its npz and `stabilize --sigma 15` (float32 pages:
     finite, their largest gap to correct -o printed) and `report` of the
     npz, while two children run: `warmup --buckets 512 --compile-cache`
-    cold and then warm (stamp_misses 0), and `sanitize -- python -m
-    kcmc_tpu_torch correct` (exit 0, 0 violations, the runtime-only line
-    naming item 22, transforms equal the unsanitized run's). The
-    selftest child runs beside them (`phase_selftest`)."""
+    cold and then warm (stamp_misses 0), `sanitize -- python -m
+    kcmc_tpu_torch correct` (exit 0, 0 violations, the static lock-order
+    graph merged with a non-empty edge count, transforms equal the
+    unsanitized run's) and `check --no-cache --json` (exit 0, no new
+    finding; CPU work, its seconds printed). The selftest child runs
+    beside them (`phase_selftest`)."""
     from kcmc_tpu_torch.io.tiff import read_stack
     from kcmc_tpu_torch.ops import cuda_build
 
@@ -3069,6 +3074,8 @@ def phase_e2e_cli(smi: str, tmp: str, file_line: dict, file_transforms: np.ndarr
         children.append(_cli_child(tmp, "warmup_cold", "warmup", "--buckets", "512",
                                    "--compile-cache", cache))
         cold = children[-1]
+        children.append(_cli_child(tmp, "check", "check", "--no-cache", "--json"))
+        check = children[-1]
         # in this process meanwhile: apply, stabilize and report
         cuda_build.reset_launches()
         apply_rc, apply_out, apply_s = _cli_in_process(
@@ -3089,6 +3096,7 @@ def phase_e2e_cli(smi: str, tmp: str, file_line: dict, file_transforms: np.ndarr
                                    "--compile-cache", cache))
         warm_rec = _cli_finish(tmp, children[-1])
         san_rec = _cli_finish(tmp, san)
+        check_rec = _cli_finish(tmp, check)
         phase_selftest(smi, tmp, selftest)
     finally:
         for p in children:
@@ -3097,6 +3105,9 @@ def phase_e2e_cli(smi: str, tmp: str, file_line: dict, file_transforms: np.ndarr
                 p.wait()
     transforms = np.load(npz)["transforms"]
     san_lines = [ln for ln in san_rec["stderr"].splitlines() if ln.startswith("[kcmc sanitize]")]
+    static = [int(m.group(1)) for ln in san_lines
+              for m in [re.search(r"edges \((\d+) static\)", ln)] if m]
+    chk = check_rec["json"] or {}
     n = len(corrected)
     line = {
         "phase": "e2e_cli", "model": "translation", "frames": n,
@@ -3121,8 +3132,13 @@ def phase_e2e_cli(smi: str, tmp: str, file_line: dict, file_transforms: np.ndarr
         "warmup": {"cold": cold_rec["json"], "cold_seconds": cold_rec["seconds"],
                    "warm": warm_rec["json"], "warm_seconds": warm_rec["seconds"]},
         "sanitize": {"seconds": san_rec["seconds"], "lines": san_lines,
+                     "static_edges": static[-1] if static else None,
                      "transforms_equal": bool(np.array_equal(np.load(npz2)["transforms"],
                                                              transforms))},
+        "check": {"seconds": check_rec["seconds"], "passes": chk.get("passes"),
+                  "findings": chk.get("findings"), "baselined": chk.get("baselined"),
+                  "new": chk.get("new"), "stale_baseline": chk.get("stale_baseline"),
+                  "ok": chk.get("ok")},
         "seconds": time.perf_counter() - t_phase, "card": smi,
     }
     emit(line)
@@ -3144,9 +3160,13 @@ def phase_e2e_cli(smi: str, tmp: str, file_line: dict, file_transforms: np.ndarr
         raise AssertionError(f"e2e_cli: warmup {line['warmup']}")
     if not (line["sanitize"]["transforms_equal"]
             and any(ln.endswith(" 0 violation(s)") for ln in san_lines)
-            and any("runtime-only order checking" in ln and "item 22" in ln
-                    for ln in san_lines)):
+            and not any("runtime-only order checking" in ln for ln in san_lines)
+            and line["sanitize"]["static_edges"]):
         raise AssertionError(f"e2e_cli: sanitize {line['sanitize']}")
+    c = line["check"]
+    if not (c["ok"] is True and c["new"] == 0 and c["stale_baseline"] == 0
+            and c["passes"] and len(c["passes"]) == 6):
+        raise AssertionError(f"e2e_cli: check {c}\n{check_rec['stderr'][-2000:]}")
     total = {k: launches[k] + apply_launches[k] + stab_launches[k] for k in ZERO}
     return {**line, "launches": total}
 

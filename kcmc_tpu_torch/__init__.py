@@ -35,18 +35,36 @@ __all__ = [
     "config_from_dict",
 ]
 
+# Every lazy root name (the reference's, kcmc_tpu/__init__.py:22-97, and
+# `config_from_dict`) by the port submodule that defines it. The backend registry
+# (`available_backends`, `get_backend`, `register_backend`) is left out
+# of the port on purpose: it has one TorchBackend.
+_LAZY = {
+    **dict.fromkeys(("CorrectorConfig", "config_from_dict"), "kcmc_tpu_torch.config"),
+    **dict.fromkeys(("CorrectionResult", "MotionCorrector", "apply_correction",
+                     "apply_correction_file", "common_valid_region"),
+                    "kcmc_tpu_torch.corrector"),
+    **dict.fromkeys(("MODELS", "TransformModel", "apply_transform", "get_model"),
+                    "kcmc_tpu_torch.models"),
+    **dict.fromkeys(("smooth_trajectory", "interpolate_failed"),
+                    "kcmc_tpu_torch.utils.trajectory"),
+    **dict.fromkeys(("FaultPlan", "RetryPolicy", "classify_transient"),
+                    "kcmc_tpu_torch.utils.faults"),
+    "RobustnessReport": "kcmc_tpu_torch.utils.metrics",
+    **dict.fromkeys(("Tracer", "FrameRecordStream", "Heartbeat", "build_manifest"),
+                    "kcmc_tpu_torch.obs"),
+    **dict.fromkeys(("Session", "StreamScheduler", "ServeServer", "ServeClient"),
+                    "kcmc_tpu_torch.serve"),
+}
+
 
 def __getattr__(name):
     # Lazy package init (PEP 562): the decode-pool workers of
     # io/feeder.py spawn fresh interpreters whose only imports are
     # `kcmc_tpu_torch.io` and numpy; an eager torch import here would
     # tax every worker spawn by seconds.
-    if name in ("CorrectorConfig", "config_from_dict"):
-        from kcmc_tpu_torch import config
+    if name in _LAZY:
+        import importlib
 
-        return getattr(config, name)
-    if name in __all__:
-        from kcmc_tpu_torch import corrector
-
-        return getattr(corrector, name)
+        return getattr(importlib.import_module(_LAZY[name]), name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

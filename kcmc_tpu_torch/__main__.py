@@ -43,9 +43,9 @@ either artifact into a human-readable run report. `metrics` and `trace`
 read a live server's `host:port` or dumped metrics and span shards.
 `-v`/`-q` tune stderr logging; stdout stays machine-readable.
 `KCMC_SANITIZE=1` (or `sanitize -- CMD`) arms the runtime concurrency
-sanitizer for the process.
-
-Not here yet: `check` (the analysis engine, ROADMAP queue 1 item 22).
+sanitizer for the process, whose lock-order check merges the static
+graph that `check` builds. `check` runs the port's six invariant passes
+(stdlib only, no card) against `kcmc_tpu_torch/analysis/baseline.json`.
 """
 
 from __future__ import annotations
@@ -499,6 +499,32 @@ def _cmd_warmup(args) -> int:
     stats.pop("plan_cache", None)
     print(json.dumps(stats))
     return 0
+
+
+def _cmd_check(args) -> int:
+    """The port's invariant checker (analysis/cli.py): AST passes over
+    the package enforcing the config-signature registry, lock/thread
+    discipline, the telemetry span registry, the thread-root inventory,
+    whole-program races and resource lifecycles, gated on a checked-in
+    baseline. Exit 0 = no new errors, 1 = new errors, 2 = usage."""
+    from kcmc_tpu_torch.analysis.cli import main as check_main
+
+    argv = []
+    if args.root:
+        argv += ["--root", args.root]
+    if args.baseline:
+        argv += ["--baseline", args.baseline]
+    if args.json:
+        argv.append("--json")
+    if args.write_baseline:
+        argv.append("--write-baseline")
+    if args.prune_baseline:
+        argv.append("--prune-baseline")
+    if args.sarif:
+        argv += ["--sarif", args.sarif]
+    if args.no_cache:
+        argv.append("--no-cache")
+    return check_main(argv)
 
 
 def _cmd_sanitize(args) -> int:
@@ -1253,6 +1279,50 @@ def build_parser() -> argparse.ArgumentParser:
         help="render one frame and exit (scripting / CI smoke)",
     )
     p.set_defaults(fn=_cmd_top)
+
+    p = sub.add_parser(
+        "check",
+        help="static invariant checker of the port: config-signature "
+        "registry, lock/thread discipline (lock order, daemon-cuda), "
+        "span registry, thread-root inventory, whole-program race "
+        "detection, resource lifecycle — exit 0 unless a NEW "
+        "(non-baselined) error appears",
+    )
+    p.add_argument(
+        "--root", default="",
+        help="repo root holding kcmc_tpu_torch/ (default: auto-detected)",
+    )
+    p.add_argument(
+        "--baseline", default="", metavar="PATH",
+        help="baseline of accepted findings (default: the checked-in "
+        "kcmc_tpu_torch/analysis/baseline.json)",
+    )
+    p.add_argument(
+        "--json", action="store_true",
+        help="machine-readable findings report (kind: kcmc_check); "
+        "render with `python -m kcmc_tpu_torch report`",
+    )
+    p.add_argument(
+        "--write-baseline", action="store_true",
+        help="rewrite the baseline from current findings (new entries "
+        "get FILL-ME-IN reasons; justify each before committing)",
+    )
+    p.add_argument(
+        "--prune-baseline", action="store_true",
+        help="drop stale baseline entries (ones whose finding no "
+        "longer fires) and rewrite the file",
+    )
+    p.add_argument(
+        "--sarif", default="", metavar="PATH",
+        help="also write new findings as a SARIF 2.1.0 log for GitHub "
+        "code-scanning PR annotations ('-' = stdout)",
+    )
+    p.add_argument(
+        "--no-cache", action="store_true",
+        help="bypass the content-hash result cache "
+        "(.kcmc_torch_check_cache/) and re-run every pass",
+    )
+    p.set_defaults(fn=_cmd_check)
 
     p = sub.add_parser(
         "sanitize",

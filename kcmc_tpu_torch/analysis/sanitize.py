@@ -9,8 +9,7 @@ real workload under them:
   constructed from kcmc code are wrapped; each wrapper knows its
   creation site (`file:line`). Acquiring lock B while holding lock A
   records the runtime edge A→B; an edge that closes a cycle against
-  the union of runtime edges (and of the static lock-order graph, once
-  the analysis engine of ROADMAP queue 1 item 22 exists) is a
+  the union of runtime edges AND the static lock-order graph is a
   violation. `Condition(existing_lock)` shares the wrapped lock's
   identity. Locks created by torch, the CUDA runtime or the standard
   library stay real.
@@ -456,16 +455,25 @@ def _condition_factory(lock=None):
 
 
 def static_order_edges(root: str | None = None) -> set:
-    """The static lock-order graph keyed by lock DEFINITION sites. It
-    needs the `kcmc check` engine (analysis/core, lock_discipline),
-    which is ROADMAP queue 1 item 22 and not ported: `enable()` then
-    checks the runtime order alone, as the reference does wherever its
-    graph is unavailable."""
-    raise NotImplementedError(
-        "the static lock-order graph needs the analysis engine "
-        "(analysis/core, lock_discipline) of ROADMAP queue 1 item 22, "
-        "not yet ported"
-    )
+    """The static lock-order graph keyed by lock DEFINITION sites — the
+    same (path, line) identity runtime wrappers carry, so the sanitizer
+    convicts on one executed order plus one written reverse order."""
+    from kcmc_tpu_torch.analysis.cli import find_repo_root
+    from kcmc_tpu_torch.analysis.core import FunctionTable, ModuleIndex
+    from kcmc_tpu_torch.analysis.lock_discipline import _ClassModel
+
+    index = ModuleIndex.from_package(root or find_repo_root())
+    edges: set = set()
+    for mod in index:
+        table = FunctionTable(mod.tree)
+        for cls in table.classes.values():
+            model = _ClassModel(mod, cls, table)
+            for (outer, inner), (_line, _via) in model.order_edges().items():
+                lo = model.locks.get(outer)
+                li = model.locks.get(inner)
+                if lo is not None and li is not None:
+                    edges.add(((mod.path, lo), (mod.path, li)))
+    return edges
 
 
 # -- public surface ----------------------------------------------------------
@@ -482,8 +490,8 @@ def enable(
     strict: bool = False,
 ) -> None:
     """Install the sanitizer (idempotent): patch the lock factories,
-    track sockets, merge the static lock-order graph where one exists,
-    start the watchdog."""
+    track sockets, merge the static lock-order graph, start the
+    watchdog."""
     global _STATE, _REAL_SOCKET
     if _STATE is not None:
         return

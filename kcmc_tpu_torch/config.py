@@ -245,6 +245,11 @@ class CorrectorConfig:
         )
 
     def __post_init__(self):
+        # Totality of the resume-signature classification: every field
+        # must be declared neutral or affecting (registries below the
+        # class; `check`'s config-registry pass enforces the same
+        # statically, this guards modified configs at runtime).
+        _validate_field_classification()
         if self.model not in MODELS:
             raise ValueError(
                 f"unknown model {self.model!r}; available: {sorted(MODELS)}"
@@ -603,6 +608,66 @@ SIG_NEUTRAL_FIELDS = frozenset({
     "fleet_probe_interval_s", "fleet_suspect_probes", "fleet_dead_probes",
     "fleet_wedge_threshold_s", "fleet_queue_watermark", "fleet_scale_cooldown_s",
 })
+
+# Fields that change what a run computes (kcmc_tpu/config.py:1172-1228,
+# name for name): a change between a killed run and its rerun restarts
+# the resume. Every field is in exactly one of the two registries
+# (`_validate_field_classification`, and `check`'s config-registry
+# pass statically).
+SIG_AFFECTING_FIELDS = frozenset({
+    "model", "max_keypoints", "detect_threshold", "nms_size", "border",
+    "harris_k", "harris_window_sigma", "cand_tile", "oriented", "blur_sigma",
+    "n_octaves", "octave_scale", "pyramid_refine",
+    "ratio", "max_hamming", "mutual", "match_radius", "match_tile",
+    "match_slack",
+    "n_hypotheses", "inlier_threshold", "refine_iters", "seed", "budget_rungs",
+    "early_exit_frac", "warm_start", "match_precision",
+    "patch_grid", "patch_hypotheses", "refine_hypotheses", "patch_model",
+    "patch_prior", "field_smooth_sigma", "field_passes", "refine_reach_scale",
+    "global_threshold", "field_polish", "transform_polish", "polish_grid",
+    "score_cap", "quality_metrics", "plan_buckets", "sanitize_input",
+    "batch_size", "device_templates",
+    "warp", "rescue_warp", "max_shear_px", "max_rotation_deg",
+    "rescue_warn_fraction", "rescue_escalate", "max_flow_px",
+    "max_projective_px", "max_scale_dev",
+})
+
+_FIELDS_VALIDATED = False
+
+
+def _validate_field_classification() -> None:
+    """Raise unless the registries partition the dataclass fields (the
+    reference's check and messages, kcmc_tpu/config.py:1234-1264).
+
+    Runs once per process (first config construction); cost after that
+    is one global read. A field added to the dataclass but to neither
+    registry fails HERE, at construction, instead of silently landing
+    on one side of the resume signature."""
+    global _FIELDS_VALIDATED
+    if _FIELDS_VALIDATED:
+        return
+    names = {f.name for f in dataclasses.fields(CorrectorConfig)}
+    unclassified = names - SIG_NEUTRAL_FIELDS - SIG_AFFECTING_FIELDS
+    if unclassified:
+        raise TypeError(
+            "CorrectorConfig fields missing from the resume-signature "
+            f"registries (config.py): {sorted(unclassified)} — add each "
+            "to SIG_NEUTRAL_FIELDS or SIG_AFFECTING_FIELDS"
+        )
+    both = SIG_NEUTRAL_FIELDS & SIG_AFFECTING_FIELDS
+    if both:
+        raise TypeError(
+            "CorrectorConfig fields classified as BOTH signature-"
+            f"neutral and signature-affecting: {sorted(both)}"
+        )
+    stale = (SIG_NEUTRAL_FIELDS | SIG_AFFECTING_FIELDS) - names
+    if stale:
+        raise TypeError(
+            "resume-signature registries list names that are not "
+            f"CorrectorConfig fields: {sorted(stale)}"
+        )
+    _FIELDS_VALIDATED = True
+
 
 # Reference fields the port does not declare and may drop: field ->
 # (ROADMAP.md queue-1 item, or "none", and why dropping it changes

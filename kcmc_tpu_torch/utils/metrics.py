@@ -59,6 +59,40 @@ def field_rmse(est: np.ndarray, gt: np.ndarray) -> float:
     return float(np.sqrt(np.mean(np.sum(diff * diff, axis=-1))))
 
 
+def crispness(stack: np.ndarray) -> float:
+    """Crispness of a stack's MEAN image (kcmc_tpu/utils/metrics.py:76):
+    the Frobenius norm of its gradient field, normalized by the mean
+    image's own Frobenius norm.
+
+    The standard stack-level motion-correction quality score
+    (NoRMCorre-style): residual motion blurs the temporal mean, so a
+    better-corrected stack has a sharper mean image and a HIGHER
+    crispness. Unitless and scale-invariant (the normalization divides
+    out contrast).
+
+        before = crispness(stack)
+        after = crispness(res.corrected)   # expect after > before
+
+    `stack` is (T, H, W) or (T, D, H, W) — always a STACK with a
+    leading frame axis (a bare mean image would be indistinguishable
+    from a (T, H, W) stack by shape). Singleton spatial axes (e.g. a
+    single-plane volume) contribute no gradient term.
+    """
+    stack = np.asarray(stack, np.float32)
+    if stack.ndim not in (3, 4):
+        raise ValueError(
+            f"crispness expects a (T, H, W) or (T, D, H, W) stack, "
+            f"got shape {stack.shape}"
+        )
+    mean = stack.mean(axis=0)
+    g2 = np.zeros_like(mean)
+    for axis in range(mean.ndim):
+        if mean.shape[axis] >= 2:
+            g2 = g2 + np.gradient(mean, axis=axis) ** 2
+    denom = float(np.linalg.norm(mean.ravel()))
+    return float(np.sqrt(g2.ravel().sum()) / max(denom, 1e-12))
+
+
 @dataclasses.dataclass
 class RobustnessReport:
     """Per-run recovery telemetry (utils/faults.py's consumer side).

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import hashlib
 import threading
+import traceback
+import weakref
 
 import numpy as np
 import pytest
@@ -40,6 +42,25 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+# thread -> the stack that started it, for every thread started while
+# this file runs (`record_thread_starts`); names the origin of a
+# `kcmc-upload` thread that outlives its run
+_STARTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def record_thread_starts():
+    real = threading.Thread.start
+
+    def start(self):
+        _STARTS[self] = "".join(traceback.format_stack()[:-1])
+        return real(self)
+
+    threading.Thread.start = start
+    yield
+    threading.Thread.start = real
+
+
 @pytest.fixture(scope="module")
 def data():
     return synthetic.make_drift_stack(n_frames=T, shape=SHAPE, model="translation",
@@ -59,6 +80,17 @@ def _same(a, b):
 
 def _upload_threads():
     return [t.name for t in threading.enumerate() if t.name.startswith("kcmc-upload")]
+
+
+def _describe_upload_threads() -> str:
+    """Each live `kcmc-upload` thread's name, ident and the stack that
+    started it (a thread started before this file ran has none)."""
+    out = []
+    for t in threading.enumerate():
+        if t.name.startswith("kcmc-upload"):
+            stack = _STARTS.get(t, "  (started before this file's tests)\n")
+            out.append(f"{t.name} ident={t.ident} alive={t.is_alive()} started at:\n{stack}")
+    return "\n".join(out)
 
 
 @pytest.fixture(scope="module")
@@ -114,7 +146,7 @@ def test_correct_file_kill_and_resume_byte_identical(data, tmp_path):
     with pytest.raises(FatalFaultError):
         mk(fault_plan="device:step=3:fatal").correct_file(src, output=out, checkpoint=ckpt,
                                                           **args)
-    assert _upload_threads() == []
+    assert _upload_threads() == [], _describe_upload_threads()
     got = mk().correct_file(src, output=out, checkpoint=ckpt, **args)
     assert got.timing["restored_frames"] == 24
     assert got.timing["pipeline"]["drain_flushes"] == 1  # one batch was left
@@ -149,7 +181,7 @@ def test_overlap_off_stays_inline(data, serial):
 
 def test_upload_worker_joined_after_run(data):
     mk().correct(data.stack)
-    assert _upload_threads() == []
+    assert _upload_threads() == [], _describe_upload_threads()
 
 
 def test_failed_staging_raises_and_never_falls_back(data, monkeypatch):
@@ -166,7 +198,7 @@ def test_failed_staging_raises_and_never_falls_back(data, monkeypatch):
     monkeypatch.setattr(mc.backend, "stage_upload", broken)
     with pytest.raises(RuntimeError, match="pinned allocation refused"):
         mc.correct(data.stack)
-    assert calls and _upload_threads() == []
+    assert calls and _upload_threads() == [], _describe_upload_threads()
     assert mc._robustness.device_retries == 0 and mc._failover_backend is None
 
 

@@ -226,7 +226,11 @@ def test_port_imports_neither_jax_nor_kcmc_tpu():
                 "obs.tracing", "obs.records", "obs.heartbeat", "obs.run", "obs.report",
                 "obs.top", "obs.slo", "serve", "serve.proto", "serve.journal",
                 "serve.session", "serve.scheduler", "serve.server", "serve.client",
-                "serve.fleet", "serve.autoscale", "serve.router", "__main__"):
+                "serve.fleet", "serve.autoscale", "serve.router", "__main__",
+                "analysis", "analysis.core", "analysis.callgraph", "analysis.cache",
+                "analysis.sarif", "analysis.cli", "analysis.config_registry",
+                "analysis.span_registry", "analysis.lock_discipline",
+                "analysis.concurrency", "analysis.lifecycle", "models"):
         assert "kcmc_tpu_torch." + mod in names
     src = open(os.path.join(REPO, "chip_smoke.py")).read()
     assert "import jax" not in src and "from kcmc_tpu " not in src

@@ -12,15 +12,17 @@ sanitize.py), on the cases of the reference's tests/test_sanitize.py:
 * the port's AsyncBatchWriter, heartbeat and a whole `correct_file`
   run (upload worker, prefetch thread, writer) sanitize-clean and
   leak-free, and the serve scheduler under concurrent stats() probes;
-* the missing static lock-order graph reported on stderr (item 22),
-  and `KCMC_SANITIZE=1` arming the sanitizer through the CLI's `main`.
+* the static lock-order graph: one executed order against a written
+  reverse order is convicted, and `enable()` merges the port's own
+  graph (non-empty, keyed by the port's lock definition sites);
+* `KCMC_SANITIZE=1` arming the sanitizer through the CLI's `main`.
 
-The static-graph case waits for the analysis engine (item 22). Every
-test arms and disarms the sanitizer itself.
+Every test arms and disarms the sanitizer itself.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 
@@ -245,19 +247,48 @@ def test_main_wraps_a_command(monkeypatch):
     assert e.value.code == 2
 
 
-def test_missing_static_graph_names_item_22(capsys):
+def test_static_graph_convicts_single_executed_order(san):
+    """One executed order + the static reverse edge = violation, no
+    unlucky interleaving required (the reference's case)."""
+    a = threading.Lock()
+    b = threading.Lock()
+    # inject the static edge a->b (as static_order_edges would for a
+    # written `with self._a: with self._b:` nesting)
+    st = sanitize._STATE
+    st.static_edges.add((a.site, b.site))
+    with b:  # runtime executes ONLY the reverse order
+        with a:
+            pass
+    v = san.take_violations()
+    assert v and "lock-order violation" in v[0], v
+
+
+def test_enable_merges_the_ports_static_graph(monkeypatch, capsys):
+    """`static_order_edges()` over the port is non-empty and keyed by
+    the port's lock DEFINITION sites (a `threading.Lock/RLock/Condition`
+    constructor on that line of that file); `enable()` merges exactly
+    it, with no runtime-only fallback line."""
     if sanitize.active():
         pytest.skip("the sanitizer is armed for this whole process")
-    with pytest.raises(NotImplementedError, match="item 22"):
-        sanitize.static_order_edges()
+    seen = {}
+    real = sanitize.static_order_edges
+    monkeypatch.setattr(sanitize, "static_order_edges",
+                        lambda root=None: seen.setdefault("edges", real(root)))
     sanitize.enable(watchdog_s=0.0)
     try:
         err = capsys.readouterr().err
-        assert "static lock-order graph unavailable" in err
-        assert "item 22" in err and "runtime-only order checking" in err
-        assert sanitize.stats()["static_edges"] == 0
+        assert "static lock-order graph unavailable" not in err
+        edges = seen["edges"]
+        assert edges and sanitize.stats()["static_edges"] == len(edges)
     finally:
         sanitize.disable()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for site in {s for e in edges for s in e}:
+        path, line = site
+        assert path.startswith("kcmc_tpu_torch/"), site
+        with open(os.path.join(repo, path), encoding="utf-8") as f:
+            src = f.read().splitlines()[line - 1]
+        assert any(c in src for c in ("Lock(", "RLock(", "Condition(")), (site, src)
 
 
 def test_env_arms_the_sanitizer_through_the_cli(monkeypatch, tmp_path, capsys):
