@@ -14,6 +14,7 @@ version on the card. Imports torch and numpy only.
     from kcmc_tpu_torch import MotionCorrector
     res = MotionCorrector(model="translation").correct(stack)  # on the card
     res = MotionCorrector(device="cpu").correct(stack)  # plain versions
+    res = MotionCorrector(backend="numpy").correct(stack)  # the NumPy oracle
     res = MotionCorrector(model="similarity", n_octaves=3).correct(stack)
     res = MotionCorrector(model="rigid3d", batch_size=8).correct(volumes)
     other = apply_correction(channel2, res.transforms)  # same motion
@@ -36,10 +37,10 @@ __all__ = [
 ]
 
 # Every lazy root name (the reference's, kcmc_tpu/__init__.py:22-97, and
-# `config_from_dict`) by the port submodule that defines it. The backend registry
-# (`available_backends`, `get_backend`, `register_backend`) is left out
-# of the port on purpose: it has one TorchBackend.
+# `config_from_dict`) by the port submodule that defines it.
 _LAZY = {
+    **dict.fromkeys(("available_backends", "get_backend", "register_backend"),
+                    "kcmc_tpu_torch.backends"),
     **dict.fromkeys(("CorrectorConfig", "config_from_dict"), "kcmc_tpu_torch.config"),
     **dict.fromkeys(("CorrectionResult", "MotionCorrector", "apply_correction",
                      "apply_correction_file", "common_valid_region"),

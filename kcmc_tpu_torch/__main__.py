@@ -11,11 +11,13 @@ stdout summaries and exit codes).
     python -m kcmc_tpu_torch --device cpu correct stack.tif --transforms t.npz
 
 Every command runs on the CUDA card unless `--device cpu` (before the
-subcommand) or a subcommand's `--backend numpy` asks for the CPU, where
-every kernel runs its plain PyTorch version; with no card and neither,
-a command that corrects exits with an error. `--backend` takes `torch`
-(the default) or `numpy` (the same config on the CPU); `--backend jax`
-belongs to the JAX package's own command line, `python -m kcmc_tpu`.
+subcommand) asks for the CPU, where every kernel runs its plain PyTorch
+version, or a subcommand's `--backend numpy` asks for the pure-NumPy
+host oracle; with no card and neither, a command that corrects exits
+with an error. `--backend` takes any registered backend
+(`kcmc_tpu_torch.available_backends()`): `torch` (the default) or
+`numpy`; `--backend jax` belongs to the JAX package's own command line,
+`python -m kcmc_tpu`.
 
 `correct` streams: chunks decode in a background thread (native TIFF
 decoder), register on the card, and corrected frames append to the
@@ -59,17 +61,20 @@ import numpy as np
 def _device(args):
     """The device= a subcommand's correctors and applies run on: the
     top-level --device (the card by default), or the CPU for `--backend
-    numpy`, the reference's name for its plain backend."""
+    numpy`, the host oracle (a `stabilize`'s applies then run the plain
+    PyTorch versions there). Refuses a name the registry lacks."""
+    from kcmc_tpu_torch.backends import available_backends
+
     backend = getattr(args, "backend", "torch")
     if backend == "jax":
         raise SystemExit(
             "--backend jax runs the JAX package: use `python -m kcmc_tpu`; "
             "`python -m kcmc_tpu_torch` takes --backend torch (the card, "
-            "or --device) or numpy (the same config on the CPU)"
+            "or --device) or numpy (the pure-NumPy host oracle)"
         )
-    if backend not in ("torch", "numpy"):
+    if backend not in available_backends():
         raise SystemExit(
-            f"--backend must be 'torch' or 'numpy', got {backend!r}"
+            f"unknown backend {backend!r}; available: {available_backends()}"
         )
     if backend == "numpy":
         if args.device not in (None, "cpu"):
@@ -83,11 +88,16 @@ def _device(args):
 
         if not torch.cuda.is_available():
             raise SystemExit(
-                "no CUDA device is available; pass --device cpu (or "
-                "--backend numpy) to run the plain PyTorch versions of "
-                "the kernels on the CPU"
+                "no CUDA device is available; pass --device cpu to run "
+                "the plain PyTorch versions of the kernels on the CPU (or "
+                "--backend numpy for the pure-NumPy host oracle)"
             )
     return args.device
+
+
+def _backend_kw(args) -> dict:
+    """A subcommand's corrector backend and device."""
+    return {"backend": args.backend, "device": _device(args)}
 
 
 def _cmd_info(args) -> int:
@@ -202,7 +212,7 @@ def _cmd_correct(args) -> int:
     ref, overrides = _parse_reference_and_overrides(args)
 
     mc = MotionCorrector(
-        model=args.model, reference=ref, device=_device(args), **overrides
+        model=args.model, reference=ref, **_backend_kw(args), **overrides
     )
     res = mc.correct_file(
         args.stack,
@@ -339,8 +349,9 @@ def _correct_volumetric(args) -> int:
         # refusing beats a user discovering post-kill that none existed.
         raise SystemExit(
             "--checkpoint is not supported with --model rigid3d (the "
-            "volumetric path runs in memory and has no resume; checkpoints "
-            "cover the streaming 2D models)"
+            "volumetric path runs in memory; use "
+            "kcmc_tpu_torch.utils.checkpoint.ResumableCorrector from Python "
+            "for chunk-level resume)"
         )
     if args.stall_exit:
         raise SystemExit(
@@ -351,7 +362,7 @@ def _correct_volumetric(args) -> int:
     # flag (--octaves, --match-radius) must fail fast.
     ref, overrides = _parse_reference_and_overrides(args)
     mc = MotionCorrector(
-        model="rigid3d", reference=ref, device=_device(args), **overrides
+        model="rigid3d", reference=ref, **_backend_kw(args), **overrides
     )
 
     pages = read_stack(args.stack, n_threads=args.io_threads)
@@ -434,7 +445,7 @@ def _cmd_stabilize(args) -> int:
     ref, overrides = _parse_reference_and_overrides(args)
     device = _device(args)
     mc = MotionCorrector(
-        model=args.model, reference=ref, device=device, **overrides
+        model=args.model, reference=ref, backend=args.backend, device=device, **overrides
     )
     res = mc.correct_file(
         args.stack,
@@ -484,7 +495,7 @@ def _cmd_warmup(args) -> int:
     # passed explicitly below (the shared mapper also collects it)
     overrides.pop("template_update_every", None)
     mc = MotionCorrector(
-        model=args.model, reference=ref, device=_device(args),
+        model=args.model, reference=ref, **_backend_kw(args),
         template_update_every=args.template_update, **overrides,
     )
     dtypes = tuple(
@@ -762,9 +773,10 @@ _COMPRESSIONS = ["none", "deflate", "packbits"]
 def _backend_arg(p) -> None:
     p.add_argument(
         "--backend", default="torch",
-        help="torch (default: the card, or the top-level --device) or "
-        "numpy (the same config on the CPU, the plain PyTorch versions "
-        "of the kernels)",
+        help="a registered backend: torch (default: the hand-written "
+        "CUDA kernels on the card, or their plain PyTorch versions with "
+        "the top-level --device cpu) or numpy (the pure-NumPy host "
+        "oracle, on the CPU); jax is the JAX package's (python -m kcmc_tpu)",
     )
 
 

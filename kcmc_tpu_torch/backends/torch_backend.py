@@ -97,6 +97,7 @@ import weakref
 import numpy as np
 import torch
 
+from kcmc_tpu_torch.backends import register_backend
 from kcmc_tpu_torch.config import CorrectorConfig
 from kcmc_tpu_torch.models.transforms import get_model
 from kcmc_tpu_torch.ops import cuda_build
@@ -334,6 +335,7 @@ class BatchOutputs(dict):
     download: _Download | None = None
 
 
+@register_backend("torch")
 class TorchBackend:
     name = "torch"
     # The dispatch core may hand this backend batches in their native
@@ -344,15 +346,11 @@ class TorchBackend:
     # build or kernel error always raises (faults.classify_device_transient).
     transient_error_types = ()
 
-    def __init__(self, config: CorrectorConfig, device=None, plan_routing: bool = True,
-                 mesh=None, mesh_devices: bool = True):
-        """`plan_routing=False` ignores `plan_buckets` (the CPU failover
-        backend, as the reference's numpy backend ignores them).
-        `mesh`: a tuple of devices (parallel.make_mesh) to shard every
+    def __init__(self, config: CorrectorConfig, device=None, mesh=None):
+        """`mesh`: a tuple of devices (parallel.make_mesh) to shard every
         batch over; None resolves `config.mesh_devices` (and
-        KCMC_DEVICES) on `device`, unless `mesh_devices=False` (the CPU
-        failover backend, as the reference's numpy backend ignores the
-        mesh). The backend's device is then the mesh's first."""
+        KCMC_DEVICES) on `device`. The backend's device is then the
+        mesh's first."""
         missing = config.unsupported()
         if missing:
             raise NotImplementedError(
@@ -360,7 +358,7 @@ class TorchBackend:
             )
         self.config = config
         self.device = resolve_device(device)
-        if mesh is None and mesh_devices:
+        if mesh is None:
             mesh = resolve_mesh(config.mesh_devices, device=self.device)
         if mesh is not None:
             mesh = tuple(torch.device(d) for d in mesh)
@@ -387,7 +385,7 @@ class TorchBackend:
         # (a weak reference: no cycle keeps the backend's tensors alive)
         backend = weakref.ref(self)
         self._plan = PlanRuntime(config, backend_name=self.name, device=self.device,
-                                 routing=plan_routing, mesh=self.mesh,
+                                 mesh=self.mesh,
                                  libraries=lambda program: kernel_libraries(backend(), (program,)))
 
     def runtime_info(self) -> dict:

@@ -27,6 +27,13 @@ warp. The output is byte-identical with `upload_overlap=False`. With `mesh=` or
 `mesh_devices` every batch is sharded over a frame-axis mesh of devices
 (parallel/).
 
+The backend is a registered name (`backends/`: "torch", or the NumPy
+host oracle "numpy") or an instance; every seam beyond
+`prepare_reference` and `process_batch` is probed (`process_batch_async`,
+`stage_upload`, `to_host`, `rescue_warp`, `update_reference`,
+`plan_cache_stats`), so a plugin backend runs synchronously, as in the
+reference.
+
 File-scale runs (`correct_file`, kcmc_tpu/corrector.py:2110-2837) stream
 chunks through `io/` (native TIFF decoder, Zarr, HDF5, npy, raw; a
 prefetch thread or a decode pool; object-store URLs through
@@ -36,9 +43,10 @@ bucket, behind a background writer) and checkpoint the recovered
 transforms with the writer's exact cursor, so a killed run resumes and
 writes the bytes of an uninterrupted one. Every batch runs under the
 degradation ladder (:864-1166): injected transient faults are retried
-with backoff, then re-run on the CPU failover backend, then marked
-failed and interpolated; any other error of the batch program raises
-(chunk reads retry OS-level I/O errors on their own surface).
+with backoff, then re-run on the failover backend (the NumPy oracle on
+the host by default), then marked failed and interpolated; any other
+error of the batch program raises (chunk reads retry OS-level I/O
+errors on their own surface).
 `apply_correction_file` streams a stored registration onto another file,
 and `common_valid_region` gives the crop every corrected frame covers.
 
@@ -67,7 +75,7 @@ import time
 import numpy as np
 import torch
 
-from kcmc_tpu_torch.backends.torch_backend import TorchBackend
+from kcmc_tpu_torch.backends import get_backend
 from kcmc_tpu_torch.config import SIG_NEUTRAL_FIELDS, CorrectorConfig, port_fields
 from kcmc_tpu_torch.obs.log import advise
 from kcmc_tpu_torch.ops.warp import (
@@ -110,11 +118,41 @@ def _telemetry_scope(fn):
     return wrapper
 
 
-# The failover backends `failover_backend` may name: "numpy" (the
-# reference's name for its plain-numpy backend) is the same config on
-# the CPU, the kernels' plain versions; "torch" names the primary
-# itself, which turns the rung off, as in the reference.
-_FAILOVER_NAMES = (None, "numpy", "torch")
+def _make_backend(name: str, config: CorrectorConfig, device=None, mesh=None):
+    """The backend registered under `name`, built through the registry.
+    "torch" takes the device and the mesh; "numpy" is the host oracle,
+    which runs on the CPU and refuses any other device; a third-party
+    backend gets the options that were given."""
+    if name == "numpy" and device is not None and torch.device(device).type != "cpu":
+        raise ValueError(
+            f"backend='numpy' runs on the host CPU; it cannot be combined "
+            f"with device={device!r}"
+        )
+    options = {}
+    if device is not None and name != "numpy":
+        options["device"] = device
+    if mesh is not None:
+        options["mesh"] = mesh
+    return get_backend(name, config, **options)
+
+
+def twin_options(backend) -> dict:
+    """`get_backend` options that build a backend on `backend`'s device
+    and mesh: the escalation backend, the serve plane's degraded twin and
+    its rebuilt primary (kcmc_tpu/corrector.py:1990-2000)."""
+    options = {}
+    if getattr(backend, "device", None) is not None:
+        options["device"] = backend.device
+    mesh = getattr(backend, "mesh", None)
+    if mesh is not None:
+        options["mesh"] = mesh
+    return options
+
+
+def _backend_device(backend) -> torch.device:
+    """Where a backend's outputs live: its `device`, or the host for a
+    backend without one (the numpy oracle, plugin backends)."""
+    return torch.device(getattr(backend, "device", None) or "cpu")
 
 
 @dataclasses.dataclass
@@ -177,6 +215,21 @@ def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def _on_device(out: dict, device) -> dict:
+    """Host outputs as tensors on `device` (`device_outputs` runs)."""
+    return {k: torch.as_tensor(np.asarray(v), device=device) for k, v in out.items()}
+
+
+def _host_float(batch, backend):
+    """A batch for a backend without the asynchronous seam: host frames,
+    cast to float32 unless the backend declares `accepts_native_dtype`
+    (corrector.py:1205, :1741-1747)."""
+    batch = _host(batch)
+    if not getattr(backend, "accepts_native_dtype", False) and batch.dtype != np.float32:
+        batch = batch.astype(np.float32)
+    return batch
 
 
 def apply_correction(
@@ -546,9 +599,12 @@ class MotionCorrector:
 
     `device`: None runs on the card and raises when there is none;
     "cpu" runs every kernel's plain version (the tests' route).
-    `backend`: None or "torch" builds a TorchBackend; a TorchBackend
+    `backend`: a registered name (`backends.available_backends()`):
+    None or "torch" builds a TorchBackend on `device`, "numpy" the
+    pure-NumPy host oracle (it refuses a CUDA `device`); a backend
     instance is shared (the serving seam; its config must equal this
-    corrector's, and its device is used).
+    corrector's). A plugin needs only `prepare_reference` and
+    `process_batch`; the optional methods are probed.
     `reference`: a frame index, "first", "mean" (mean of the first
     `reference_window` frames) or an explicit (H, W) / (D, H, W) array.
     `template_iters`: rounds of template refinement (register the first
@@ -584,24 +640,27 @@ class MotionCorrector:
     ):
         base = config if config is not None else CorrectorConfig()
         self.config = base.replace(model=model, **port_fields(overrides))
-        if isinstance(backend, TorchBackend):
+        if backend is None or isinstance(backend, str):
+            self.backend_name = backend or "torch"
+            self.backend = _make_backend(self.backend_name, self.config, device, mesh)
+        else:
+            # a backend INSTANCE: the serving seam, many per-stream
+            # correctors sharing one warm backend (corrector.py:689-711)
             if mesh is not None:
                 raise ValueError(
                     "mesh= cannot be combined with a backend instance "
                     "(the instance already owns its mesh)"
                 )
-            if backend.config != self.config:
+            shared_cfg = getattr(backend, "config", None)
+            if shared_cfg is not None and shared_cfg != self.config:
                 raise ValueError(
                     "shared backend instance was built for a different "
                     "CorrectorConfig than this corrector's — construct "
                     "the corrector with the backend's config (serve "
                     "sessions must not change compiled-program knobs)"
                 )
+            self.backend_name = getattr(backend, "name", type(backend).__name__)
             self.backend = backend
-        elif backend in (None, "torch"):
-            self.backend = TorchBackend(self.config, device=device, mesh=mesh)
-        else:
-            raise ValueError(f"backend must be 'torch' or a TorchBackend, got {backend!r}")
         self.reference = reference
         self.reference_window = reference_window
         self.template_iters = template_iters
@@ -622,13 +681,16 @@ class MotionCorrector:
             )
         self.template_update_every = template_update_every
         self.template_update_alpha = template_update_alpha
-        if self.config.failover_backend not in _FAILOVER_NAMES:
-            raise ValueError(
-                "failover_backend must be 'numpy' (the same config on "
-                "device='cpu'), 'torch' or None (no failover rung), got "
-                f"{self.config.failover_backend!r}"
-            )
-        self.backend_name = self.backend.name
+        fb = self.config.failover_backend
+        if fb:
+            from kcmc_tpu_torch.backends import available_backends
+
+            if fb not in available_backends():
+                raise ValueError(
+                    f"failover_backend must be a registered backend or None "
+                    f"(no failover rung), got {fb!r}; available: "
+                    f"{available_backends()}"
+                )
         self._escalation_backend = None
         self._reset_rescue_policy()
         # robustness machinery, reset per run by _begin_robust_run
@@ -694,11 +756,15 @@ class MotionCorrector:
         """Attach the backend's plan-cache snapshot to a run's timing
         whenever execution plans are configured or any program was built
         on the card (corrector.py:824-837). The CPU route compiles
-        nothing, like the reference's numpy backend, whose timing carries
-        no plan_cache either; its first runs stay counted in
-        `backend.plan_cache_stats()`."""
-        stats = self.backend.plan_cache_stats()
-        built = stats.get("programs_compiled") and self.backend.device.type == "cuda"
+        nothing, like the numpy backend, whose timing carries no
+        plan_cache either; its first runs stay counted in
+        `backend.plan_cache_stats()`. A backend without that method
+        reports nothing."""
+        stats_fn = getattr(self.backend, "plan_cache_stats", None)
+        if stats_fn is None:
+            return
+        stats = stats_fn()
+        built = stats.get("programs_compiled") and _backend_device(self.backend).type == "cuda"
         if stats.get("enabled") or built:
             timing["plan_cache"] = stats
 
@@ -734,16 +800,14 @@ class MotionCorrector:
         self._rescue_warned = False
         self._warm_seed = None
 
-    def _get_escalation_backend(self) -> TorchBackend:
-        """The same backend with warp="jnp" (exact, unbounded), built the
-        first time the escalation trips; it takes the reference prepared
-        by the main backend."""
+    def _get_escalation_backend(self):
+        """The same backend with warp="jnp" (exact, unbounded), built
+        through the registry the first time the escalation trips, on the
+        main backend's device and mesh (corrector.py:1990-2000); it takes
+        the reference prepared by the main backend."""
         if self._escalation_backend is None:
-            # on the main backend's mesh (corrector.py:1990-2000)
-            self._escalation_backend = TorchBackend(
-                self.config.replace(warp="jnp"), device=self.backend.device,
-                mesh=self.backend.mesh, mesh_devices=False,
-            )
+            self._escalation_backend = get_backend(
+                self.backend_name, self.config.replace(warp="jnp"), **twin_options(self.backend))
         return self._escalation_backend
 
     def _select_reference(self, stack):
@@ -817,6 +881,8 @@ class MotionCorrector:
             for lo in range(0, W, B):
                 hi = min(lo + B, W)
                 n, batch, idx = self._pad_batch(stack[lo:hi], np.arange(lo, hi), B)
+                if getattr(self.backend, "process_batch_async", None) is None:
+                    batch = _host_float(batch, self.backend)
                 out = self.backend.process_batch(batch, ref, idx)
                 corrected.append(out["corrected"][:n])
                 ok.append(np.asarray(out["warp_ok"][:n], bool))
@@ -904,7 +970,9 @@ class MotionCorrector:
             "static motion bound and took the per-frame exact-warp "
             "rescue path"
         )
-        if cfg.rescue_escalate and self._escalation_allowed:
+        can_escalate = (cfg.rescue_escalate and self._escalation_allowed
+                        and getattr(self.backend, "process_batch_async", None) is not None)
+        if can_escalate:
             # decided at drain; the dispatch records the first frame the
             # escalation backend takes (`_escalated_at`)
             self._escalated = True
@@ -931,7 +999,10 @@ class MotionCorrector:
         (corrector.py:2093). Counts the batch for the out-of-bound policy
         first: the window holds the newest batches totalling at least
         max(256, 4 x batch) frames (corrector.py:2051-2066)."""
-        ok = np.asarray(host["warp_ok"], bool)
+        ok = host.get("warp_ok")
+        if ok is None or getattr(self.backend, "rescue_warp", None) is None:
+            return
+        ok = np.asarray(ok, bool)
         host["warp_rescued"] = ~ok
         n_bad = int((~ok).sum())
         self._rescue_seen += len(ok)
@@ -956,8 +1027,8 @@ class MotionCorrector:
             transforms[bad] = sub["transform"]
             host["transform"] = transforms
         host["warp_ok"] = np.ones_like(ok)
-        if "template_corr" in host and ref is not None:
-            dev = self.backend.device
+        if "template_corr" in host and ref is not None and hasattr(self.backend, "quality"):
+            dev = _backend_device(self.backend)
             maps = {k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
                     for k, v in sub.items()}
             corr, _ = self.backend.quality(
@@ -994,18 +1065,23 @@ class MotionCorrector:
             }
 
     def _get_failover_backend(self):
-        """Rung 2 (corrector.py:914): the failover backend, or None when
-        disabled or identical to the primary. "numpy" is a TorchBackend
-        of the same config on the CPU: the kernels' plain versions, the
-        same algorithm."""
-        name = self.config.failover_backend
+        """Rung 2 (corrector.py:914): the failover backend through the
+        registry (`get_backend(failover_backend, config)`), or None when
+        disabled, identical to the primary or not constructible for this
+        config. "numpy" is the host oracle, which ignores the mesh and
+        the buckets; a banded config fails over to its dense matcher
+        (the oracle refuses `match_radius`, and the dense matcher finds
+        a superset of the banded matches)."""
+        cfg = self.config
+        name = cfg.failover_backend
         if not name or name == self.backend_name:
             return None
         if self._failover_backend is None:
-            # the buckets are ignored there, as by the reference's
-            # numpy backend (tests/test_plans.py:224-235)
-            self._failover_backend = TorchBackend(self.config, device="cpu",
-                                                  plan_routing=False, mesh_devices=False)
+            fb_cfg = cfg if cfg.match_radius is None else cfg.replace(match_radius=None)
+            try:
+                self._failover_backend = get_backend(name, fb_cfg)
+            except Exception:
+                return None
         return self._failover_backend
 
     def _failover_reference(self, fb, ref: dict) -> dict:
@@ -1014,21 +1090,42 @@ class MotionCorrector:
         cached = self._failover_ref
         if cached is not None and cached[0] is ref:
             return cached[1]
-        fb_ref = fb.prepare_reference(ref["frame"])
+        frame = ref["frame"]
+        if getattr(fb, "process_batch_async", None) is None:
+            frame = _host(frame).astype(np.float32)  # a host backend gets host frames
+        fb_ref = fb.prepare_reference(frame)
         if ref.get("_skip_quality"):
             fb_ref = dict(fb_ref, _skip_quality=True)
         self._failover_ref = (ref, fb_ref)
         return fb_ref
 
     @staticmethod
-    def _apply_out_options(out: dict, emit_frames: bool) -> dict:
+    def _apply_out_options(out: dict, emit_frames: bool, cast_dtype=None) -> dict:
         """A ladder result in the fast path's output contract:
-        registration-only runs carry no frames."""
+        registration-only runs carry no frames, and an integer
+        `cast_dtype` the card would have applied is applied on the host
+        (corrector.py:961)."""
         if not emit_frames and "corrected" in out:
             out = {k: v for k, v in out.items() if k != "corrected"}
+        if cast_dtype is not None and "corrected" in out:
+            out = dict(out, corrected=_cast_output(np.asarray(out["corrected"]),
+                                                   np.dtype(cast_dtype)))
         return out
 
-    def _synthesize_failed_batch(self, batch, idx, emit_frames: bool) -> dict:
+    @staticmethod
+    def _attempt_batch(backend, batch, ref, idx, seed, cast_dtype) -> dict:
+        """One synchronous (re-)attempt of a batch on `backend`, as host
+        arrays (corrector.py:950): a backend with the asynchronous seam
+        takes the dispatch's seed and output cast; any other runs the
+        plain `process_batch(frames, ref, indices)` on float32 frames
+        unless it declares `accepts_native_dtype`."""
+        if getattr(backend, "process_batch_async", None) is not None:
+            kw = {} if cast_dtype is None else {"cast_dtype": cast_dtype}
+            return backend.process_batch(batch, ref, idx, seed=seed, **kw)
+        return {k: _host(v) for k, v in
+                backend.process_batch(_host_float(batch, backend), ref, idx).items()}
+
+    def _synthesize_failed_batch(self, batch, idx, emit_frames: bool, cast_dtype=None) -> dict:
         """Rung 3 (corrector.py:982): a placeholder for a batch every
         rung refused, shaped like the run's outputs — identity
         transforms (interpolated after the run), the raw input pixels,
@@ -1050,7 +1147,7 @@ class MotionCorrector:
                 out[k] = np.full((B,) + shape, np.nan, dt)
             else:  # field, n_keypoints, n_matches, n_inliers, rms_residual, ...
                 out[k] = np.zeros((B,) + shape, dt)
-        return self._apply_out_options(out, emit_frames)
+        return self._apply_out_options(out, emit_frames, cast_dtype)
 
     def _ladder_batch(self, first_exc, backend, batch, ref, idx, seed, step,
                       n: int, emit_frames: bool, cast_dtype=None) -> tuple[dict, bool]:
@@ -1065,8 +1162,7 @@ class MotionCorrector:
         never hides a fault of the program. Returns (host outputs,
         marked failed)."""
         plan, policy, report = self._fault_plan, self._retry_policy, self._robustness
-        extra = backend.transient_error_types
-        cast_kw = {} if cast_dtype is None else {"cast_dtype": cast_dtype}
+        extra = tuple(getattr(backend, "transient_error_types", ()))
         if not faults.classify_device_transient(first_exc, extra):
             raise first_exc
         last = first_exc
@@ -1078,7 +1174,8 @@ class MotionCorrector:
                 if plan is not None:
                     plan.maybe_fail("device", step)
                 out = self._apply_out_options(
-                    backend.process_batch(batch, ref, idx, seed=seed, **cast_kw), emit_frames)
+                    self._attempt_batch(backend, batch, ref, idx, seed, cast_dtype),
+                    emit_frames, cast_dtype)
                 self._note_out_template(out)
                 return out, False
             except Exception as e:
@@ -1092,7 +1189,8 @@ class MotionCorrector:
                     plan.maybe_fail("failover", step)
                 fb_ref = self._failover_reference(fb, ref)
                 out = self._apply_out_options(
-                    fb.process_batch(batch, fb_ref, idx, seed=seed, **cast_kw), emit_frames)
+                    self._attempt_batch(fb, batch, fb_ref, idx, seed, cast_dtype),
+                    emit_frames, cast_dtype)
                 self._note_out_template(out)
                 report.backend_failovers += 1
                 report.failover_frame_indices.extend(int(i) for i in idx[:n])
@@ -1105,7 +1203,8 @@ class MotionCorrector:
                 )
                 return out, False
             except Exception as e:
-                if not faults.classify_device_transient(e, extra + fb.transient_error_types):
+                if not faults.classify_device_transient(
+                        e, extra + tuple(getattr(fb, "transient_error_types", ()))):
                     raise
                 last = e
         if not self.config.degrade_mark_failed or self._out_template is None:
@@ -1119,7 +1218,7 @@ class MotionCorrector:
             "uncorrected (diagnostics['frames_failed'])",
             stacklevel=2,
         )
-        return self._synthesize_failed_batch(batch, idx, emit_frames), True
+        return self._synthesize_failed_batch(batch, idx, emit_frames, cast_dtype), True
 
     def _finalize_robustness(self, merged: dict, transforms, offset: int, length: int,
                              timing: dict, host: bool = True):
@@ -1218,8 +1317,8 @@ class MotionCorrector:
         tel = self._telemetry
         lat = tel.latency if tel is not None else None
         shard_args = None
-        if tracer is not None and self.backend.mesh is not None:
-            mesh = self.backend.mesh
+        mesh = getattr(self.backend, "mesh", None)
+        if tracer is not None and mesh is not None:
             shard_args = {
                 "shards": len(mesh),
                 "shard_devices": [d.index if d.index is not None else j
@@ -1236,8 +1335,9 @@ class MotionCorrector:
 
         def stage_on(backend, nxt_batch):
             """Submit the next batch's upload: (future, backend id), or
-            None with upload_overlap off."""
-            if not cfg.upload_overlap:
+            None with upload_overlap off or a backend without the
+            staging seam."""
+            if not cfg.upload_overlap or getattr(backend, "stage_upload", None) is None:
                 return None
             if state["uploader"] is None:
                 state["uploader"] = _UploadWorker()
@@ -1263,6 +1363,11 @@ class MotionCorrector:
                 backend = self._get_escalation_backend() if self._escalated else self.backend
                 if backend is not self.backend and self._escalated_at is None:
                     self._escalated_at = state["frames"]
+                # a backend without the asynchronous seam runs each batch
+                # inside a plain process_batch call (corrector.py:1768)
+                dispatch = getattr(backend, "process_batch_async", None)
+                if dispatch is None:
+                    batch = _host_float(batch, backend)
                 disp = batch  # what dispatch receives; `batch` stays the host frames
                 if slot is not None:
                     (fut, owner), slot = slot, None
@@ -1281,7 +1386,7 @@ class MotionCorrector:
                 # the next batch's upload runs on the worker while this
                 # one dispatches and executes
                 cur = next(it, None)
-                if cur is not None:
+                if cur is not None and dispatch is not None:
                     slot = stage_on(backend, cur[1])
                 step = plan.op_index("device") if plan is not None else None
                 state["frames"] += n
@@ -1289,9 +1394,11 @@ class MotionCorrector:
                 try:
                     if plan is not None:
                         plan.maybe_fail("device", step)
-                    out = backend.process_batch_async(disp, ref, idx, seed=seed,
-                                                      to_host=to_host, cast_dtype=cast_dtype,
-                                                      emit_frames=emit_frames)
+                    if dispatch is not None:
+                        out = dispatch(disp, ref, idx, seed=seed, to_host=to_host,
+                                       cast_dtype=cast_dtype, emit_frames=emit_frames)
+                    else:
+                        out = {k: _host(v) for k, v in backend.process_batch(batch, ref, idx).items()}
                 except Exception as e:
                     # the window drains first, so outputs stay in order
                     # and the ladder's synthesis template exists
@@ -1302,11 +1409,10 @@ class MotionCorrector:
                         on_dispatched(n, res, idx)
                     kept = self._failed_kept(res, kept, failed)
                     if not to_host:
-                        dev = self.backend.device
-                        res = {k: torch.as_tensor(v, device=dev) for k, v in res.items()}
+                        res = _on_device(res, _backend_device(self.backend))
                     drain(n, {k: v[:n] for k, v in res.items()}, kept, ref, failed)
                     continue
-                if warm:
+                if warm and "transform" in out:
                     # the newest transform, still on the device, seeds
                     # the next batch's consensus
                     self._warm_seed = out["transform"][n - 1]
@@ -1320,9 +1426,16 @@ class MotionCorrector:
                 t_disp_done = 0.0
                 if lat is not None:
                     t_disp_done = time.perf_counter()
-                    lat.observe("request.dispatch", t_disp_done - t_disp, n=n)
+                    if dispatch is not None:
+                        # a synchronous backend ran the batch inside the
+                        # call: that interval is its device segment
+                        lat.observe("request.dispatch", t_disp_done - t_disp, n=n)
                 if on_dispatched is not None:
                     on_dispatched(n, out, idx)
+                if dispatch is None:
+                    self._drain_sync(n, out, kept, ref, drain, to_host, emit_frames,
+                                     t_disp, t_disp_done, timer)
+                    continue
                 # the staged tensor rides in the entry until its batch drains
                 inflight.append((n, out, kept, batch if keep_for_ladder else None, idx, step,
                                  backend, seed, emit_frames, cast_dtype, ref, t_disp_done,
@@ -1353,7 +1466,9 @@ class MotionCorrector:
             timer = state["timer"]
             try:
                 with timer.stall("drain_sync") if timer is not None else contextlib.nullcontext():
-                    res = backend.to_host(out)
+                    to_host_fn = getattr(backend, "to_host", None)
+                    res = (to_host_fn(out) if to_host_fn is not None
+                           else {k: _host(v) for k, v in out.items()})
                 if self._robust_active():
                     self._note_out_template(res)
             except Exception as e:
@@ -1371,6 +1486,32 @@ class MotionCorrector:
             lat.observe("request.drain", time.perf_counter() - t_host, n=n)
         else:
             drain(n, {k: v[:n] for k, v in res.items()}, kept, ref, failed)
+
+    def _drain_sync(self, n, out, kept, ref, drain, to_host: bool, emit_frames: bool,
+                    t_disp: float, t_disp_done: float, timer=None) -> None:
+        """Drain a batch a synchronous backend returned, in order, right
+        after its dispatch (corrector.py:1880-1897): frames dropped on
+        registration-only runs, tensors on the backend's device with
+        `to_host=False` (else the `drain_sync` stall of its host copy, as
+        corrector.py:1418-1425 times it), and the call's interval as the
+        device segment."""
+        if not emit_frames and "corrected" in out:
+            out = {k: v for k, v in out.items() if k != "corrected"}
+        if self._robust_active():
+            self._note_out_template(out)
+        if not to_host:
+            out = _on_device(out, _backend_device(self.backend))
+        elif timer is not None:
+            with timer.stall("drain_sync"):
+                out = {k: np.asarray(v) for k, v in out.items()}
+        tel = self._telemetry
+        lat = tel.latency if tel is not None else None
+        if lat is not None:
+            lat.observe("request.device", t_disp_done - t_disp, n=n)
+            t_host = time.perf_counter()
+        drain(n, {k: v[:n] for k, v in out.items()}, kept, ref, False)
+        if lat is not None:
+            lat.observe("request.drain", time.perf_counter() - t_host, n=n)
 
     @staticmethod
     def _failed_kept(out: dict, kept, failed: bool):
@@ -1418,8 +1559,9 @@ class MotionCorrector:
         `pipeline`, `plan_cache`, `robustness` and, with telemetry
         armed, `latency`; `escalated_at` is the first frame the
         escalation backend took."""
-        if not isinstance(stack, torch.Tensor):
-            stack = np.asarray(stack)
+        if not isinstance(stack, torch.Tensor) or (
+                getattr(self.backend, "process_batch_async", None) is None):
+            stack = _host(stack)  # a host backend reads host frames
         if stack.ndim not in (3, 4):
             raise ValueError(
                 f"stack must be (T, H, W) or (T, D, H, W), got shape {tuple(stack.shape)}"
@@ -1453,7 +1595,8 @@ class MotionCorrector:
         cast = (out_dt if out_dt is not None and np.issubdtype(out_dt, np.integer)
                 and self.template_update_every <= 0 else None)
         segs = self._segment_bounds(start_frame, T)
-        dev_tmpl = len(segs) > 1 and cfg.device_templates
+        dev_tmpl = (len(segs) > 1 and cfg.device_templates
+                    and hasattr(self.backend, "update_reference"))
         E = self.template_update_every
         tail_window = min(self.template_window, E) if E > 0 else 0
         dev_tail: list[tuple] = []
@@ -1509,7 +1652,7 @@ class MotionCorrector:
         if device_outputs:
             cat = torch.cat
             empty = torch.empty((0,) + tuple(stack.shape[1:]), dtype=torch.float32,
-                                device=self.backend.device)
+                                device=_backend_device(self.backend))
         else:
             cat = np.concatenate
             empty = np.empty((0,) + tuple(stack.shape[1:]), np.float32)
@@ -1747,7 +1890,7 @@ class MotionCorrector:
             roll = self.template_update_every > 0
             E = self.template_update_every
             W_roll = min(self.template_window, E) if roll else 0
-            dev_tmpl = roll and cfg.device_templates
+            dev_tmpl = roll and cfg.device_templates and hasattr(self.backend, "update_reference")
             dp_state = self._new_dispatch_state()
             dev_tail: list[tuple] = []
             tail: list[dict] = []  # host path: last-window (corrected, warp_ok)

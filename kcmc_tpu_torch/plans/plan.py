@@ -18,7 +18,10 @@ nvcc and reports `stamp_misses == 0`.
 
 Warm by execution, as the reference: the port runs eagerly, so there is
 no program to capture on the side; running the real entry points once
-is what leaves the process in the state production traffic needs.
+is what leaves the process in the state production traffic needs. A
+backend without a plan runtime (the numpy oracle, a plugin) is warmed
+the same way, through whichever of its entry points it has, and its
+summary carries no stamp counters (kcmc_tpu/plans/plan.py:98-146).
 """
 
 from __future__ import annotations
@@ -35,13 +38,15 @@ _DEFAULT_PROGRAMS = ("reference", "register", "update_reference", "apply")
 def kernel_libraries(backend, programs) -> list[str]:
     """The kernel libraries (`ops/cuda_build.SOURCES` names) the given
     programs launch on `backend`'s device under its config; none on the
-    CPU, where every wrapper takes its plain version."""
+    CPU, where every wrapper takes its plain version, nor for a backend
+    without a device (the numpy oracle)."""
     from kcmc_tpu_torch.config import BINS_FIRST_MIN_K
     from kcmc_tpu_torch.ops import cuda_warp_field
     from kcmc_tpu_torch.ops.cuda_warp import warp_translation
     from kcmc_tpu_torch.ops.cuda_warp_matrix import warp_batch_matrix
 
-    if backend.device.type != "cuda":
+    device = getattr(backend, "device", None)
+    if device is None or device.type != "cuda":
         return []
     cfg = backend.config
     progs = set(programs)
@@ -95,13 +100,14 @@ class ExecutionPlan:
         self.mc = corrector
         self.backend = corrector.backend
         self.config = corrector.config
-        plan = self.backend._plan
+        plan = getattr(self.backend, "_plan", None)
         if self.config.model == "rigid3d":
             raise ValueError(
                 "execution plans cover 2D models; rigid3d volumes "
                 "compile per (D, H, W) shape on first use"
             )
-        self.buckets = normalize_buckets(buckets) if buckets is not None else plan.buckets
+        self.buckets = (normalize_buckets(buckets) if buckets is not None
+                        else plan.buckets if plan is not None else ())
         if not self.buckets:
             raise ValueError(
                 "no shape buckets to build — set plan_buckets in the "
@@ -110,7 +116,8 @@ class ExecutionPlan:
             )
         self.dtypes = tuple(str(np.dtype(d)) for d in (dtypes or ("float32",)))
         progs = tuple(programs) if programs is not None else _DEFAULT_PROGRAMS
-        if "update_reference" in progs and corrector.template_update_every <= 0:
+        if "update_reference" in progs and (corrector.template_update_every <= 0
+                                            or not hasattr(self.backend, "update_reference")):
             progs = tuple(p for p in progs if p != "update_reference")
         self.programs = progs
 
@@ -121,16 +128,17 @@ class ExecutionPlan:
         from kcmc_tpu_torch.ops import cuda_build
 
         backend = self.backend
-        plan = backend._plan
-        before = plan.stats()
+        plan = getattr(backend, "_plan", None)
+        before = plan.stats() if plan is not None else None
         t0 = time.perf_counter()
         names = kernel_libraries(backend, self.programs)
         libs = cuda_build.build(names) if names else {}
-        plan.fresh.update(cuda_build.target(n) for n, v in libs.items() if not v["cached"])
+        if plan is not None:
+            plan.fresh.update(cuda_build.target(n) for n, v in libs.items() if not v["cached"])
+            plan.building = True
         libraries_s = time.perf_counter() - t0
         if progress and names:
             print(f"[plan] kernel libraries {names} ready", flush=True)
-        plan.building = True
         built = []
         try:
             for bucket in self.buckets:
@@ -157,8 +165,8 @@ class ExecutionPlan:
                     self._build_apply(bucket)
                     built.append(("apply", bucket, "float32"))
         finally:
-            plan.building = False
-        after = plan.stats()
+            if plan is not None:
+                plan.building = False
         summary = {
             "buckets": [list(b) for b in self.buckets],
             "dtypes": list(self.dtypes),
@@ -169,12 +177,14 @@ class ExecutionPlan:
                           for n, v in libs.items()},
             "libraries_s": round(libraries_s, 3),
         }
-        for k in ("stamp_hits", "stamp_misses", "programs_compiled"):
-            summary[k] = after[k] - before[k]
-        summary["compile_s"] = round(after["compile_s"] - before["compile_s"], 3)
-        summary["persistent"] = after["persistent"]
-        summary["cache_dir"] = after["cache_dir"]
-        summary["plan_cache"] = after
+        if plan is not None:
+            after = plan.stats()
+            for k in ("stamp_hits", "stamp_misses", "programs_compiled"):
+                summary[k] = after[k] - before[k]
+            summary["compile_s"] = round(after["compile_s"] - before["compile_s"], 3)
+            summary["persistent"] = after["persistent"]
+            summary["cache_dir"] = after["cache_dir"]
+            summary["plan_cache"] = after
         return summary
 
     # -- one warm-up per program -------------------------------------------
@@ -184,6 +194,9 @@ class ExecutionPlan:
         dt = np.dtype(dtype)
         batch = np.zeros((B,) + tuple(bucket), dt)
         idx = np.arange(B, dtype=np.int64)
+        if getattr(self.backend, "process_batch_async", None) is None:
+            # a synchronous backend: the plain entry point, host outputs
+            return self.backend.process_batch(batch, ref, idx)
         cast = dt if np.issubdtype(dt, np.integer) else None
         out = self.backend.process_batch(batch, ref, idx, to_host=False, cast_dtype=cast)
         # read one small per-frame output back: the run has finished
@@ -193,17 +206,27 @@ class ExecutionPlan:
     def _build_update(self, ref, out):
         mc = self.mc
         W = min(mc.template_window, mc.template_update_every)
-        corrected = out["corrected"][:W].to(torch.float32)
-        ok = torch.ones(corrected.shape[0], dtype=torch.bool, device=corrected.device)
+        corrected = out.get("corrected")
+        if corrected is None:
+            return
+        if isinstance(corrected, torch.Tensor):
+            corrected = corrected[:W].to(torch.float32)
+            ok = torch.ones(corrected.shape[0], dtype=torch.bool, device=corrected.device)
+        else:
+            corrected = np.asarray(corrected[:W], np.float32)
+            ok = np.ones(len(corrected), bool)
         self.backend.update_reference(ref, [corrected], [ok], W, mc.template_update_alpha)
 
     def _build_apply(self, bucket) -> None:
         """Warm `apply_correction`'s batch warp for this bucket at the
         corrector's batch size (K7 for the matrix models, K8 for
-        piecewise grids it takes)."""
+        piecewise grids it takes); only the torch backend's, as the
+        reference warms only its jax backend's (plan.py:206)."""
         from kcmc_tpu_torch.ops.warp import fast_apply_fields, fast_apply_matrix
 
         backend = self.backend
+        if getattr(backend, "name", "") != "torch":
+            return
         B = self.config.batch_size
         dev = backend.device
         frames = torch.zeros((B,) + tuple(bucket), dtype=torch.float32, device=dev)

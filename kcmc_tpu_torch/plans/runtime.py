@@ -122,7 +122,7 @@ def device_name(device: torch.device) -> str:
 
 class PlanRuntime:
     def __init__(self, config, backend_name: str = "torch", device=None,
-                 routing: bool = True, libraries=None, mesh=None):
+                 libraries=None, mesh=None):
         self.config = config
         # the mesh's shape is part of every stamp key (runtime.py:79-80)
         self.mesh_shape = (len(mesh),) if mesh is not None else None
@@ -134,7 +134,7 @@ class PlanRuntime:
         self.fresh: set = set()
         self.backend_name = backend_name
         self.device = torch.device("cpu") if device is None else torch.device(device)
-        self.buckets = normalize_buckets(config.plan_buckets) if routing else ()
+        self.buckets = normalize_buckets(config.plan_buckets)
         self.cache_dir = resolve_cache_dir(config)
         self.cache = PlanCache(self.cache_dir)
         # consensus-budget rung label ("full"; the reference's serving

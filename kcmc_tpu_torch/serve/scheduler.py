@@ -1,8 +1,12 @@
 """StreamScheduler: cross-session batching, fairness, and QoS admission
 (the port's copy of kcmc_tpu/serve/scheduler.py).
 
-The resident serving plane's core loop. One warm `TorchBackend` (owned
-by the corrector the scheduler is built around) serves every session:
+The resident serving plane's core loop. One warm backend (a
+`TorchBackend` on the card, or any registered backend; owned by the
+corrector the scheduler is built around) serves every session. A
+backend without `process_batch_async` (the NumPy oracle, a plugin) is
+dispatched through its plain `process_batch`, its host outputs drained
+in order:
 
 * **Cross-stream batching** — ready frames are taken per session (each
   device batch carries ONE session's reference, the per-entry-ref
@@ -71,7 +75,7 @@ from collections import deque
 
 import numpy as np
 
-from kcmc_tpu_torch.backends.torch_backend import TorchBackend
+from kcmc_tpu_torch.backends import get_backend
 from kcmc_tpu_torch.obs.latency import SegmentLatencies
 from kcmc_tpu_torch.obs.log import advise
 from kcmc_tpu_torch.plans.buckets import batch_ladder, route_batch
@@ -1394,10 +1398,11 @@ class StreamScheduler:
         consensus-stage knobs shrink (hypothesis budgets, refine/polish
         passes) while every reference-preparation knob stays identical,
         so a session's prepared reference is valid on both backends. A
-        `TorchBackend` on the primary's device and mesh, built the way
-        the corrector builds its escalation backend; it launches the
-        same kernels. Built once (prewarmed from `start`; the build lock
-        keeps the warm thread and the scheduler thread from racing)."""
+        backend of the primary's name through the registry, on its
+        device and mesh, built the way the corrector builds its
+        escalation backend; it launches the same kernels. Built once
+        (prewarmed from `start`; the build lock keeps the warm thread
+        and the scheduler thread from racing)."""
         with self._degraded_build:
             if self._degraded_backend is None:
                 cfg = self.mc.config
@@ -1409,12 +1414,14 @@ class StreamScheduler:
                     field_polish=min(int(cfg.field_polish), 1),
                     transform_polish=0,
                 )
-                backend = _twin_backend(self.mc.backend, dcfg)
+                backend = _twin_backend(self.mc, dcfg)
                 # Tag the reduced-budget rung in its plan runtime: its
                 # stamps and stats are labelled "degraded" (the config
                 # digest already differs; the label makes stats and
                 # stamps readable).
-                backend._plan.rung = "degraded"
+                plan = getattr(backend, "_plan", None)
+                if plan is not None:
+                    plan.rung = "degraded"
                 # Publish under the PLANE lock: stats() reads the
                 # handle there without ever waiting behind this
                 # build; _degraded_build serializes the builds.
@@ -1907,9 +1914,13 @@ class StreamScheduler:
         `why` is the pick's dispatch-decision reason: counted in
         `stats`, mirrored as a registry-checked SpanShard counter when
         tracing is armed, and ridden on the request.dispatch span."""
-        # the backend takes native-dtype batches (uint16 uploads at
-        # half the bytes and widens on the card)
-        dispatch = backend.process_batch_async
+        # the torch backend takes native-dtype batches (uint16 uploads at
+        # half the bytes and widens on the card); a backend without the
+        # asynchronous seam runs each batch in a plain process_batch
+        # (scheduler.py:1833-1837)
+        if not getattr(backend, "accepts_native_dtype", False) and batch.dtype != np.float32:
+            batch = batch.astype(np.float32)
+        dispatch = getattr(backend, "process_batch_async", None)
         with self._lock:
             # scheduler-thread QoS counters share the plane lock with
             # the stats()/snapshot() readers
@@ -1927,7 +1938,8 @@ class StreamScheduler:
         kept = batch if pixels else None
         # registration-only sessions start no corrected download
         kw = {"emit_frames": pixels}
-        warm = sess.mc.config.warm_start and sess.mc.config.model != "piecewise"
+        warm = (sess.mc.config.warm_start and sess.mc.config.model != "piecewise"
+                and dispatch is not None)
         if warm and sess.warm_seed is not None:
             # Temporal warm start, per SESSION: each stream's own last
             # transform seeds its next batch's consensus (streams are
@@ -1941,7 +1953,10 @@ class StreamScheduler:
         try:
             if plan is not None:
                 plan.maybe_fail("device", step)
-            out = dispatch(batch, ref, idx, **kw)
+            if dispatch is not None:
+                out = dispatch(batch, ref, idx, **kw)
+            else:
+                out = backend.process_batch(batch, ref, idx)
         except Exception as e:
             from kcmc_tpu_torch.utils import faults
 
@@ -1979,10 +1994,11 @@ class StreamScheduler:
 
     def _drain_one(self) -> None:
         """Drain the oldest in-flight entry: materialize to host through
-        `TorchBackend.to_host` (it waits on the downloads' event, where
-        a deferred device error surfaces — it walks the ladder — and
-        copies the arrays out of the pooled pinned buffers before they
-        go back to the pool), then hand the batch to its session."""
+        the backend's `to_host` where it has one (`TorchBackend.to_host`
+        waits on the downloads' event, where a deferred device error
+        surfaces — it walks the ladder — and copies the arrays out of
+        the pooled pinned buffers before they go back to the pool), then
+        hand the batch to its session."""
         with self._lock:
             if not self._window:
                 return
@@ -2006,9 +2022,10 @@ class StreamScheduler:
             # dispatched with emit_frames=False, so `corrected` stays on
             # the card and never downloads — the same drop the one-shot
             # registration-only path makes.
+            to_host = getattr(backend, "to_host", None)
             host = {
-                k: v[:n]
-                for k, v in backend.to_host(out).items()
+                k: np.asarray(v)[:n]
+                for k, v in (to_host(out) if to_host is not None else out).items()
                 if sess.wants_pixels() or k != "corrected"
             }
             sess.mc._note_out_template(host)
@@ -2178,8 +2195,8 @@ class StreamScheduler:
 
     def _rebuild_backend(self) -> None:
         """Quarantine recovery (non-daemon warm-up thread, joined on
-        stop): construct a FRESH primary `TorchBackend` on the same
-        device and mesh — its kernel libraries load from the build
+        stop): construct a FRESH primary backend of the same name on the
+        same device and mesh — its kernel libraries load from the build
         directory or the persistent cache, nothing recompiles —
         pre-warm each live session's frame shape on it, then swap it in
         under the plane lock. Sessions re-stage their references so the
@@ -2196,7 +2213,7 @@ class StreamScheduler:
         try:
             # forward the mesh like the corrector's escalation backend
             # — a rebuild must not silently unshard the plane
-            new = _twin_backend(self.mc.backend, self.mc.config)
+            new = _twin_backend(self.mc, self.mc.config)
             with self._lock:
                 shapes = {
                     tuple(s.frame_shape): s.ref_frame
@@ -2257,10 +2274,11 @@ class StreamScheduler:
             self._maybe_restore_locked(sess)
 
 
-def _twin_backend(primary, config) -> TorchBackend:
-    """A `TorchBackend` of `config` on the primary's device and mesh
-    (the degraded rung, a rebuilt primary), built as the corrector
-    builds its escalation backend."""
-    return TorchBackend(
-        config, device=primary.device, mesh=primary.mesh, mesh_devices=False
-    )
+def _twin_backend(mc, config):
+    """A backend of `config` under the corrector's backend name, through
+    the registry, on the primary's device and mesh (the degraded rung, a
+    rebuilt primary; scheduler.py:1325-1336, :2094-2102), built as the
+    corrector builds its escalation backend."""
+    from kcmc_tpu_torch.corrector import twin_options
+
+    return get_backend(mc.backend_name, config, **twin_options(mc.backend))

@@ -340,6 +340,7 @@ def serve_main(args) -> int:
     overrides = dict(args.overrides)
     mc = MotionCorrector(
         model=args.model,
+        backend=getattr(args, "backend", "torch"),
         device=args.device,
         reference=args.reference,
         template_update_every=args.template_update,

@@ -1,13 +1,15 @@
-"""Stream checkpoints of `MotionCorrector.correct_file` (the port's copy
-of kcmc_tpu/utils/checkpoint.py, without its in-memory
-`ResumableCorrector`: `correct_file(checkpoint=)` is the port's one
-resume path).
+"""Checkpoints and resume (the port's copy of
+kcmc_tpu/utils/checkpoint.py): the stream checkpoints of
+`MotionCorrector.correct_file` and the in-memory `ResumableCorrector`.
 
-A 10k-frame recording takes minutes even on the card; the checkpoint
-holds the per-batch results (transforms/fields + diagnostics), the
-frame cursor and the output writer's state, in append-only parts with
-sha256 checks, so an interrupted run continues from the last saved
-cursor instead of frame 0 and writes the same bytes.
+A 10k-frame recording takes minutes even on the card; the stream
+checkpoint holds the per-batch results (transforms/fields +
+diagnostics), the frame cursor and the output writer's state, in
+append-only parts with sha256 checks, so an interrupted run continues
+from the last saved cursor instead of frame 0 and writes the same
+bytes. `ResumableCorrector` does the same for a stack in memory, per
+chunk of frames, and re-warps the corrected frames from the saved
+transforms instead of storing them.
 """
 
 from __future__ import annotations
@@ -235,3 +237,147 @@ def load_stream_checkpoint(path: str, fault_plan=None, report=None):
             return meta, segments
         segments.extend(part)
     return meta, segments
+
+
+class ResumableCorrector:
+    """Wraps a MotionCorrector with chunk-level checkpoint/resume
+    (kcmc_tpu/utils/checkpoint.py:240-386).
+
+    Usage:
+        rc = ResumableCorrector(mc, "run1.ckpt.npz", chunk_frames=512)
+        result = rc.correct(stack)   # safe to kill + rerun: resumes
+
+    The checkpoint stores the recovered transforms/fields and
+    diagnostics of every completed chunk plus the frame cursor, keyed by
+    `repr(config)` and the frame count (a mismatch restarts from frame
+    0). `correct` returns the same CorrectionResult as MotionCorrector,
+    its corrected frames re-warped from the transforms on the
+    corrector's backend device (on the card K7 or K8 with their exact
+    per-frame fallback, and the volume warp for rigid3d; on the CPU the
+    gather warps), a batch of frames at a time; `timing` carries the
+    `resume_restore` stage and `restored_frames`.
+    """
+
+    def __init__(self, corrector, path: str, chunk_frames: int = 512):
+        if getattr(corrector, "template_update_every", 0) > 0:
+            # Each resumed chunk calls correct(start_frame=done), which
+            # starts from the INITIAL template — the evolving template
+            # is not persisted here, so the merged result would
+            # silently diverge from a one-shot run. correct_file's
+            # checkpoint path carries the template; use that instead.
+            raise ValueError(
+                "ResumableCorrector does not support rolling template "
+                "updates (template_update_every > 0): a resumed chunk "
+                "would restart from the initial template and diverge "
+                "from a one-shot run. Use "
+                "MotionCorrector.correct_file(checkpoint=...), which "
+                "persists the evolving template."
+            )
+        self.corrector = corrector
+        self.path = path
+        self.chunk_frames = int(chunk_frames)
+
+    # -- checkpoint io -----------------------------------------------------
+
+    def _load(self):
+        if not os.path.exists(self.path):
+            return None
+        with np.load(self.path, allow_pickle=False) as z:
+            meta = json.loads(str(z["meta"]))
+            arrays = {k: z[k] for k in z.files if k != "meta"}
+        return meta, arrays
+
+    def _save(self, meta: dict, arrays: dict) -> None:
+        # atomic replace so a mid-write kill can't corrupt the checkpoint
+        atomic_savez(self.path, meta=json.dumps(meta), **arrays)
+
+    # -- main loop ---------------------------------------------------------
+
+    def correct(self, stack: np.ndarray, progress: bool = False):
+        stack = np.asarray(stack)
+        T = len(stack)
+        cfg_sig = repr(self.corrector.config)
+
+        # Pin the reference frame from the FULL stack before chunking:
+        # otherwise every chunk would re-select its reference from the
+        # chunk itself (frame `lo`, or the chunk-local mean), and the
+        # merged transforms would be mutually inconsistent.
+        pinned_reference = self.corrector._select_reference(stack)
+        orig_reference = self.corrector.reference
+        self.corrector.reference = pinned_reference
+        try:
+            return self._correct_chunks(stack, T, cfg_sig, progress)
+        finally:
+            self.corrector.reference = orig_reference
+
+    def _correct_chunks(self, stack, T, cfg_sig, progress):
+        from kcmc_tpu_torch.corrector import CorrectionResult
+        from kcmc_tpu_torch.utils.metrics import StageTimer
+
+        done = 0
+        chunks: list[dict] = []
+        state = self._load()
+        if state is not None:
+            meta, arrays = state
+            if meta.get("config") == cfg_sig and meta.get("n_frames") == T:
+                done = int(meta["done"])
+                chunks = _split_segments(arrays)
+            # config/stack mismatch: restart from scratch (stale checkpoint)
+
+        timer = StageTimer()
+        with timer.stage("resume_restore"):
+            restored = done
+
+        while done < T:
+            hi = min(done + self.chunk_frames, T)
+            with timer.stage("register_batches"):
+                # Full stack + bounds: keeps global frame indices so the
+                # chunked run reproduces the one-shot run exactly.
+                part = self.corrector.correct(stack, start_frame=done, end_frame=hi)
+            chunk = dict(part.diagnostics)
+            if part.transforms is not None:
+                chunk["transform"] = part.transforms
+            if part.fields is not None:
+                chunk["field"] = part.fields
+            chunks.append(chunk)
+            done = hi
+            self._save(
+                {
+                    "config": cfg_sig,
+                    "n_frames": T,
+                    "done": done,
+                    "n_chunks": len(chunks),
+                },
+                _segment_arrays(chunks),
+            )
+            if progress:
+                print(f"[kcmc.resume] {done}/{T} frames checkpointed", flush=True)
+
+        merged = {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
+        transforms = merged.pop("transform", None)
+        fields = merged.pop("field", None)
+
+        # Re-warp every chunk from its transforms (cheap relative to
+        # registration).
+        with timer.stage("warp"):
+            corrected = self._rewarp(stack, transforms, fields)
+        return CorrectionResult(
+            corrected=corrected,
+            transforms=transforms,
+            fields=fields,
+            diagnostics=merged,
+            timing={**timer.report(n_frames=T), "restored_frames": restored},
+        )
+
+    def _rewarp(self, stack, transforms, fields) -> np.ndarray:
+        """The corrected frames from the merged transforms or fields,
+        through `apply_correction` on the corrector's backend device."""
+        from kcmc_tpu_torch.corrector import _backend_device, apply_correction
+
+        return apply_correction(
+            stack,
+            transforms=transforms,
+            fields=fields,
+            batch_size=self.corrector.config.batch_size,
+            device=_backend_device(self.corrector.backend),
+        )

@@ -109,7 +109,7 @@ def stage_breakdown(
     """
     import numpy as np
 
-    from kcmc_tpu_torch.backends.torch_backend import TorchBackend
+    from kcmc_tpu_torch.backends import get_backend
     from kcmc_tpu_torch.config import CorrectorConfig
     from kcmc_tpu_torch.ops.describe import describe_keypoints_batch
     from kcmc_tpu_torch.ops.detect import detect_keypoints_batch
@@ -124,7 +124,7 @@ def stage_breakdown(
             f"got model={model!r}"
         )
     cfg = CorrectorConfig(model=model, batch_size=batch_size, **config_overrides)
-    backend = TorchBackend(cfg, device=device)
+    backend = get_backend("torch", cfg, device=device)
     dev = backend.device
     gen_kw = {}
     if n_blobs is not None:

@@ -720,8 +720,14 @@ def test_root_names_resolve_in_the_port():
     for name in ROOT_NAMES:
         assert getattr(kcmc_tpu_torch, name) is getattr(homes[where[name]], name), name
     assert models.__all__ == ["MODELS", "TransformModel", "apply_transform", "get_model"]
+    # the backend registry resolves at the root as in the reference;
+    # a name neither package exports still raises
+    from kcmc_tpu_torch import backends
+
+    for name in ("available_backends", "get_backend", "register_backend"):
+        assert getattr(kcmc_tpu_torch, name) is getattr(backends, name), name
     with pytest.raises(AttributeError):
-        kcmc_tpu_torch.get_backend  # noqa: B018 - the registry is left out
+        kcmc_tpu_torch.not_a_root_name  # noqa: B018
 
 
 def test_root_import_pulls_in_no_torch():

@@ -202,13 +202,27 @@ def test_correct_transforms_equal_correct_file_and_near_jax(files, port_run, cap
     assert transform_rmse(npz["transforms"], np.load(jnpz)["transforms"], (64, 64)) <= 1e-3
 
 
-def test_correct_numpy_backend_is_the_cpu(files, port_run, capsys):
-    npz = str(files["dir"] / "numpy.npz")
-    assert tmain(["correct", files["tif"], "--backend", "numpy", *BATCH,
-                  "--transforms", npz]) == 0
+@pytest.mark.parametrize("route", ["device_cpu", "numpy"])
+def test_correct_numpy_backend_is_the_cpu(files, port_run, capsys, route):
+    """`--device cpu` runs the torch backend's plain versions, equal to
+    `port_run`; `--backend numpy` runs the NumPy oracle, whose transforms
+    equal the reference CLI's `--backend numpy` ones by bytes."""
+    npz = str(files["dir"] / f"{route}.npz")
+    argv = ([*CPU, "correct", files["tif"]] if route == "device_cpu"
+            else ["correct", files["tif"], "--backend", "numpy"])
+    assert tmain([*argv, *BATCH, "--transforms", npz]) == 0
     s = _json_out(capsys)
-    assert s["backend"] == "numpy" and s["output"] is None
-    assert np.array_equal(np.load(npz)["transforms"], np.load(port_run["npz"])["transforms"])
+    assert s["backend"] == ("torch" if route == "device_cpu" else "numpy")
+    assert s["output"] is None
+    if route == "device_cpu":
+        want = np.load(port_run["npz"])["transforms"]
+    else:
+        jnpz = str(files["dir"] / "ref_numpy.npz")
+        assert _jmain(["correct", files["tif"], "--backend", "numpy", *BATCH,
+                       "--transforms", jnpz]) == 0
+        capsys.readouterr()
+        want = np.load(jnpz)["transforms"]
+    assert np.load(npz)["transforms"].tobytes() == want.tobytes()
 
 
 def test_correct_rigid3d_volumes(files, capsys):
@@ -240,7 +254,7 @@ def test_stabilize_smooths_the_registration(files, port_run, capsys):
     from kcmc_tpu_torch.utils.trajectory import smooth_trajectory
 
     out, npz = str(files["dir"] / "stab.tif"), str(files["dir"] / "stab.npz")
-    assert tmain(["stabilize", files["tif"], "-o", out, "--backend", "numpy", *BATCH,
+    assert tmain([*CPU, "stabilize", files["tif"], "-o", out, *BATCH,
                   "--sigma", "3", "--transforms", npz]) == 0
     s = _json_out(capsys)
     assert set(s) == {"model", "sigma_frames", "output", "mean_inliers"}
@@ -263,7 +277,7 @@ def test_warmup_builds_the_bucket(files, capsys):
     from kcmc_tpu_torch.plans.cache import disable_compile_cache
 
     try:
-        rc = tmain(["warmup", "--backend", "numpy", "--buckets", "48", "--batch-size", "4",
+        rc = tmain([*CPU, "warmup", "--buckets", "48", "--batch-size", "4",
                     "--max-keypoints", "64", "--compile-cache", str(files["dir"] / "cache")])
         assert rc == 0
         stats = _json_out(capsys)
@@ -395,7 +409,9 @@ def test_port_only_error_paths(files, capsys):
     assert "needs a CUDA card" in code
     code = _exit([*CPU, "correct", files["zstack"], "--model", "rigid3d", "--volume-depth",
                   "8", "--checkpoint", "c.npz"])
-    assert "has no resume" in code and "ResumableCorrector" not in code
+    assert code == ("--checkpoint is not supported with --model rigid3d (the volumetric "
+                    "path runs in memory; use kcmc_tpu_torch.utils.checkpoint."
+                    "ResumableCorrector from Python for chunk-level resume)")
     if not torch.cuda.is_available():
         assert "--device cpu" in _exit(["correct", files["tif"]])
         assert "--device cpu" in _exit(["serve", "--port", "0"])

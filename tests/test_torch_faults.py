@@ -4,8 +4,9 @@ checks, stream checkpoints (parts, checksums, quarantine, the rewind to
 the last good prefix), and the degradation ladder of `correct_file`
 against the reference's `backend="numpy"` run under the same fault
 specs. The failover rung, which the reference's numpy primary never
-takes, is held by the port's own invariants; a real error of the batch
-program raises."""
+takes, is held by the port's own invariants and against the port's
+NumpyBackend oracle, which it runs; a real error of the batch program
+raises."""
 
 import dataclasses
 import errno
@@ -293,19 +294,39 @@ def test_ladder_matches_reference_numpy(tif, spec, extra):
     assert transform_rmse(got.transforms, want.transforms, SHAPE) <= 1e-4
 
 
+def _oracle_batch(mc, stack, lo, hi):
+    """The port's NumpyBackend (through `get_backend`, with its own
+    prepared reference) on frames lo..hi-1: what the failover rung must
+    have run. Returns (transforms, frames cast like the run's)."""
+    fb = kcmc_tpu_torch.get_backend("numpy", mc.config)
+    ref = fb.prepare_reference(np.asarray(stack[0], np.float32))
+    out = fb.process_batch(stack[lo:hi], ref, np.arange(lo, hi))
+    frames = np.clip(np.rint(out["corrected"]), 0, 65535).astype(stack.dtype)
+    return out["transform"], frames
+
+
+FAILOVER = np.arange(24) // 4 == 2  # device:step=2 is the batch of frames 8..11
+
+
 def test_failover_rung_invariants(tif, clean, tmp_path):
     """A fault that exhausts the retries leaves one failover; the
-    failover names the batch; every frame equals a clean run's (the
-    failover is the same algorithm on the CPU)."""
+    failover names the batch; every other frame equals a clean run's,
+    and the failed-over batch equals the NumpyBackend oracle's run of
+    it, bit for bit (the rung runs the oracle, not the code under
+    test)."""
+    mc = kcmc_tpu_torch.MotionCorrector(device="cpu", fault_plan="device:step=2:always", **KW)
     with pytest.warns(RuntimeWarning, match="failover backend"):
-        got = kcmc_tpu_torch.MotionCorrector(
-            device="cpu", fault_plan="device:step=2:always", **KW
-        ).correct_file(tif, chunk_size=8, output=str(tmp_path / "out.tif"))
+        got = mc.correct_file(tif, chunk_size=8, output=str(tmp_path / "out.tif"))
     rb = got.timing["robustness"]
     assert (rb["device_retries"], rb["backend_failovers"], rb["failover_frames"],
             rb["failed_frames"]) == (2, 1, 4, 0)
-    np.testing.assert_array_equal(got.transforms, clean.transforms)
-    np.testing.assert_array_equal(read_stack(str(tmp_path / "out.tif")), clean.corrected)
+    assert mc._robustness.failover_frame_indices == [8, 9, 10, 11]
+    written = read_stack(str(tmp_path / "out.tif"))
+    np.testing.assert_array_equal(got.transforms[~FAILOVER], clean.transforms[~FAILOVER])
+    np.testing.assert_array_equal(written[~FAILOVER], clean.corrected[~FAILOVER])
+    transforms, frames = _oracle_batch(mc, read_stack(tif), 8, 12)
+    np.testing.assert_array_equal(got.transforms[FAILOVER], transforms)
+    np.testing.assert_array_equal(written[FAILOVER], frames)
 
 
 def test_failover_frame_indices_and_correct_ladder(tif, clean):
@@ -317,7 +338,8 @@ def test_failover_frame_indices_and_correct_ladder(tif, clean):
     with pytest.warns(RuntimeWarning, match="frames 8..11 failed 3 attempt"):
         got = mc.correct(stack, output_dtype="input")
     assert mc._robustness.failover_frame_indices == [8, 9, 10, 11]
-    np.testing.assert_array_equal(got.corrected, clean.corrected)
+    np.testing.assert_array_equal(got.corrected[~FAILOVER], clean.corrected[~FAILOVER])
+    np.testing.assert_array_equal(got.corrected[FAILOVER], _oracle_batch(mc, stack, 8, 12)[1])
     got = _run_port(tif, fault_plan="device:step=1:times=2, io_read:step=1:transient")
     rb = got.timing["robustness"]
     assert (rb["device_retries"], rb["io_retries"], rb["faults_injected"]) == (2, 1, 3)

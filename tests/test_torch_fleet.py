@@ -784,7 +784,7 @@ def test_router_cli_spawned_fleet_survives_a_sigkill(tmp_path, capsys):
         [sys.executable, "-m", "kcmc_tpu_torch", "--device", "cpu", "router",
          "--port", "0", "--spawn", "2", "--probe-interval", "0.25",
          "--journal-dir", str(tmp_path / "journals"),
-         "--serve-args", "--backend numpy --batch-size 8 --max-keypoints 64 "
+         "--serve-args", "--batch-size 8 --max-keypoints 64 "
          "--hypotheses 32 --journal-every 4"],
         stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, cwd=REPO,
         env={**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"},

@@ -213,6 +213,9 @@ def test_port_imports_neither_jax_nor_kcmc_tpu():
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
     assert len(names) >= 28
+    # the backend registry and its NumPy oracle, with its kernels
+    assert {"kcmc_tpu_torch.backends.numpy_backend",
+            "kcmc_tpu_torch.backends._np_kernels"} <= set(names)
     for mod in ("ops.piecewise", "ops.cuda_warp_field", "ops.cuda_patch", "ops.dispatch",
                 "ops.detect3d", "ops.describe3d", "ops.cuda_detect3d", "ops.cuda_patch3d",
                 "ops.pyramid", "ops.warp_separable", "ops.match_banded", "ops.warp_field",

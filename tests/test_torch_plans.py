@@ -506,17 +506,25 @@ def test_exact_and_fallback_counters(drift_stack):
 
 
 def test_failover_backend_ignores_buckets(drift_stack):
+    """The failover backend, the numpy oracle, accepts and ignores
+    plan_buckets, so a bucketed config fails over without a scrub: the
+    reference's own check of its numpy backend (tests/test_plans.py:
+    224-235), plus the failover's reference and batch."""
+    plain = _port(drift_stack, backend="numpy", device=None)
+    routed = _port(drift_stack, backend="numpy", device=None, plan_buckets=(BUCKET,))
+    np.testing.assert_array_equal(routed.transforms, plain.transforms)
+    assert "plan_cache" not in routed.timing
     mc = kcmc_tpu_torch.MotionCorrector(model="translation", device="cpu", batch_size=4,
                                         max_keypoints=100, transform_polish=0,
                                         plan_buckets=(BUCKET,), failover_backend="numpy")
     fb = mc._get_failover_backend()
-    assert not fb._plan.active and fb.config.plan_buckets == ((64, 80),)
+    assert fb.name == "numpy" and fb.config.plan_buckets == ((64, 80),)
+    assert fb.runtime_info()["plan_buckets_ignored"] == [[64, 80]]
     ref = fb.prepare_reference(drift_stack[0])
     assert "_plan_frame" not in ref
     out = fb.process_batch(drift_stack[:4], ref, np.arange(4))
     assert out["corrected"].shape == (4,) + SHAPE
-    assert fb.plan_cache_stats()["bucket_fallback"] == 0
-    np.testing.assert_array_equal(out["transform"], _port(drift_stack).transforms[:4])
+    np.testing.assert_array_equal(out["transform"], plain.transforms[:4])
 
 
 # -- warmup, the persistent cache and the retrace sentinel --------------------

@@ -35,6 +35,16 @@ STAGE = dict(max_keypoints=192, detect_threshold=1e-4, nms_size=5, border=16,
              oriented=True)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Many small tensor ops: torch's intra-op threads only slow them
+    down when several test processes share the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ---------------------------------------------------------------------------
 # geometry and resize
 
@@ -282,14 +292,19 @@ def pyramid_runs(drift):
     """Each port route beside the reference's route of the same warp on
     the CPU: the separable chain (port "auto", reference
     warp="separable") and the gather warp (port "jnp", the reference's
-    "auto" off the accelerator)."""
+    "auto" off the accelerator). The reference's separable corrector is
+    kept under "jax_separable": its prepared programs serve the
+    carried-reference case below."""
     out = {}
     for twarp, jwarp in (("auto", "separable"), ("jnp", "auto")):
-        want = kcmc_tpu.MotionCorrector(model="similarity", n_octaves=3, backend="jax",
-                                        warp=jwarp).correct(drift.stack)
+        jmc = kcmc_tpu.MotionCorrector(model="similarity", n_octaves=3, backend="jax",
+                                       warp=jwarp)
+        want = jmc.correct(drift.stack)
         got = kcmc_tpu_torch.MotionCorrector(model="similarity", n_octaves=3, device="cpu",
                                              warp=twarp).correct(drift.stack)
         out[twarp] = (want, got)
+        if jwarp == "separable":
+            out["jax_separable"] = jmc
     return out
 
 
@@ -311,12 +326,12 @@ def test_pyramid_slice_matches_jax_backend(pyramid_runs, drift, route, record_pr
     assert got.diagnostics["warp_ok"].all() and not got.diagnostics["warp_rescued"].any()
 
 
-def test_batch_program_on_jax_prepared_pyramid_reference(drift):
+def test_batch_program_on_jax_prepared_pyramid_reference(drift, pyramid_runs):
     """A multi-scale reference prepared by kcmc_tpu (3 x 176 slots at the
     default K) carried across: the port registers a batch against it as
     against its own."""
-    jmc = kcmc_tpu.MotionCorrector(model="similarity", n_octaves=3, backend="jax",
-                                   warp="separable")
+    jmc = pyramid_runs["jax_separable"]
+    assert jmc.config.warp == "separable" and jmc.config.n_octaves == 3
     jref = jmc.backend.prepare_reference(drift.stack[0])
     assert np.asarray(jref["xy"]).shape == (528, 2)
     tb = TorchBackend(kcmc_tpu_torch.config_from_dict(dataclasses.asdict(jmc.config)),
